@@ -1,0 +1,56 @@
+"""horovod_tpu_torch — the PyTorch and CUDA port of ``horovod_tpu``.
+
+A package beside the JAX package, never importing it (nor JAX): its module
+paths mirror ``horovod_tpu``'s so each counterpart is easy to find, and its
+kernels are written by hand for Hopper (``csrc/``). Entry points run on
+``cuda:<local_rank>`` unless the caller passes ``device="cpu"``.
+
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(opt, named_parameters=model.named_parameters())
+"""
+
+from .ops.collectives import (  # noqa: F401
+    Adasum,
+    Average,
+    Max,
+    Min,
+    Product,
+    ReduceOp,
+    Sum,
+)
+from .torch import (  # noqa: F401  (the Horovod surface)
+    Compression,
+    DistributedOptimizer,
+    HorovodInternalError,
+    ProcessSet,
+    allreduce,
+    allreduce_,
+    allreduce_async,
+    allreduce_async_,
+    barrier,
+    broadcast,
+    broadcast_async,
+    broadcast_async_,
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+    cross_rank,
+    cross_size,
+    device,
+    global_process_set,
+    grouped_allreduce,
+    grouped_allreduce_,
+    grouped_allreduce_async,
+    grouped_allreduce_async_,
+    init,
+    is_initialized,
+    local_rank,
+    local_size,
+    poll,
+    rank,
+    shutdown,
+    size,
+    synchronize,
+)

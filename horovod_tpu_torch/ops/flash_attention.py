@@ -1,0 +1,237 @@
+"""Flash attention: the hand-written Hopper forward kernel and its plain
+PyTorch versions — counterpart of
+``horovod_tpu/ops/pallas/flash_attention.py``.
+
+The forward is the CUDA kernel in ``csrc/flash_attention.cu`` (it replaces
+the Pallas kernel launched at ``flash_attention.py:122``): q ``[B, sq, d]``,
+k/v ``[B, sk, d]`` → normalized o ``[B, sq, d]`` plus the fp32 online-
+softmax stats m (running max) and l (running sum) ``[B, sq]``, which ring
+attention combines exactly across rounds.
+
+The backward is not a kernel, as in the JAX package (``_stats_bwd``/``_bwd``
+:263-286): it recomputes through ``scan_stats``, a blockwise loop over K/V
+blocks with each block under ``torch.utils.checkpoint``, so neither
+direction keeps a ``[B, sq, sk]`` score tensor. Only q, k and v are saved.
+
+Dispatch: a CPU tensor takes the plain ``lax_stats`` path; a CUDA tensor
+launches the kernel or raises. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+NEG_INF = -1e30
+
+# kernel launches made by _kernel_fwd (read and reset by chip_smoke.py)
+launches = 0
+
+_KERNEL_D = (32, 64, 128)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        from . import _build
+
+        fn = _build.load("flash_attention").hvd_flash_fwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                       ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check_blocks(sq: int, sk: int, block_q: int, block_k: int):
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(
+            f"sequence lengths ({sq}, {sk}) must be divisible by the block "
+            f"sizes ({bq}, {bk}); pick block_q/block_k that tile the "
+            "sequence or use the blockwise fallback (scan_stats / "
+            "use_flash=False)")
+
+
+def _kernel_fwd(q, k, v, causal: bool, causal_offset: int):
+    """Launch the CUDA forward on q's device and PyTorch's current stream."""
+    global launches
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"expected q [B, sq, d] and k, v [B, sk, d]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, sq, d = q.shape
+    if k.shape[0] != B or k.shape[2] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    if d not in _KERNEL_D:
+        raise ValueError(f"head dim {d} not supported by the kernel "
+                         f"({_KERNEL_D})")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
+                         "kernel takes one of float32, bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError("flash attention needs non-empty q and k")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    fn = _kernel_fn()
+    o = torch.empty_like(q)
+    m = torch.empty((B, sq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 m.data_ptr(), l.data_ptr(), B, sq, k.shape[1], d,
+                 int(q.dtype == torch.bfloat16), int(causal),
+                 int(causal_offset), d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return o, m, l
+
+
+def _flash_fwd(q, k, v, causal: bool, block_q: int, block_k: int,
+               causal_offset: int = 0):
+    """(o, m, l) from the kernel on CUDA, from ``lax_stats`` on the CPU."""
+    _check_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    if q.device.type == "cuda":
+        return _kernel_fwd(q, k, v, causal, causal_offset)
+    if q.device.type == "cpu":
+        return lax_stats(q, k, v, causal, causal_offset)
+    raise ValueError(f"flash attention runs on CUDA or the CPU, not "
+                     f"{q.device}")
+
+
+def _mask(sq: int, sk: int, causal_offset: int, device):
+    # keep row >= col + causal_offset (jnp.tril(k=-causal_offset))
+    return torch.ones((sq, sk), dtype=torch.bool,
+                      device=device).tril(-causal_offset)
+
+
+def reference_attention(q, k, v, causal: bool, causal_offset: int = 0):
+    """Plain attention, the numerics oracle (``_reference_attention``
+    :150). q/k/v: [B, s, d]."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
+    if causal:
+        s = torch.where(_mask(q.shape[1], k.shape[1], causal_offset,
+                              q.device), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
+
+
+def lax_stats(q, k, v, causal: bool, causal_offset: int = 0):
+    """Plain stats attention (``_lax_stats`` :177-193): normalized o,
+    running max m and sum l in the kernel's contract — the kernel's plain
+    version."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
+    if causal:
+        s = torch.where(_mask(q.shape[1], k.shape[1], causal_offset,
+                              q.device), s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v).float()
+    o = (o / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
+    return o, m, l
+
+
+def _scan_block(m, l, acc, qf, kj, vj, col0: int, causal: bool,
+                causal_offset: int, scale: float):
+    s = torch.einsum("bqd,bkd->bqk", qf, kj.float()) * scale
+    if causal:
+        rows = torch.arange(qf.shape[1], device=qf.device)[:, None]
+        cols = col0 + torch.arange(kj.shape[1], device=qf.device)[None]
+        s = torch.where(rows >= cols + causal_offset, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bqk,bkd->bqd", p,
+                                                vj.float())
+    return m_new, l, acc
+
+
+def scan_stats(q, k, v, causal: bool = True, causal_offset: int = 0,
+               block_k: int = 512):
+    """Blockwise stats attention (``scan_stats`` :196-245): the (o, m, l)
+    contract as a loop over K/V blocks, each block checkpointed, so both
+    autograd directions hold one ``[B, sq, block_k]`` score block and never
+    the full ``[B, sq, sk]`` matrix."""
+    B, sq, d = q.shape
+    sk = k.shape[1]
+    bk = min(block_k, sk)
+    if sk % bk:
+        # largest divisor of sk that is <= block_k: stays blockwise for any
+        # length without degenerating to tiny blocks
+        bk = max(x for x in range(1, bk + 1) if sk % x == 0)
+    scale = d ** -0.5
+    qf = q.float()
+    m = torch.full((B, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, sq, d), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, bk):
+        m, l, acc = checkpoint(_scan_block, m, l, acc, qf,
+                               k[:, c0:c0 + bk], v[:, c0:c0 + bk], c0,
+                               causal, causal_offset, scale,
+                               use_reentrant=False)
+    o = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
+    return o, m, l
+
+
+class _AttentionStats(torch.autograd.Function):
+    """Kernel forward, blockwise-recompute backward (``attention_stats``
+    with ``_stats_fwd``/``_stats_bwd``): cotangents of o, m and l all flow,
+    since the ring combine makes m and l real outputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, causal_offset):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (causal, block_k, causal_offset)
+        return _flash_fwd(q, k, v, causal, block_q, block_k, causal_offset)
+
+    @staticmethod
+    def backward(ctx, do, dm, dl):
+        q, k, v = ctx.saved_tensors
+        causal, block_k, causal_offset = ctx.cfg
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            outs = scan_stats(*ins, causal, causal_offset, block_k)
+        pairs = [(o, g) for o, g in zip(outs, (do, dm, dl)) if g is not None]
+        if not pairs:
+            return (None,) * 7
+        # v does not reach m or l: its gradient is None without do
+        grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                    [g for _, g in pairs], allow_unused=True)
+        return (*grads, None, None, None, None)
+
+
+def attention_stats(q, k, v, causal: bool = True, block_q: int = 512,
+                    block_k: int = 512, causal_offset: int = 0):
+    """Differentiable stats attention: (o, m, l), kernel forward on CUDA."""
+    return _AttentionStats.apply(q, k, v, causal, block_q, block_k,
+                                 causal_offset)
+
+
+def flash_attention_stats(q, k, v, causal: bool = True, block_q: int = 512,
+                          block_k: int = 512):
+    """Forward returning (o, m, l) for cross-device (ring) combination."""
+    return attention_stats(q, k, v, causal, block_q, block_k, 0)
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
+                    block_k: int = 512):
+    """Fused attention: q [B, sq, d] × k/v [B, sk, d] → [B, sq, d]."""
+    return attention_stats(q, k, v, causal, block_q, block_k, 0)[0]
