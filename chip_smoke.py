@@ -6,23 +6,29 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the kernel from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a`` and print its seconds;
-3. kernel phase: the flash-attention forward kernel, through
-   ``attention_stats``, against its plain version ``lax_stats`` on the same
-   inputs in fp32 on the card (TF32 off), at small shapes for every
-   head dim, dtype and mask the kernel takes, and at the slice's shape
-   (B = batch*heads = 128, s = 1024, d = 128, bf16, causal); the kernel, the
+2. build both kernels from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
+   ``sm_90a``, one ``nvcc`` each, started together, and print each build's
+   seconds and ``ptxas`` report; count the ``HGMMA`` (``wgmma``)
+   instructions in the bf16 kernel's SASS (``cuobjdump``) and fail on none;
+3. kernel phase: the flash-attention forward, through ``attention_stats``
+   (bf16 inputs launch the tensor-core kernel ``flash_attention_sm90.cu``,
+   fp32 inputs the SIMT kernel ``flash_attention.cu``), against its plain
+   version ``lax_stats`` on the same inputs in fp32 on the card (TF32 off),
+   at small shapes for every head dim, dtype and mask the kernels take, at
+   the tile edges of the bf16 kernel, and at the slice's shape
+   (B = batch*heads = 128, s = 1024, d = 128, causal); each kernel, its
    plain version and ``F.scaled_dot_product_attention`` (a yardstick only,
-   never called by the port) are timed with CUDA events;
+   never called by the port) are timed at the slice shape in the kernel's
+   dtype with CUDA events around back-to-back calls, and the kernel and
+   sdpa also by their device time under ``torch.profiler``;
 4. main path: ``hvd.init()`` (NCCL), ``broadcast_parameters`` and
    ``DistributedOptimizer(SGD(lr=1e-3, momentum=0.9))`` train the
    transformer LM at the full width of ``benchmarks/bench_transformer.py``
    (vocab 32768, d_model 2048, 16 heads, 12 layers, d_ff 8192, attention
    length 1024, batch 8, bf16 compute over fp32 weights) for 5 steps on one
    batch, with attention through ``ring_attention`` and the flash kernel;
-   the losses must be finite and falling, and the kernel must have launched
-   once per layer and step;
+   the losses must be finite and falling, and the bf16 kernel must have
+   launched once per layer and step (the fp32 kernel never);
 5. the slice against plain: a 2-layer model of the same widths, one loss and
    its gradients through the kernel path and through ``causal_attention``.
 
@@ -77,6 +83,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: the CUDA kernels' own time under
+    ``torch.profiler``, summed over ``iters`` calls. The host's work and the
+    gaps between launches are left out, which ``time_ms`` counts wherever
+    the host's work per call outlasts the device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / iters / 1e3
+
+
 def flash_bound(B: int, sq: int, sk: int, d: int, dtype: str,
                 causal: bool) -> tuple[float, str]:
     """Least time (ms) for the forward at these shapes: q, k, v read once,
@@ -92,20 +118,58 @@ def flash_bound(B: int, sq: int, sk: int, d: int, dtype: str,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# --- phase 3: the kernel against its plain version -------------------------
+# --- phase 2: build ---------------------------------------------------------
 
-def _qkv(B, s, d, dtype, seed, device):
+SOURCES = ("flash_attention_sm90", "flash_attention")
+
+
+def build_phase():
+    """Builds every kernel source at once (one nvcc each) and checks that
+    the bf16 kernel's SASS runs on the tensor cores."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch.ops import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        report = _build.build(name)
+        return name, time.perf_counter() - t0, report
+
+    _log("[build]")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        results = list(pool.map(one, SOURCES))
+    for name, seconds, report in results:
+        _log(f"  {name}: {seconds:.1f} s")
+        for line in report.splitlines():
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill", "arning")):
+                _log(f"    {line.strip()}")
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "--dump-sass",
+                           _build.lib_path("flash_attention_sm90")],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    _log(f"  flash_attention_sm90 SASS: {hgmma} HGMMA instructions")
+    if hgmma == 0:
+        raise AssertionError("the bf16 kernel has no HGMMA instruction: it "
+                             "does not run on the tensor cores")
+
+
+# --- phase 3: the kernels against their plain version ----------------------
+
+def _qkv(B, s, d, dtype, seed, device, sk=None):
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((B, s, d), generator=g, device=device,
-                        dtype=torch.float32).to(dtype) for _ in range(3)]
+    return [torch.randn((B, n, d), generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+            for n in (s, sk or s, sk or s)]
 
 
 U_BF16 = 2.0 ** -8  # unit roundoff of bfloat16 (8 significant bits)
 
 
-def check_flash(B, s, d, dtype, causal, offset, device):
+def check_flash(B, s, d, dtype, causal, offset, device, sk=None):
     """The kernel, through ``attention_stats`` (the main path's dispatch),
     against its plain version ``lax_stats`` on the same inputs in fp32,
     which the kernel reads exactly. Returns max |o - o_plain|.
@@ -121,7 +185,7 @@ def check_flash(B, s, d, dtype, causal, offset, device):
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    q, k, v = _qkv(B, s, d, dtype, 1000 + s + d, device)
+    q, k, v = _qkv(B, s, d, dtype, 1000 + s + d, device, sk)
     o, m, l = fa.attention_stats(q, k, v, causal, causal_offset=offset)
     q32, k32, v32 = q.float(), k.float(), v.float()
     o_p, m_p, l_p = fa.lax_stats(q32, k32, v32, causal, offset)
@@ -144,21 +208,19 @@ def check_flash(B, s, d, dtype, causal, offset, device):
     m_err = (m[:, r0:] - m_p[:, r0:]).abs().max().item()
     l_rel = ((l[:, r0:] - l_p[:, r0:]).abs()
              / l_p[:, r0:].abs()).max().item()
-    _log(f"  flash B={B} s={s} d={d} {str(dtype)[6:]} causal={causal} "
+    _log(f"  flash B={B} s={s}{f' sk={sk}' if sk else ''} d={d} "
+         f"{str(dtype)[6:]} causal={causal} "
          f"offset={offset}: max|do|={o_err:.3g} (max share of its bound "
          f"{o_share:.3g}) max|dm|={m_err:.3g} max rel dl={l_rel:.3g} "
          f"(tol m 1e-05, l 1e-05)")
     if not (o_share <= 1.0 and m_err <= 1e-5 and l_rel <= 1e-5):
         raise AssertionError(f"flash kernel disagrees with lax_stats at "
-                             f"B={B} s={s} d={d} {dtype}")
+                             f"B={B} s={s} sk={sk} d={d} {dtype}")
     return o_err
 
 
-def kernel_phase(device) -> dict:
+def kernel_phase(device) -> list:
     import torch
-    import torch.nn.functional as F
-
-    from horovod_tpu_torch.ops import flash_attention as fa
 
     # the plain version in full fp32 (no TF32 anywhere)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,30 +229,70 @@ def kernel_phase(device) -> dict:
         for d in (32, 64, 128):
             for causal, offset in ((False, 0), (True, 0), (True, 1)):
                 check_flash(2, 256, d, dtype, causal, offset, device)
-        # a length that leaves the kernel's last 64-row tiles ragged
+        # a length that leaves the last tiles ragged
         check_flash(2, 200, 64, dtype, True, 0, device)
+        # the bf16 kernel's tile edges (128-row Q and K tiles): ragged Q and
+        # K tiles at a batch boundary, whose rows past s must neither read
+        # nor write the next batch row; a length below one Q tile; sq < sk
+        check_flash(3, 200, 128, dtype, True, 1, device)
+        check_flash(2, 64, 128, dtype, True, 0, device)
+        check_flash(2, 256, 128, dtype, False, 0, device, sk=512)
 
     B, s, d = 128, 1024, 128
-    err = check_flash(B, s, d, torch.bfloat16, True, 0, device)
+    kernels = []
+    for dtype, name, iters in ((torch.bfloat16, "flash_attention_fwd", 50),
+                               (torch.float32, "flash_attention_fwd_fp32",
+                                10)):
+        kernels.append(time_flash(name, B, s, d, dtype, iters, device))
+    return kernels
+
+
+def time_flash(name, B, s, d, dtype, iters, device) -> dict:
+    """One kernel at the slice shape: checked against its plain version,
+    then timed beside it, its bound and ``scaled_dot_product_attention``
+    on the same inputs. ``ms``, ``plain_ms`` and ``library_ms`` are CUDA
+    events around back-to-back calls, the host's work per call included;
+    ``device_ms`` and ``library_device_ms`` are the kernels' own time."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    err = check_flash(B, s, d, dtype, True, 0, device)
     torch.cuda.empty_cache()
-    q, k, v = _qkv(B, s, d, torch.bfloat16, 7, device)
-    ms = time_ms(lambda: fa.attention_stats(q, k, v, True), iters=20)
-    plain_ms = time_ms(lambda: fa.lax_stats(q, k, v, True, 0), iters=5)
+    q, k, v = _qkv(B, s, d, dtype, 7, device)
     q4, k4, v4 = q[None], k[None], v[None]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), iters=20)
-    bound_ms, bound_by = flash_bound(B, s, s, d, "bfloat16", True)
-    _log(f"  flash at the slice shape: kernel {ms:.4f} ms, plain "
-         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+
+    def kernel():
+        fa.attention_stats(q, k, v, True)
+
+    def library():
+        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    ms = time_ms(kernel, iters=iters)
+    lib_ms = time_ms(library, iters=iters)
+    dev_ms = device_ms(kernel, iters=iters)
+    lib_dev_ms = device_ms(library, iters=iters)
+    plain_ms = time_ms(lambda: fa.lax_stats(q, k, v, True, 0), iters=5)
+    dt = str(dtype)[6:]
+    bound_ms, bound_by = flash_bound(B, s, s, d, dt, True)
+    flops = 2 * 2 * B * (s * (s + 1) // 2) * d
+    _log(f"  {name} at the slice shape ({dt}): kernel {ms:.4f} ms a call "
+         f"back to back, {dev_ms:.4f} ms of device time "
+         f"({flops / dev_ms / 1e9:.1f} TFLOP/s, {bound_ms / dev_ms:.3f} of "
+         f"its bound); sdpa {lib_ms:.4f} ms a call, {lib_dev_ms:.4f} ms of "
+         f"device time; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
          f"({bound_by})")
     del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+    source = fa.KERNELS[dtype][1]
+    return {"name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{source}.cu",
             "replaces": "horovod_tpu/ops/pallas/flash_attention.py:122",
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
 
 
 # --- phase 4: the main path at full width ---------------------------------
@@ -253,12 +355,13 @@ def train(cfg, batch: int, steps: int, device) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
-    fa.launches = 0
+    for name in fa.kernel_launches:
+        fa.kernel_launches[name] = 0
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(step())
         step_s.append(time.perf_counter() - t0)
-    launches = fa.launches
+    launches = dict(fa.kernel_launches)
     res = {"losses": losses, "step_s": step_s, "launches": launches,
            "peak_bytes": None, "profile": None}
     if device.type == "cuda":
@@ -268,7 +371,7 @@ def train(cfg, batch: int, steps: int, device) -> dict:
 
 
 # kernel-name patterns of the step's device work, first match wins
-_CATEGORIES = (("flash forward kernel", r"flash_fwd_kernel"),
+_CATEGORIES = (("flash forward kernel", r"flash_fwd"),
                ("fp32 GEMM", r"f32f32|sgemm"),
                ("other GEMM (bf16)", r"gemm|nvjet|xmma|cutlass"),
                ("NCCL", r"nccl"),
@@ -303,7 +406,7 @@ def profile_step(step) -> dict:
                     for e in top]}
 
 
-def main_path_phase(device) -> int:
+def main_path_phase(device) -> dict:
     import torch
 
     cfg = full_width_config(12)
@@ -315,9 +418,10 @@ def main_path_phase(device) -> int:
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    want = cfg.n_layers * steps
+    want = {"flash_attention_fwd": cfg.n_layers * steps,
+            "flash_attention_fwd_fp32": 0}
     if res["launches"] != want:
-        raise AssertionError(f"flash kernel launched {res['launches']} "
+        raise AssertionError(f"flash kernels launched {res['launches']} "
                              f"times on the main path, expected {want}")
     steady = statistics.median(res["step_s"][1:])
     tok = batch * cfg.max_seq
@@ -394,35 +498,29 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.ops import _build
 
     _log(card_line())
     kind = torch.cuda.get_device_name(0)
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
 
-    _log("[build]")
-    t0 = time.perf_counter()
-    report = _build.build("flash_attention")
-    _log(f"  flash_attention: {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if any(w in line for w in ("Function properties", "registers",
-                                   "spill")):
-            _log(f"    {line.strip()}")
+    build_phase()
 
     hvd.init()
     device = hvd.device()
     _log(f"[kernel] on {device} ({torch.distributed.get_backend()})")
-    flash = kernel_phase(device)
+    kernels = kernel_phase(device)
 
     _log("[main path] 12 layers at full width, 5 steps")
-    flash["launches"] = main_path_phase(device)
+    launches = main_path_phase(device)
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
 
     _log("[slice vs plain]")
     slice_vs_plain_phase(device)
     hvd.shutdown()
 
-    print(json.dumps({"kernels": [flash]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,25 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ with a plain C ABI.
+// Flash-attention forward for fp32 inputs on Hopper (sm_90a): the SIMT
+// kernel, CUDA C++ with a plain C ABI. bf16 inputs, the main path's, take
+// the tensor-core kernel in flash_attention_sm90.cu.
 //
-// Replaces the Pallas TPU kernel `_flash_fwd_kernel`, launched by
-// `_flash_fwd` in horovod_tpu/ops/pallas/flash_attention.py (pallas_call at
-// :122). Same contract: q [B, sq, D], k/v [B, sk, D] (fp32 or bf16) ->
-// o [B, sq, D] normalized, in q's dtype, plus the fp32 online-softmax stats
-// m (running max) and l (running sum) [B, sq], which ring attention uses to
-// combine partial results exactly. Scale D^-0.5. The causal mask keeps
+// Replaces, for fp32 inputs, the Pallas TPU kernel `_flash_fwd_kernel`
+// (horovod_tpu/ops/pallas/flash_attention.py:35-87, pallas_call at :122).
+// Same contract: q [B, sq, D], k/v [B, sk, D] fp32 -> normalized o
+// [B, sq, D] fp32, plus the fp32 online-softmax stats m (running max) and
+// l (running sum) [B, sq], which ring attention uses to combine partial
+// results exactly. Scale D^-0.5. The causal mask keeps
 // row >= col + causal_offset (top-left aligned; offset 1 is the strict mask
-// of striped ring rounds). A row with l == 0 divides by 1. p is rounded to
-// v's dtype before P.V, as the TPU kernel does (:68).
+// of striped ring rounds). A row with l == 0 divides by 1.
+//
+// Why fp32 stays off the tensor cores: their fp32 path is TF32, which keeps
+// about three decimal digits, and the contract's fp32 o holds to 1e-4 of
+// the fp32 reference. So the products run on the fp32 FMA pipes.
 //
 // Design. The TPU kernel walks a sequential grid axis over K blocks and
 // carries m, l and the accumulator in VMEM scratch across grid steps. On
 // Hopper nothing carries between thread blocks, so one block of 256 threads
 // owns a (batch row, 64-query tile) and loops over 64-key tiles itself:
-//   - the Q tile and each K/V tile are staged in shared memory as fp32
-//     (bf16 inputs through the __bfloat162float intrinsics);
+//   - the Q tile and each K/V tile are staged in shared memory;
 //   - a 16x16 thread grid computes S = Q K^T as 4x4 register micro-tiles
 //     (rows ty+16i, keys tx+16j, so the float4 shared loads are free of
 //     bank conflicts);
@@ -28,22 +32,14 @@
 // finite o and l, since the ring combine multiplies them by beta = 0.
 // Keys past sk (a ragged last tile) score -inf, so they add exactly 0.
 //
-// Bound at the slice shape (B = b*h = 128, s = 1024, D = 128, bf16, causal):
-//   bytes: q, k, v read once and o written once, 4 * 128*1024*128 * 2 B =
-//          134 MB, plus m and l 2 * 128*1024 * 4 B = 1 MB: 135 MB at
-//          3.35 TB/s = 40 us;
-//   operations: 2 products * 2 * 128 * (1024*1025/2 causal pairs) * 128 =
-//          34.4 GFLOP at 989 TFLOP/s (bf16 tensor cores) = 35 us.
-// So the bound is bytes, about 40 us (chip_smoke.py recomputes it from the
-// run's shapes).
-//
-// What this simple design leaves on the table, for a later change: it uses
-// the fp32 FMA pipes, not the tensor cores, so it is limited by the 67
-// TFLOP/s of fp32 FMA and by shared-memory traffic. A fast kernel would run
-// `wgmma` on bf16 tiles, feed them with TMA into a ring of shared-memory
-// stages, and specialise warps into a loader and consumer warpgroups.
+// Bound at the slice shape in fp32 (B = b*h = 128, s = 1024, D = 128,
+// causal): operations, 34.4 GFLOP at the 67 TFLOP/s of fp32 FMA = 0.51 ms;
+// bytes, 270 MB at 3.35 TB/s = 0.08 ms. So the FMA pipes bound it. What
+// this design leaves on the table: shared-memory traffic (every product
+// reads both operands from shared memory), tiles staged with plain loads
+// and __syncthreads, and no overlap of the next tile's loads with this
+// tile's products.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,48 +56,12 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  union {
-    uint2 u;
-    __nv_bfloat16 h[4];
-  } r;
-  r.u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__bfloat162float(r.h[0]), __bfloat162float(r.h[1]),
-                     __bfloat162float(r.h[2]), __bfloat162float(r.h[3]));
-}
-
-// p as P.V sees it: rounded to the value dtype (the TPU kernel's
-// p.astype(v.dtype)); the row sum l keeps the fp32 p.
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* dst, const float* x) {
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
   } else {
     *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* x) {
-  if constexpr (VEC == 4) {
-    union {
-      uint2 u;
-      __nv_bfloat16 h[4];
-    } r;
-    for (int c = 0; c < 4; ++c) r.h[c] = __float2bfloat16(x[c]);
-    *reinterpret_cast<uint2*>(dst) = r.u;
-  } else {
-    union {
-      uint32_t u;
-      __nv_bfloat16 h[2];
-    } r;
-    for (int c = 0; c < 2; ++c) r.h[c] = __float2bfloat16(x[c]);
-    *reinterpret_cast<uint32_t*>(dst) = r.u;
   }
 }
 
@@ -112,10 +72,11 @@ constexpr size_t smem_bytes() {
          (size_t(BQ + 2 * BK) * (D + PAD) + size_t(BQ) * (BK + PAD));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ m_out, float* __restrict__ l_out,
                      int B, int sq, int sk, float scale, int causal,
                      int causal_offset) {
@@ -137,9 +98,9 @@ __global__ void __launch_bounds__(NT)
   const int nq = (sq + BQ - 1) / BQ;
   const int b = blockIdx.x % B;
   const int q0 = (nq - 1 - blockIdx.x / B) * BQ;  // last Q tiles first
-  const T* qb = q + (size_t)b * sq * D;
-  const T* kb = k + (size_t)b * sk * D;
-  const T* vb = v + (size_t)b * sk * D;
+  const float* qb = q + (size_t)b * sq * D;
+  const float* kb = k + (size_t)b * sk * D;
+  const float* vb = v + (size_t)b * sk * D;
 
   for (int e = tid * 4; e < BQ * D; e += NT * 4) {
     const int r = e / D, c = e % D;
@@ -229,7 +190,7 @@ __global__ void __launch_bounds__(NT)
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         ps += p;
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = round_to(p, q);
+        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -290,7 +251,7 @@ __global__ void __launch_bounds__(NT)
     const int row = q0 + ty + 16 * i;
     if (row >= sq) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((size_t)b * sq + row) * D + tx * VEC;
+    float* orow = o + ((size_t)b * sq + row) * D + tx * VEC;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       float x[VEC];
@@ -305,58 +266,55 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* m, void* l, int B, int sq, int sk, float scale,
                    int causal, int causal_offset, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int nq = (sq + BQ - 1) / BQ;
-  flash_fwd_kernel<T, D><<<dim3(nq * B), dim3(NT), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), B, sq, sk, scale, causal, causal_offset);
+  flash_fwd_kernel<D><<<dim3(nq * B), dim3(NT), smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(m), static_cast<float*>(l), B, sq, sk, scale,
+      causal, causal_offset);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       void* m, void* l, int B, int sq, int sk, int d,
-                       float scale, int causal, int causal_offset,
-                       cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, m, l, B, sq, sk, scale, causal,
-                           causal_offset, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, m, l, B, sq, sk, scale, causal,
-                           causal_offset, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, m, l, B, sq, sk, scale, causal,
-                            causal_offset, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). The caller checks
-// devices, dtypes, shapes, contiguity and 16-byte alignment, and allocates
-// o (q's dtype) and the fp32 m, l.
+// Returns the cudaError_t of the launch (0 on success). The kernel launches
+// on `device`, made current for the call and then restored. The caller
+// checks devices, dtypes (fp32), shapes, contiguity and 16-byte alignment,
+// and allocates o and the fp32 m, l.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* m, void* l, int B, int sq, int sk,
-                             int d, int is_bf16, int causal,
-                             int causal_offset, float scale, void* stream) {
+                             int d, int causal, int causal_offset,
+                             float scale, int device, void* stream) {
   if (B <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
+  if (d != 32 && d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, o, m, l, B, sq, sk, d,
-                                          scale, causal, causal_offset, st)
-              : dispatch_d<float>(q, k, v, o, m, l, B, sq, sk, d, scale,
-                                  causal, causal_offset, st);
+  switch (d) {
+    case 32:
+      err = launch<32>(q, k, v, o, m, l, B, sq, sk, scale, causal,
+                       causal_offset, st);
+      break;
+    case 64:
+      err = launch<64>(q, k, v, o, m, l, B, sq, sk, scale, causal,
+                       causal_offset, st);
+      break;
+    default:
+      err = launch<128>(q, k, v, o, m, l, B, sq, sk, scale, causal,
+                        causal_offset, st);
+      break;
+  }
+  if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }

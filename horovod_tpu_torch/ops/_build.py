@@ -50,6 +50,16 @@ def _lib_path(name: str, nvcc: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
+def lib_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
+    return _lib_path(name, _nvcc())
+
+
+def cuda_tool(tool: str) -> str:
+    """A CUDA toolkit program beside ``nvcc`` (``cuobjdump``, ...)."""
+    return os.path.join(os.path.dirname(_nvcc()), tool)
+
+
 def build(name: str) -> str:
     """Build ``csrc/<name>.cu`` unless its library exists. Returns nvcc's
     report (ptxas registers, shared memory and spills), empty when the
@@ -75,6 +85,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build(name)
-            lib = ctypes.CDLL(_lib_path(name, _nvcc()))
+            lib = ctypes.CDLL(lib_path(name))
             _libs[name] = lib
         return lib

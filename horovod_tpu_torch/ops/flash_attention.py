@@ -1,12 +1,17 @@
-"""Flash attention: the hand-written Hopper forward kernel and its plain
-PyTorch versions — counterpart of
+"""Flash attention: the hand-written Hopper forward kernels and their
+plain PyTorch versions — counterpart of
 ``horovod_tpu/ops/pallas/flash_attention.py``.
 
-The forward is the CUDA kernel in ``csrc/flash_attention.cu`` (it replaces
-the Pallas kernel launched at ``flash_attention.py:122``): q ``[B, sq, d]``,
-k/v ``[B, sk, d]`` → normalized o ``[B, sq, d]`` plus the fp32 online-
-softmax stats m (running max) and l (running sum) ``[B, sq]``, which ring
-attention combines exactly across rounds.
+The forward replaces the Pallas kernel launched at ``flash_attention.py:122``:
+q ``[B, sq, d]``, k/v ``[B, sk, d]`` → normalized o ``[B, sq, d]`` plus the
+fp32 online-softmax stats m (running max) and l (running sum) ``[B, sq]``,
+which ring attention combines exactly across rounds. Two CUDA kernels
+serve it, by input dtype:
+
+- bf16 (the main path): ``csrc/flash_attention_sm90.cu``, on the tensor
+  cores (``wgmma``, TMA, an mbarrier pipeline);
+- fp32: ``csrc/flash_attention.cu``, the SIMT kernel on the fp32 FMA pipes,
+  since the tensor cores' TF32 cannot hold fp32's tolerance.
 
 The backward is not a kernel, as in the JAX package (``_stats_bwd``/``_bwd``
 :263-286): it recomputes through ``scan_stats``, a blockwise loop over K/V
@@ -14,7 +19,8 @@ blocks with each block under ``torch.utils.checkpoint``, so neither
 direction keeps a ``[B, sq, sk]`` score tensor. Only q, k and v are saved.
 
 Dispatch: a CPU tensor takes the plain ``lax_stats`` path; a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches.
+launches its dtype's kernel or raises. ``kernel_launches`` counts each
+kernel's launches by name.
 """
 
 from __future__ import annotations
@@ -26,26 +32,37 @@ from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
-# kernel launches made by _kernel_fwd (read and reset by chip_smoke.py)
-launches = 0
-
 _KERNEL_D = (32, 64, 128)
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_fn = None
+# input dtype -> (kernel name, csrc/ source, C function); both functions
+# take (q, k, v, o, m, l, B, sq, sk, d, causal, causal_offset, scale, device,
+# stream)
+KERNELS = {
+    torch.bfloat16: ("flash_attention_fwd", "flash_attention_sm90",
+                     "hvd_flash_fwd_sm90"),
+    torch.float32: ("flash_attention_fwd_fp32", "flash_attention",
+                    "hvd_flash_fwd"),
+}
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+# kernel launches made by _kernel_fwd, by kernel name (read and reset by
+# chip_smoke.py)
+kernel_launches = {name: 0 for name, _, _ in KERNELS.values()}
+
+_fns: dict = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def _kernel_fn(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
         from . import _build
 
-        fn = _build.load("flash_attention").hvd_flash_fwd
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        _, source, symbol = KERNELS[dtype]
+        fn = getattr(_build.load(source), symbol)
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def _check_blocks(sq: int, sk: int, block_q: int, block_k: int):
@@ -59,8 +76,8 @@ def _check_blocks(sq: int, sk: int, block_q: int, block_k: int):
 
 
 def _kernel_fwd(q, k, v, causal: bool, causal_offset: int):
-    """Launch the CUDA forward on q's device and PyTorch's current stream."""
-    global launches
+    """Launch q's dtype's CUDA forward on q's device and PyTorch's current
+    stream there. The C function makes q's device current for the launch."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"expected q [B, sq, d] and k, v [B, sk, d]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -72,31 +89,33 @@ def _kernel_fwd(q, k, v, causal: bool, causal_offset: int):
     if d not in _KERNEL_D:
         raise ValueError(f"head dim {d} not supported by the kernel "
                          f"({_KERNEL_D})")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
-                         "kernel takes one of float32, bfloat16")
+                         "kernels take one of bfloat16, float32")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.numel() == 0 or k.numel() == 0:
         raise ValueError("flash attention needs non-empty q and k")
+    # TMA takes 16-byte-aligned bases and row strides (d * 2 >= 64 bytes)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    fn = _kernel_fn()
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, not {q.device}")
+    fn = _kernel_fn(q.dtype)
+    dev = q.device
     o = torch.empty_like(q)
-    m = torch.empty((B, sq), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 m.data_ptr(), l.data_ptr(), B, sq, k.shape[1], d,
-                 int(q.dtype == torch.bfloat16), int(causal),
-                 int(causal_offset), d ** -0.5, stream)
+    m = torch.empty((B, sq), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             m.data_ptr(), l.data_ptr(), B, sq, k.shape[1], d, int(causal),
+             int(causal_offset), d ** -0.5, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+        raise RuntimeError(f"flash attention kernel launch failed: error "
+                           f"{err} (a cudaError_t, or 10000 + the CUresult "
+                           "of a failed tensor-map encode)")
+    kernel_launches[KERNELS[q.dtype][0]] += 1
     return o, m, l
 
 
@@ -220,9 +239,14 @@ class _AttentionStats(torch.autograd.Function):
 
 def attention_stats(q, k, v, causal: bool = True, block_q: int = 512,
                     block_k: int = 512, causal_offset: int = 0):
-    """Differentiable stats attention: (o, m, l), kernel forward on CUDA."""
-    return _AttentionStats.apply(q, k, v, causal, block_q, block_k,
-                                 causal_offset)
+    """Differentiable stats attention: (o, m, l), kernel forward on CUDA.
+    An autograd node is recorded only where a gradient can flow, as
+    PyTorch's own operators do; otherwise the forward runs alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _AttentionStats.apply(q, k, v, causal, block_q, block_k,
+                                     causal_offset)
+    return _flash_fwd(q, k, v, causal, block_q, block_k, causal_offset)
 
 
 def flash_attention_stats(q, k, v, causal: bool = True, block_q: int = 512,

@@ -98,6 +98,27 @@ def test_attention_stats_differentiable(qkv_np):
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-3)
 
 
+@pytest.mark.parametrize("case", ["inputs need no gradient", "no_grad"])
+def test_attention_stats_without_gradient_records_no_node(qkv_np, case):
+    """Where no gradient can flow, the forward runs without an autograd
+    node and gives the recorded path's (o, m, l), which match the JAX
+    package's."""
+    o_j, m_j, l_j = jfa.attention_stats(*_jx(qkv_np), True, 128, 128)
+    recorded = fa.attention_stats(*_pt(qkv_np, grad=True), True, 128, 128)
+    assert all(t.grad_fn is not None for t in recorded)
+    if case == "no_grad":
+        with torch.no_grad():
+            outs = fa.attention_stats(*_pt(qkv_np, grad=True), True, 128, 128)
+    else:
+        outs = fa.attention_stats(*_pt(qkv_np), True, 128, 128)
+    for t, r in zip(outs, recorded):
+        assert t.grad_fn is None and not t.requires_grad
+        np.testing.assert_array_equal(_np(t), _np(r))
+    np.testing.assert_allclose(_np(outs[0]), np.asarray(o_j), atol=1e-4)
+    np.testing.assert_allclose(_np(outs[1]), np.asarray(m_j), atol=1e-5)
+    np.testing.assert_allclose(_np(outs[2]), np.asarray(l_j), rtol=1e-5)
+
+
 def test_flash_bf16():
     rng = np.random.RandomState(1)
     arrs = [rng.randn(1, 128, 64).astype(np.float32) for _ in range(3)]
@@ -196,3 +217,169 @@ def test_non_dividing_lengths_raise(qkv_np, sq, sk, bq, bk):
     with pytest.raises(ValueError, match="divisible"):
         jfa.attention_stats(*_jx([q[:, :sq].numpy(), k[:, :sk].numpy(),
                                   v[:, :sk].numpy()]), True, bq, bk)
+
+
+# --- the bf16 tensor-core kernel's arithmetic, rehearsed on the CPU ---------
+#
+# csrc/flash_attention_sm90.cu cannot run here, so this emulates its
+# arithmetic tile by tile in plain PyTorch (fp32 S, exp2 with the scale and
+# log2 e folded into one FMA, p rounded to bf16 before P V, l summing the
+# fp32 p, finite-NEG_INF masking only on tiles that cross the diagonal or
+# the ragged end, fully masked K tiles never visited) and holds it against
+# both packages' plain stats attention at the tolerances chip_smoke.py
+# holds the kernel to on the card.
+
+_BQ, _BK, _ROWS = 128, 128, 64   # Q tile, K tile, rows per warpgroup
+_LOG2E = 1.4426950408889634
+_U_BF16 = 2.0 ** -8
+NEG_INF_F32 = float(np.float32(fa.NEG_INF))
+
+
+def _emulate_sm90(q, k, v, causal, offset):
+    """(o bf16, m, l) as the sm90 kernel computes them; q, k, v bf16."""
+    B, sq, d = q.shape
+    sk = k.shape[1]
+    f32 = torch.float32
+    scale = torch.tensor(d ** -0.5, dtype=f32)
+    sl2 = (scale * torch.tensor(_LOG2E, dtype=f32)).double()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.zeros((B, sq, d), dtype=f32)
+    m_out = torch.zeros((B, sq), dtype=f32)
+    l_out = torch.zeros((B, sq), dtype=f32)
+    for q0 in range(0, sq, _BQ):
+        q_last = min(q0 + _BQ, sq) - 1
+        k_end = min(sk, q_last - offset + 1) if causal else sk
+        n_k = -(-k_end // _BK) if k_end > 0 else 0
+        for row0 in range(q0, min(q0 + _BQ, sq), _ROWS):   # warpgroups
+            rows = torch.arange(row0, min(row0 + _ROWS, sq))
+            m = torch.full((B, len(rows)), NEG_INF_F32, dtype=f32)
+            l = torch.zeros((B, len(rows)), dtype=f32)
+            acc = torch.zeros((B, len(rows), d), dtype=f32)
+            for j in range(n_k):
+                k0 = j * _BK
+                cols = torch.arange(k0, min(k0 + _BK, sk))  # -inf past sk
+                s = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf[:, cols])
+                masked = causal and k0 + _BK - 1 + offset > row0
+                keep = (rows[:, None] >= cols[None] + offset
+                        if masked else torch.ones((), dtype=torch.bool))
+                s = torch.where(keep, s, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1) * scale)
+                alpha = torch.exp2((m - m_new) * _LOG2E)
+                ml = (m_new * _LOG2E).double()
+                p = torch.exp2((s.double() * sl2 - ml[..., None]).to(f32))
+                # a causally masked score is NEG_INF: p = exp(NEG_INF - m)
+                p = torch.where(keep, p, (m_new == NEG_INF_F32).to(f32)
+                                [..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bqk,bkd->bqd", p.to(torch.bfloat16).float(), vf[:, cols])
+                m = m_new
+            o[:, rows] = acc / torch.where(l == 0, 1.0, l)[..., None]
+            m_out[:, rows], l_out[:, rows] = m, l
+    return o.to(torch.bfloat16), m_out, l_out
+
+
+
+@pytest.mark.parametrize("B,sq,sk,d,causal,offset", [
+    (2, 256, 256, 64, False, 0),
+    (2, 256, 256, 64, True, 0),
+    (2, 256, 256, 32, True, 1),
+    (3, 200, 200, 128, True, 0),     # ragged Q and K tiles
+    (3, 200, 200, 128, True, 1),
+    (2, 64, 64, 128, True, 0),       # below one Q tile
+    (1, 256, 512, 64, False, 0),     # sq < sk
+])
+def test_sm90_tiled_emulation_matches_plain(B, sq, sk, d, causal, offset):
+    rng = np.random.RandomState(sq + sk + d + offset)
+    arrs = [rng.randn(B, n, d).astype(np.float32) for n in (sq, sk, sk)]
+    q, k, v = _pt(arrs, torch.bfloat16)
+    o, m, l = _emulate_sm90(q, k, v, causal, offset)
+    # the plain versions on the same (bf16-valued) inputs in fp32
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    o_p, m_p, l_p = fa.lax_stats(q32, k32, v32, causal, offset)
+    o_j, m_j, l_j = jfa._lax_stats(*_jx([_np(q), _np(k), _np(v)]), causal,
+                                   offset)
+    r0 = offset if causal else 0
+    o_abs = fa.lax_stats(q32, k32, v32.abs(), causal, offset)[0]
+    tol_o = 1.01 * _U_BF16 * (o_p.abs() + o_abs) + 1e-5
+    jax_out = [torch.tensor(np.asarray(x)) for x in (o_j, m_j, l_j)]
+    for o_ref, m_ref, l_ref in ((o_p, m_p, l_p), jax_out):
+        assert ((o.float() - o_ref)[:, r0:].abs()
+                <= tol_o[:, r0:]).all()
+        np.testing.assert_allclose(_np(m)[:, r0:], _np(m_ref)[:, r0:],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(_np(l)[:, r0:], _np(l_ref)[:, r0:],
+                                   rtol=1e-5, atol=0)
+    if r0:
+        assert (m[:, :r0] == NEG_INF_F32).all()
+        assert torch.isfinite(o.float()).all() and torch.isfinite(l).all()
+
+
+def test_sm90_emulation_rounds_p_before_pv():
+    """The emulation is not the fp32 algorithm: keeping p in fp32 before
+    P V moves o by more than fp32 order, so the test above exercises the
+    bf16 rounding of p that the bound allows for."""
+    rng = np.random.RandomState(5)
+    q, k, v = _pt([rng.randn(1, 128, 64).astype(np.float32)
+                   for _ in range(3)], torch.bfloat16)
+    o, _, _ = _emulate_sm90(q, k, v, True, 0)
+    o32 = fa.lax_stats(q.float(), k.float(), v.float(), True)[0]
+    assert (o.float() - o32).abs().max() > 1e-4
+
+
+# --- _kernel_fwd's argument checks, before any build -----------------------
+
+def _no_build(monkeypatch):
+    from horovod_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise AssertionError(f"a build of {name} was tried")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(fa, "_fns", {})
+
+
+def _bad_args():
+    q = torch.zeros((2, 64, 64), dtype=torch.bfloat16)
+    wide = torch.zeros((2, 64, 128), dtype=torch.bfloat16)
+    return {
+        "d48": ([torch.zeros((2, 64, 48), dtype=torch.bfloat16)] * 3,
+                "head dim"),
+        "fp16": ([q.half()] * 3, "dtypes"),
+        "non-contiguous q": ([wide[..., :64], q, q], "contiguous"),
+        "k/v shape mismatch": ([q, q, q[:, :32]], "expected q"),
+        "cpu tensors": ([q, q, q], "CUDA tensors"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_args()))
+def test_kernel_fwd_argument_checks_raise_before_build(monkeypatch, case):
+    _no_build(monkeypatch)
+    args, match = _bad_args()[case]
+    launches = sum(fa.kernel_launches.values())
+    with pytest.raises(ValueError, match=match):
+        fa._kernel_fwd(*args, True, 0)
+    assert sum(fa.kernel_launches.values()) == launches
+
+
+@pytest.mark.parametrize("dtype,source,symbol", [
+    (torch.bfloat16, "flash_attention_sm90", "hvd_flash_fwd_sm90"),
+    (torch.float32, "flash_attention", "hvd_flash_fwd"),
+])
+def test_kernel_dispatch_by_dtype(monkeypatch, dtype, source, symbol):
+    """bf16 loads the tensor-core kernel, fp32 the SIMT kernel."""
+    from horovod_tpu_torch.ops import _build
+
+    loaded = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            loaded.append(name)
+            return lambda *a: 0
+
+    monkeypatch.setattr(fa, "_fns", {})
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loaded.append(name) or _Lib())
+    fa._kernel_fn(dtype)
+    assert loaded == [source, symbol]
+    assert fa.KERNELS[dtype][1:] == (source, symbol)

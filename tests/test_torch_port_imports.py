@@ -76,7 +76,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                             "flash_probe.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu"))]
