@@ -6,11 +6,12 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build both kernels from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, one ``nvcc`` each, started together, and print each build's
-   seconds and ``ptxas`` report; count the ``HGMMA`` (``wgmma``)
-   instructions in the bf16 kernel's SASS (``cuobjdump``) and fail on none;
-3. kernel phase: the flash-attention forward, through ``attention_stats``
+2. build every kernel from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
+   ``sm_90a`` (the two flash-attention sources and ``fused_pack.cu``), one
+   ``nvcc`` each, started together, and print each build's seconds and
+   ``ptxas`` report; count the ``HGMMA`` (``wgmma``) instructions in the
+   bf16 flash kernel's SASS (``cuobjdump``) and fail on none;
+3. flash phase: the flash-attention forward, through ``attention_stats``
    (bf16 inputs launch the tensor-core kernel ``flash_attention_sm90.cu``,
    fp32 inputs the SIMT kernel ``flash_attention.cu``), against its plain
    version ``lax_stats`` on the same inputs in fp32 on the card (TF32 off),
@@ -21,16 +22,42 @@ Phases, each of which raises on failure (the script then exits non-zero):
    never called by the port) are timed at the slice shape in the kernel's
    dtype with CUDA events around back-to-back calls, and the kernel and
    sdpa also by their device time under ``torch.profiler``;
-4. main path: ``hvd.init()`` (NCCL), ``broadcast_parameters`` and
-   ``DistributedOptimizer(SGD(lr=1e-3, momentum=0.9))`` train the
-   transformer LM at the full width of ``benchmarks/bench_transformer.py``
-   (vocab 32768, d_model 2048, 16 heads, 12 layers, d_ff 8192, attention
-   length 1024, batch 8, bf16 compute over fp32 weights) for 5 steps on one
-   batch, with attention through ``ring_attention`` and the flash kernel;
-   the losses must be finite and falling, and the bf16 kernel must have
-   launched once per layer and step (the fp32 kernel never);
-5. the slice against plain: a 2-layer model of the same widths, one loss and
-   its gradients through the kernel path and through ``causal_attention``.
+4. K1 phase: the fused-chunk pack and unpack (``fused_pack.cu``) through
+   the port's dispatch, held bitwise against their plain version on the
+   card (ragged lengths with 0 and 1 element, starts off 16-byte
+   alignment, more tensors than one launch's table holds, fp32, bf16, fp16
+   and fp64, factors 1, 0.5 and 1/3, AVERAGE with and without the divide
+   in the unpack); then, at the slice's gradient set (the full-width LM's
+   99 fp32 gradients chunked at 128 MiB, the chunks the main path's
+   grouped steps form), every packed chunk is held bitwise against the
+   plain version again, and pack and unpack are timed by CUDA events and
+   device time, beside their bound, their plain version and
+   ``torch.cat``/``split`` + ``copy_`` (a yardstick only);
+5. main path: ``hvd.init()`` (NCCL and the background runtime),
+   ``broadcast_parameters`` and ``DistributedOptimizer(SGD(lr=1e-3,
+   momentum=0.9))`` train the transformer LM at the full width of
+   ``benchmarks/bench_transformer.py`` (vocab 32768, d_model 2048, 16
+   heads, 12 layers, d_ff 8192, attention length 1024, batch 8, bf16
+   compute over fp32 weights) for 5 steps on one batch, with attention
+   through ``ring_attention`` and the flash kernel and every gradient
+   through the runtime, which fuses what its hooks enqueue within one
+   cycle; then the same model and batch 3 steps with the bare optimizer
+   after one ``hvd.grouped_allreduce_`` of all gradients, which one cycle
+   takes whole, so its chunks, collective calls and K1 launches per step
+   are known in advance and are checked. Per step it prints the chunks,
+   collective calls, K1 launches, negotiation rounds and cycles. The
+   losses must be finite and falling, the bf16 flash kernel must have
+   launched once per layer and step (the fp32 one never), and both runs'
+   losses must equal, bit for bit, 5 steps of the same model and batch
+   under ``HOROVOD_FUSION_THRESHOLD=0`` (every tensor its own chunk, no
+   pack): at a world of one the fused chain may change no bit. One more
+   hook step is traced with ``torch.profiler``;
+6. the slice against plain: a 2-layer model of the same widths, one loss and
+   its gradients through the kernel path and through ``causal_attention``;
+7. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+   that comes up through the ``TCPStore`` and the HMAC-signed KV store,
+   runs ``allreduce_async_`` on named CUDA tensors, checks the results and
+   exits 0; the phase fails when the worker fails.
 
 The line before the last is one JSON object with the kernels' launches,
 errors and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -44,6 +71,7 @@ import gc
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -120,7 +148,7 @@ def flash_bound(B: int, sq: int, sk: int, d: int, dtype: str,
 
 # --- phase 2: build ---------------------------------------------------------
 
-SOURCES = ("flash_attention_sm90", "flash_attention")
+SOURCES = ("flash_attention_sm90", "flash_attention", "fused_pack")
 
 
 def build_phase():
@@ -155,7 +183,7 @@ def build_phase():
                              "does not run on the tensor cores")
 
 
-# --- phase 3: the kernels against their plain version ----------------------
+# --- phase 3: flash attention against its plain version ----------------------
 
 def _qkv(B, s, d, dtype, seed, device, sk=None):
     import torch
@@ -295,7 +323,211 @@ def time_flash(name, B, s, d, dtype, iters, device) -> dict:
             "library_device_ms": lib_dev_ms}
 
 
-# --- phase 4: the main path at full width ---------------------------------
+# --- phase 4: K1, the fused-chunk pack and unpack --------------------------
+
+_INT_VIEW = {"float32": "int32", "bfloat16": "int16", "float16": "int16",
+             "float64": "int64"}
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    iv = getattr(torch, _INT_VIEW[str(a.dtype)[6:]])
+    return torch.equal(a.view(iv), b.view(iv))
+
+
+def _k1_case(dtype, sizes, pre, unpack_factor, device, seed, misalign=0):
+    """Pack then unpack one chunk through the port's dispatch and through
+    the plain version, on the same inputs; both directions must agree bit
+    for bit. ``misalign`` starts every tensor and the flat buffer that
+    many elements past an allocation's 16-byte-aligned start."""
+    import torch
+
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def buf(n):
+        t = torch.randn(n + misalign, generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+        return t[misalign:]
+
+    srcs = [buf(n) for n in sizes]
+    total = sum(sizes)
+    flat_k, flat_p = buf(total), buf(total)
+    fp.pack(srcs, flat_k, pre)
+    fp.plain_pack(srcs, flat_p, pre)
+    ok = _same_bits(flat_k, flat_p)
+    outs_k = [buf(n) for n in sizes]
+    outs_p = [o.clone() for o in outs_k]
+    fp.unpack(flat_k, outs_k, unpack_factor)
+    fp.plain_unpack(flat_k, outs_p, unpack_factor)
+    return ok and all(_same_bits(a, b) for a, b in zip(outs_k, outs_p))
+
+
+# (prescale, unpack factor): factors 1, 0.5 and 1/3; AVERAGE over 3 ranks
+# with the 1/n in the unpack (a backend without AVG) and without it (NCCL's
+# AVG divides, the unpack applies the postscale alone)
+K1_FACTORS = ((1.0, 1.0), (0.5, 1.0), (1.0 / 3.0, 1.0), (1.0, 0.5),
+              (1.0, 1.0 / 3.0), (2.0, 0.5 / 3.0))
+
+
+def k1_check_phase(device) -> float:
+    """Every case bitwise; returns the largest |kernel - plain| (0)."""
+    import random
+
+    import torch
+
+    rng = random.Random(0)
+    ragged = [0, 1, 7, 33, 1024, 4099, 3 * 4096 + 5]
+    many = [rng.randint(0, 70) for _ in range(300)]  # > 128 per launch
+    layouts = (("ragged", ragged, 0), ("ragged, unaligned starts", ragged, 1),
+               ("300 tensors", many, 0), ("300 tensors, unaligned", many, 3))
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float64):
+        factors = K1_FACTORS if dtype != torch.float64 else K1_FACTORS[:3]
+        for pre, post in factors:
+            for label, sizes, mis in layouts:
+                n += 1
+                if not _k1_case(dtype, sizes, pre, post, device, n, mis):
+                    raise AssertionError(
+                        f"K1 differs from its plain version: {dtype}, "
+                        f"prescale {pre}, unpack factor {post}, {label}")
+    torch.cuda.synchronize()
+    _log(f"  K1: {n} cases (fp32, bf16, fp16, fp64; ragged lengths with 0 "
+         "and 1 element; unaligned starts; 300 tensors a chunk; factors "
+         f"{sorted({f for c in K1_FACTORS for f in c})}): pack and unpack "
+         "bitwise equal to the plain version")
+    return 0.0
+
+
+def lm_param_shapes(cfg) -> list:
+    """The LM's parameter shapes in ``named_parameters`` order."""
+    d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    block = [(d, h, hd), (d, h, hd), (d, h, hd), (h, hd, d), (d, f), (f, d),
+             (d,), (d,)]
+    return ([(cfg.vocab_size, d), (cfg.max_seq, d), (d,)]
+            + block * cfg.n_layers)
+
+
+FUSION_THRESHOLD = 128 << 20  # the runtime's default (common/env.py)
+
+
+def slice_chunks(cfg, threshold: int = FUSION_THRESHOLD) -> list:
+    """The chunks, as lists of shapes, that the runtime forms when one
+    cycle takes every fp32 gradient of a step: in the order the backward
+    makes them ready (the reverse of ``named_parameters``), cut at the
+    fusion threshold."""
+    chunks, chunk, nbytes = [], [], 0
+    for s in reversed(lm_param_shapes(cfg)):
+        sz = math.prod(s) * 4
+        if chunk and nbytes + sz > threshold:
+            chunks.append(chunk)
+            chunk, nbytes = [], 0
+        chunk.append(s)
+        nbytes += sz
+    chunks.append(chunk)
+    return chunks
+
+
+def k1_time_phase(device, cfg) -> list:
+    """Pack and unpack of one step's gradients in the chunks that the main
+    path's grouped steps form (``slice_chunks``); the chunks of one tensor
+    are reduced in place with no pack and are left out. Each packed chunk
+    is first held bitwise against the plain version, both directions, on
+    the same inputs. Factor 1, as on the main path (AVERAGE through NCCL's
+    AVG, no scale factors)."""
+    import torch
+
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    chunks = [[torch.randn(s, device=device) for s in c]
+              for c in slice_chunks(cfg)]
+    grads = [t for c in chunks for t in c]
+    packed = [c for c in chunks if len(c) > 1]
+    flats = [torch.empty(sum(t.numel() for t in c), device=device)
+             for c in packed]
+    moved = sum(f.numel() * 4 for f in flats)
+    _log(f"  K1 at the slice's gradients: {len(grads)} fp32 gradients, "
+         f"{sum(t.numel() for t in grads) * 4 / 1e9:.3f} GB, "
+         f"{len(chunks)} chunks at {FUSION_THRESHOLD >> 20} MiB, "
+         f"{len(packed)} packed ({moved / 1e9:.3f} GB)")
+    # every packed chunk, both directions, bitwise against the plain version
+    for i, (c, f) in enumerate(zip(packed, flats)):
+        ref = torch.empty_like(f)
+        fp.pack(c, f)
+        fp.plain_pack(c, ref)
+        outs_k = [torch.empty_like(t) for t in c]
+        outs_p = [torch.empty_like(t) for t in c]
+        fp.unpack(f, outs_k)
+        fp.plain_unpack(f, outs_p)
+        if not (_same_bits(f, ref)
+                and all(_same_bits(a, b) and _same_bits(a, t)
+                        for a, b, t in zip(outs_k, outs_p, c))):
+            raise AssertionError(f"K1 differs from its plain version on "
+                                 f"packed chunk {i} ({len(c)} tensors)")
+        del ref, outs_k, outs_p
+    _log(f"  K1: the {len(packed)} packed chunks, pack and unpack, bitwise "
+         "equal to the plain version (and unpack restores every gradient)")
+
+    def pack():
+        for c, f in zip(packed, flats):
+            fp.pack(c, f)
+
+    def unpack():
+        for c, f in zip(packed, flats):
+            fp.unpack(f, c)
+
+    def plain_pack():
+        for c, f in zip(packed, flats):
+            fp.plain_pack(c, f)
+
+    def plain_unpack():
+        for c, f in zip(packed, flats):
+            fp.plain_unpack(f, c)
+
+    def lib_pack():
+        for c, f in zip(packed, flats):
+            torch.cat([t.view(-1) for t in c], out=f)
+
+    def lib_unpack():
+        for c, f in zip(packed, flats):
+            for t, part in zip(c, torch.split(f, [t.numel() for t in c])):
+                t.view(-1).copy_(part)
+
+    bound_ms = 2 * moved / HBM_BYTES_PER_S * 1e3  # each byte read + written
+    out = []
+    for name, kfn, pfn, lfn, src in (
+            ("fused_pack", pack, plain_pack, lib_pack,
+             "horovod_tpu/ops/collectives.py:777"),
+            ("fused_unpack", unpack, plain_unpack, lib_unpack,
+             "horovod_tpu/ops/collectives.py:740")):
+        ms = time_ms(kfn, iters=10)
+        dev = device_ms(kfn, iters=5, warmup=1)
+        lib = time_ms(lfn, iters=10)
+        lib_dev = device_ms(lfn, iters=5, warmup=1)
+        plain = time_ms(pfn, iters=5)
+        _log(f"  {name}: {ms:.4f} ms a step by events, {dev:.4f} ms of "
+             f"device time ({2 * moved / dev / 1e6:.0f} GB/s, "
+             f"{bound_ms / dev:.3f} of its bound {bound_ms:.4f} ms); "
+             f"torch.cat/split + copy_ {lib:.4f} ms ({lib_dev:.4f} device); "
+             f"plain {plain:.4f} ms")
+        out.append({"name": name, "route": "cuda",
+                    "source": "horovod_tpu_torch/csrc/fused_pack.cu",
+                    "replaces": src, "launches": None, "max_abs_err": 0.0,
+                    "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": lib,
+                    "device_ms": dev, "library_device_ms": lib_dev})
+    _log(f"  pack + unpack a step: {out[0]['ms'] + out[1]['ms']:.4f} ms by "
+         f"events, {out[0]['device_ms'] + out[1]['device_ms']:.4f} ms of "
+         f"device time; bound {2 * bound_ms:.4f} ms")
+    del chunks, grads, packed, flats
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 5: the main path at full width ---------------------------------
 
 def fwd_flops_per_token(cfg, seq: int) -> int:
     """Matmul FLOPs per token of one forward pass, counted as
@@ -326,55 +558,96 @@ def tokens_for(cfg, batch: int, seed: int, device):
                          generator=g, device=device)
 
 
-def train(cfg, batch: int, steps: int, device) -> dict:
+def _runtime_counts() -> dict:
+    """The runtime's counters that a step moves."""
+    from horovod_tpu_torch.common import context
+    from horovod_tpu_torch.ops import fused_pack as fp
+    from horovod_tpu_torch.utils import metrics
+
+    rt = context.runtime()
+    return {"chunks": rt.chunks, "collective calls": rt.collective_calls,
+            "K1 launches": sum(fp.kernel_launches.values()),
+            "negotiation rounds": int(metrics.get_registry().counter_value(
+                "hvd_negotiation_rounds_total")),
+            "cycles": rt.cycles}
+
+
+def train(cfg, batch: int, steps: int, device, trace: bool = True,
+          mode: str = "hooks") -> dict:
     """Horovod's training loop through the port's entry points. Returns
-    the losses, step times, kernel launches and peak memory of ``steps``
-    steps; on CUDA, one more step is traced with ``torch.profiler``."""
+    the losses, step times, kernel launches, the runtime's counters per
+    step and peak memory of ``steps`` steps; with ``trace``, one more step
+    is traced with ``torch.profiler``. ``mode``: ``"hooks"``,
+    ``DistributedOptimizer``'s gradient hooks; ``"grouped"``, the bare
+    optimizer after one ``hvd.grouped_allreduce_`` of every gradient in
+    the order the backward makes them ready; ``"bare"``, the bare
+    optimizer with no runtime, the floor the runtime's cost is read
+    against."""
     import torch
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.parallel import ring_attention
 
     model = TransformerLM(cfg, device=device, seed=0)
     tokens = tokens_for(cfg, batch, 0, device)
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9),
-        named_parameters=model.named_parameters())
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=1e-3, momentum=0.9)
+    horovod = mode != "bare"
+    if horovod:
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    if [tuple(p.shape) for p in params] != lm_param_shapes(cfg):
+        raise AssertionError("lm_param_shapes does not list the model's "
+                             "parameters in order")
+    if mode == "hooks":
+        opt = hvd.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
 
     def step():
         opt.zero_grad()
         loss = lm_loss(model, tokens, attn_fn=ring_attention)
         loss.backward()
+        if mode == "grouped":
+            hvd.grouped_allreduce_([p.grad for p in reversed(params)],
+                                   name="grads")
         opt.step()
         return loss.item()  # waits for the step's device work
 
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
-    for name in fa.kernel_launches:
-        fa.kernel_launches[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step = [], [], []
+    # every count to 0 just before the main path runs
+    for counts in (fa.kernel_launches, fp.kernel_launches):
+        for name in counts:
+            counts[name] = 0
     for _ in range(steps):
+        c0 = _runtime_counts() if horovod else {}
         t0 = time.perf_counter()
         losses.append(step())
         step_s.append(time.perf_counter() - t0)
+        c1 = _runtime_counts() if horovod else {}
+        per_step.append({k: c1[k] - c0[k] for k in c0})
     launches = dict(fa.kernel_launches)
+    launches.update(fp.kernel_launches)
     res = {"losses": losses, "step_s": step_s, "launches": launches,
-           "peak_bytes": None, "profile": None}
-    if device.type == "cuda":
-        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+           "per_step": per_step,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "profile": None}
+    if trace:
         res["profile"] = profile_step(step)
+    del model, params, opt
+    gc.collect()  # the optimizer's gradient hooks hold it in a cycle
+    torch.cuda.empty_cache()
     return res
 
 
 # kernel-name patterns of the step's device work, first match wins
 _CATEGORIES = (("flash forward kernel", r"flash_fwd"),
+               ("fused pack/unpack (K1)", r"fused_pack_kernel"),
                ("fp32 GEMM", r"f32f32|sgemm"),
                ("other GEMM (bf16)", r"gemm|nvjet|xmma|cutlass"),
-               ("NCCL", r"nccl"),
+               ("NCCL (one-rank kernels included)", r"nccl|onerank"),
                ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
                ("elementwise, reduce, copy", r""))
 
@@ -392,16 +665,32 @@ def profile_step(step) -> dict:
         t0 = time.perf_counter()
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # the union of the kernels' intervals over all streams (overlapping
+    # streams counted once), and the longest gaps in it
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == cuda)
+    union, gaps = 0.0, []
+    s0, e0, n0 = spans[0]
+    for s1, e1, n1 in spans[1:]:
+        if s1 > e0:
+            gaps.append(((s1 - e0) / 1e3, n0[:40], n1[:40]))
+            union += e0 - s0
+            s0, e0 = s1, e1
+        elif e1 > e0:
+            e0 = e1
+        n0 = n1 if e1 >= e0 else n0
+    union = (union + e0 - s0) / 1e3
     cats = {name: 0.0 for name, _ in _CATEGORIES}
     for e in events:
         name = next(n for n, pat in _CATEGORIES if re.search(pat, e.key))
         cats[name] += e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:15]
-    return {"wall_ms": wall_ms, "device_ms": busy_ms, "categories": cats,
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "union_ms": union,
+            "gaps": sorted(gaps, reverse=True)[:6], "categories": cats,
             "top": [(e.key[:90], e.count, e.self_device_time_total / 1e3)
                     for e in top]}
 
@@ -409,8 +698,10 @@ def profile_step(step) -> dict:
 def main_path_phase(device) -> dict:
     import torch
 
+    import horovod_tpu_torch as hvd
+
     cfg = full_width_config(12)
-    batch, steps = 8, 5
+    batch, steps, grouped_steps = 8, 5, 3
     res = train(cfg, batch, steps, device)
     losses = res["losses"]
     _log(f"  losses: {losses}")
@@ -418,9 +709,12 @@ def main_path_phase(device) -> dict:
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
+    for i, counts in enumerate(res["per_step"]):
+        _log(f"  step {i}: " + ", ".join(f"{k} {v}"
+                                          for k, v in counts.items()))
     want = {"flash_attention_fwd": cfg.n_layers * steps,
             "flash_attention_fwd_fp32": 0}
-    if res["launches"] != want:
+    if {k: res["launches"][k] for k in want} != want:
         raise AssertionError(f"flash kernels launched {res['launches']} "
                              f"times on the main path, expected {want}")
     steady = statistics.median(res["step_s"][1:])
@@ -432,22 +726,80 @@ def main_path_phase(device) -> dict:
          f"{steady * 1e3:.1f} ms, {tok / steady:.0f} tokens/s, model "
          f"FLOPs utilization {mfu:.4f} of 989 TFLOP/s; "
          f"max_memory_allocated {res['peak_bytes'] / 2**30:.2f} GiB; "
-         f"flash launches {res['launches']}")
+         f"launches {res['launches']}")
     prof = res["profile"]
+    idle = max(0.0, 1.0 - prof["union_ms"] / prof["wall_ms"])
     _log(f"  traced step: wall {prof['wall_ms']:.1f} ms, device kernels "
-         f"{prof['device_ms']:.1f} ms (summed over streams); top kernels "
-         "(calls, ms):")
+         f"{prof['device_ms']:.1f} ms summed over streams, "
+         f"{prof['union_ms']:.1f} ms busy on any stream; idle share "
+         f"{idle:.4f}; longest gaps (ms, after, before): {prof['gaps']}")
+    _log("  top kernels (calls, ms):")
     for name, calls, ms in prof["top"]:
         _log(f"    {ms:9.3f}  {calls:5d}  {name}")
     _log("  device ms by category:")
     for name, ms in prof["categories"].items():
         _log(f"    {ms:9.3f}  {name}")
-    gc.collect()  # the optimizer's gradient hooks hold it in a cycle
+
+    # every gradient enqueued at once: the chunks are known in advance
+    grp = train(cfg, batch, grouped_steps, device, trace=False,
+                mode="grouped")
+    chunks = slice_chunks(cfg)
+    n_packed = sum(len(c) > 1 for c in chunks)
+    expect = {"chunks": len(chunks), "collective calls": len(chunks),
+              "K1 launches": 2 * n_packed}
+    for i, counts in enumerate(grp["per_step"]):
+        _log(f"  grouped step {i}: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()))
+        if {k: counts[k] for k in expect} != expect:
+            raise AssertionError(f"grouped step {i} ran {counts}, expected "
+                                 f"{expect}")
+    _log(f"  grouped losses: {grp['losses']}; step ms "
+         f"{[round(x * 1e3, 1) for x in grp['step_s']]}")
+    launches = {k: v + grp["launches"][k]
+                for k, v in res["launches"].items()}
+    if grp["launches"]["flash_attention_fwd"] != cfg.n_layers * grouped_steps:
+        raise AssertionError(f"grouped run launched {grp['launches']}")
+
+    # the same steps with every tensor its own chunk: no pack, no unpack
+    hvd.shutdown()
+    os.environ["HOROVOD_FUSION_THRESHOLD"] = "0"
+    try:
+        hvd.init()
+        ref = train(cfg, batch, steps, device, trace=False)
+        hvd.shutdown()
+    finally:
+        del os.environ["HOROVOD_FUSION_THRESHOLD"]
+    hvd.init()
+    _log(f"  unfused (HOROVOD_FUSION_THRESHOLD=0) losses: {ref['losses']}; "
+         f"per step {ref['per_step'][-1]}; step ms "
+         f"{[round(x * 1e3, 1) for x in ref['step_s']]}")
+    if ref["launches"]["fused_pack"] or ref["launches"]["fused_unpack"]:
+        raise AssertionError("the unfused run packed: "
+                             f"{ref['launches']}")
+    if ref["losses"] != losses:
+        raise AssertionError(
+            f"the hook run's losses {losses} differ from the unfused run's "
+            f"{ref['losses']}")
+    if grp["losses"] != ref["losses"][:grouped_steps]:
+        raise AssertionError(
+            f"the fused chain changed the losses: grouped {grp['losses']} "
+            f"against {ref['losses'][:grouped_steps]} unfused")
+    _log("  hook and grouped (fused) losses bitwise equal to the unfused "
+         "run's")
+    if not (launches["fused_pack"] > 0 and launches["fused_unpack"] > 0):
+        raise AssertionError(f"K1 never launched on the main path: "
+                             f"{launches}")
+    bare = train(cfg, batch, steps, device, trace=False, mode="bare")
+    _log(f"  the same loop without the runtime (bare SGD): step ms "
+         f"{[round(x * 1e3, 1) for x in bare['step_s']]}; median "
+         f"{statistics.median(bare['step_s'][1:]) * 1e3:.1f} ms")
+    if bare["losses"][0] != losses[0]:
+        raise AssertionError("the bare loop's first loss differs")
     torch.cuda.empty_cache()
-    return res["launches"]
+    return launches
 
 
-# --- phase 5: the slice against plain attention ---------------------------
+# --- phase 6: the slice against plain attention ---------------------------
 
 def loss_and_grads(model, tokens, attn_fn):
     from horovod_tpu_torch.models.transformer import lm_loss
@@ -489,14 +841,69 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
     torch.cuda.empty_cache()
 
 
+# --- phase 7: the launcher ------------------------------------------------
+
+LAUNCHED_WORKER = """
+import os
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.runner.http_server import KVStoreClient
+
+hvd.init()
+assert hvd.device() == torch.device("cuda", hvd.local_rank()), hvd.device()
+assert os.environ["MASTER_PORT"] and os.environ["HOROVOD_SECRET_KEY"]
+kv = KVStoreClient(os.environ["HOROVOD_GLOO_RENDEZVOUS_ADDR"],
+                   int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]))
+kv.put("smoke", f"rank{hvd.rank()}", b"up")
+assert kv.get("smoke", f"rank{hvd.rank()}") == b"up"
+xs = [torch.full((n,), float(i + 1), device=hvd.device())
+      for i, n in enumerate((3, 1000, 257))]
+hs = [hvd.allreduce_async_(x, name=f"smoke.{i}", op=hvd.Sum,
+                           prescale_factor=2.0) for i, x in enumerate(xs)]
+for h in hs:
+    hvd.synchronize(h)
+for i, x in enumerate(xs):
+    assert torch.equal(x, torch.full_like(x, 2.0 * (i + 1) * hvd.size())), x
+rank = hvd.rank()
+hvd.shutdown()
+print("LAUNCHED_WORKER_OK", rank)
+"""
+
+
+def launcher_phase(root: str):
+    """One worker through the port's hvdrun, on the card."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
+           sys.executable, "-c", LAUNCHED_WORKER]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    # a session of its own, so a timeout ends the launcher and its worker
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out = p.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise
+    _log(f"  hvdrun -np 1: exit {p.returncode} after "
+         f"{time.perf_counter() - t0:.1f} s")
+    for line in out.strip().splitlines()[-10:]:
+        _log(f"    {line}")
+    if p.returncode != 0 or "LAUNCHED_WORKER_OK" not in out:
+        raise AssertionError("the launched worker failed")
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
     import horovod_tpu_torch as hvd
 
     _log(card_line())
@@ -508,10 +915,14 @@ def main() -> int:
 
     hvd.init()
     device = hvd.device()
-    _log(f"[kernel] on {device} ({torch.distributed.get_backend()})")
+    _log(f"[flash] on {device} ({torch.distributed.get_backend()})")
     kernels = kernel_phase(device)
 
-    _log("[main path] 12 layers at full width, 5 steps")
+    _log("[K1]")
+    k1_check_phase(device)
+    kernels += k1_time_phase(device, full_width_config(12))
+
+    _log("[main path] 12 layers at full width, 5 steps, through the runtime")
     launches = main_path_phase(device)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
@@ -520,6 +931,10 @@ def main() -> int:
     slice_vs_plain_phase(device)
     hvd.shutdown()
 
+    _log("[launcher]")
+    launcher_phase(root)
+
+    _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,11 +14,25 @@ The data plane is ``torch.distributed``: NCCL on the GPU, gloo on the CPU.
 
 Without CUDA, ``init`` raises unless the caller asks for
 ``device="cpu"``: it never carries on silently on the CPU.
+
+``init`` also reads the ``RuntimeConfig`` and starts the background runtime
+(``ops/queue.py``) on ``device()``, as ``horovod_tpu/common/context.py``
+:337-362 does. The runtime runs its collectives on a process group of its
+own, so they never interleave with collectives the caller's thread issues
+on the world group. A world of more than one rank negotiates over the
+launcher's rendezvous store (``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT``);
+where no launcher set one, rank 0 serves a store itself and publishes its
+address and a fresh secret through the ``torch.distributed`` store (the JAX
+package falls back to name-ordered execution there, which two ranks whose
+gradient hooks fire in different orders cannot survive). ``shutdown``
+stops the runtime, whose pending handles fail with
+``HorovodInternalError``.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import threading
 from typing import Optional, Sequence
@@ -27,6 +41,8 @@ import torch
 import torch.distributed as dist
 
 from . import env as env_schema
+
+_KV_KEY = "horovod_tpu_torch/kv"
 
 _STORE_TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -62,6 +78,9 @@ class _Context:
         self.rank = self.size = 0
         self.local_rank = self.local_size = 0
         self.cross_rank = self.cross_size = 0
+        self.config: Optional[env_schema.RuntimeConfig] = None
+        self.runtime = None
+        self.kv_server = None  # a store rank 0 serves without a launcher
 
 
 _ctx = _Context()
@@ -123,22 +142,66 @@ def init(device=None):
             torch.cuda.set_device(dev)
             # bind the communicator to the device now, not at first use
             kw["device_id"] = dev
+        store = _store(rank, size)
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                store=_store(rank, size), rank=rank,
+                                store=store, rank=rank,
                                 world_size=size, timeout=_STORE_TIMEOUT, **kw)
         _ctx.device = dev
         _ctx.global_set = ProcessSet("global", range(size), dist.group.WORLD)
         _ctx.rank, _ctx.size = rank, size
         _ctx.local_rank, _ctx.local_size = local_rank, local_size
         _ctx.cross_rank, _ctx.cross_size = cross_rank, cross_size
+        _ctx.config = env_schema.RuntimeConfig.from_env()
+        _start_runtime(store)
         _ctx.initialized = True
 
 
+def _kv_client(store):
+    """The rendezvous store's client for negotiation: the launcher's, or
+    one rank 0 serves when no launcher gave an address."""
+    from ..runner.http_server import KVStoreClient, RendezvousServer
+
+    addr = os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR)
+    port = os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_PORT)
+    if addr and port:
+        return KVStoreClient(addr, int(port))
+    if _ctx.rank == 0:
+        from ..runner.secret import make_secret_key
+
+        secret = make_secret_key()
+        host = os.environ.get(env_schema.MASTER_ADDR, "127.0.0.1")
+        _ctx.kv_server = RendezvousServer(secret_key=secret)
+        _ctx.kv_server.start()
+        store.set(_KV_KEY, json.dumps({"addr": host,
+                                       "port": _ctx.kv_server.port,
+                                       "secret": secret}))
+    kv = json.loads(store.get(_KV_KEY))
+    return KVStoreClient(kv["addr"], kv["port"], secret_key=kv["secret"])
+
+
+def _start_runtime(store):
+    from ..ops.queue import BackgroundRuntime
+
+    # the runtime's own communicator (see the module docstring)
+    group = dist.new_group(list(range(_ctx.size)))
+    kv = _kv_client(store) if _ctx.size > 1 else None
+    _ctx.runtime = BackgroundRuntime(_ctx.global_set, _ctx.config,
+                                     _ctx.device, group, kv_client=kv)
+    _ctx.runtime.start()
+
+
 def shutdown():
-    """Tear the process group down; a second call is a no-op."""
+    """Stop the runtime (its pending handles fail) and tear the process
+    group down; a second call is a no-op."""
     with _ctx.lock:
         if not _ctx.initialized:
             return
+        if _ctx.runtime is not None:
+            _ctx.runtime.stop()
+            _ctx.runtime = None
+        if _ctx.kv_server is not None:
+            _ctx.kv_server.stop()
+            _ctx.kv_server = None
         dist.destroy_process_group()
         _ctx.initialized = False
         _ctx.global_set = None
@@ -158,6 +221,11 @@ def _require_init() -> _Context:
 
 def global_process_set() -> ProcessSet:
     return _require_init().global_set
+
+
+def runtime():
+    """The background runtime ``init`` started."""
+    return _require_init().runtime
 
 
 def device() -> torch.device:

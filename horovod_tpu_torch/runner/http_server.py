@@ -1,0 +1,391 @@
+"""The rendezvous key-value store over HTTP — the KV subset of
+``horovod_tpu/runner/http_server.py`` (``_Store`` :569, the KV verbs of
+``_KVHandler`` :122-168 and :528-566, ``_KVServer`` :868,
+``RendezvousServer`` :900, ``KVStoreClient`` :972).
+
+The launcher starts one ``RendezvousServer``; workers reach it with
+``KVStoreClient``, and the controller's negotiation rounds ride it
+(``ops/controller.py``). Values are opaque bytes under ``scope/key``; a GET
+blocks until its key exists. When a job secret is present
+(``HOROVOD_SECRET_KEY``, minted by the launcher: ``runner/secret.py``),
+every request carries an HMAC digest the store checks before acting (403
+otherwise), and every GET response carries a digest the client checks.
+
+The wire is the JAX package's, so either package's client talks to either
+package's server. Left out: the telemetry endpoints (``/metrics``,
+``/perf``, ``/anatomy``, ...), the binary KV shards and ``put_get``'s
+one-exchange shard verb (ROADMAP.md queue 1 items 16–17); ``put_get``
+here is a PUT followed by a blocking GET, as the JAX client does without
+shards.
+"""
+
+from __future__ import annotations
+
+import base64
+import http.client
+import json
+import socket
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.error import HTTPError
+from urllib.parse import unquote
+
+from ..utils import retry as _retry
+from . import secret as _secret
+
+
+class KVAuthError(RuntimeError):
+    """A KV exchange failed authentication: the store refused our digest
+    (key mismatch, tampered request, clock outside the replay window) or a
+    GET response's digest did not verify."""
+
+
+class _KVHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    # Nagle + delayed ACK on persistent connections costs 40 ms per
+    # response; negotiation rounds are latency-bound
+    disable_nagle_algorithm = True
+
+    def log_message(self, *a):  # quiet
+        pass
+
+    def _key(self):
+        return unquote(self.path.lstrip("/"))
+
+    def _authorized(self, body: bytes = b"") -> bool:
+        key = self.server.secret_key  # type: ignore[attr-defined]
+        if not key:
+            return True
+        ts = self.headers.get(_secret.TS_HEADER) or ""
+        try:
+            skew = abs(time.time() - float(ts))
+        except ValueError:
+            return False
+        if skew > _secret.MAX_SKEW_SECONDS:
+            return False  # stale (or far-future) signed request: replay
+        mode = ""
+        if self.headers.get("X-Prefix-Read"):
+            mode = f"prefix:{self.headers.get('X-Min-Count', '1')}"
+        return _secret.check_digest(
+            key, self.headers.get(_secret.DIGEST_HEADER),
+            self.command.encode(), self._key().encode(),
+            (self.headers.get("X-Exclude-Prefix") or "").encode(),
+            ts.encode(), mode.encode(), body)
+
+    def _reply(self, status: int, body: bytes = b"", digest_path=None):
+        self.send_response(status)
+        self.send_header("Content-Length", str(len(body)))
+        skey = self.server.secret_key  # type: ignore[attr-defined]
+        if skey and digest_path is not None:
+            self.send_header(_secret.DIGEST_HEADER,
+                             _secret.response_digest(skey, digest_path, body))
+        self.end_headers()
+        if body:
+            self.wfile.write(body)
+
+    def do_PUT(self):
+        n = int(self.headers.get("Content-Length", 0))
+        body = self.rfile.read(n)
+        if not self._authorized(body):
+            return self._reply(403)
+        self.server.store.put(self._key(), body)  # type: ignore[attr-defined]
+        self._reply(200)
+
+    def do_GET(self):
+        if not self._authorized():
+            return self._reply(403)
+        key = self._key()
+        store = self.server.store  # type: ignore[attr-defined]
+        deadline = time.monotonic() + float(
+            self.headers.get("X-Timeout", "30"))
+        if self.headers.get("X-Prefix-Read"):
+            # bulk read: every key under the prefix once X-Min-Count exist,
+            # or whatever is there at the deadline (stall attribution)
+            min_count = int(self.headers.get("X-Min-Count", "1"))
+            matches = store.wait_prefix(key, min_count, deadline)
+            body = json.dumps(
+                {k[len(key):]: base64.b64encode(v).decode()
+                 for k, v in matches.items()}).encode()
+            return self._reply(200, body, digest_path=key)
+        body = store.wait_key(key, deadline)
+        if body is None:
+            return self._reply(404)
+        self._reply(200, body, digest_path=key)
+
+    def do_DELETE(self):
+        if not self._authorized():
+            return self._reply(403)
+        self.server.store.delete_prefix(  # type: ignore[attr-defined]
+            self._key(), self.headers.get("X-Exclude-Prefix"))
+        self._reply(200)
+
+
+class _Store:
+    """The key-value table with targeted wakeups: a blocking reader parks
+    on its exact key or on its prefix, and a PUT wakes only the readers it
+    can satisfy. The events are hints: a woken reader re-checks the data
+    under the lock."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.data: dict[str, bytes] = {}  # guarded-by: lock
+        # key -> [Event, ...] parked exact-key readers
+        self._key_waiters: dict[str, list] = {}  # guarded-by: lock
+        # [prefix, still_missing_count, Event] parked prefix readers
+        self._prefix_waiters: list = []  # guarded-by: lock
+
+    def put(self, key: str, value: bytes) -> None:
+        fire = []
+        with self.lock:
+            fresh = key not in self.data
+            self.data[key] = value
+            fire.extend(self._key_waiters.pop(key, ()))
+            if fresh:
+                for w in self._prefix_waiters:
+                    if key.startswith(w[0]):
+                        w[1] -= 1
+                        if w[1] <= 0:
+                            fire.append(w[2])
+        for ev in fire:
+            ev.set()
+
+    def wait_key(self, key: str, deadline: float) -> Optional[bytes]:
+        """Value of ``key``, blocking until it exists or ``deadline``
+        (time.monotonic) passes — then None (the handler's 404)."""
+        with self.lock:
+            v = self.data.get(key)
+            if v is not None:
+                return v
+            ev = threading.Event()
+            self._key_waiters.setdefault(key, []).append(ev)
+        while True:
+            remaining = deadline - time.monotonic()
+            fired = remaining > 0 and ev.wait(remaining)
+            with self.lock:
+                v = self.data.get(key)
+                if v is not None or not fired:
+                    lst = self._key_waiters.get(key)
+                    if lst is not None:
+                        if ev in lst:
+                            lst.remove(ev)
+                        if not lst:
+                            del self._key_waiters[key]
+                    return v
+                # woken but the key vanished again (racing DELETE)
+                ev.clear()
+                self._key_waiters.setdefault(key, []).append(ev)
+
+    def wait_prefix(self, prefix: str, min_count: int,
+                    deadline: float) -> dict:
+        """Every key under ``prefix`` once at least ``min_count`` exist,
+        or whatever is present at ``deadline``."""
+        while True:
+            with self.lock:
+                matches = {k: v for k, v in self.data.items()
+                           if k.startswith(prefix)}
+                remaining = deadline - time.monotonic()
+                if len(matches) >= min_count or remaining <= 0:
+                    return matches
+                ev = threading.Event()
+                w = [prefix, min_count - len(matches), ev]
+                self._prefix_waiters.append(w)
+            try:
+                ev.wait(remaining)
+            finally:
+                with self.lock:
+                    if w in self._prefix_waiters:
+                        self._prefix_waiters.remove(w)
+
+    def delete_prefix(self, prefix: str,
+                      exclude: Optional[str] = None) -> None:
+        with self.lock:
+            for k in [k for k in self.data if k.startswith(prefix)]:
+                if exclude and k.startswith(exclude):
+                    continue  # live namespace: a GC sweep must not race it
+                del self.data[k]
+
+
+class _KVServer(ThreadingHTTPServer):
+    # every rank of a negotiation round connects at once: a deep listen
+    # backlog keeps accept cheap
+    request_queue_size = 1024
+    daemon_threads = True
+
+    def handle_error(self, request, client_address):
+        import sys
+
+        if isinstance(sys.exc_info()[1], (ConnectionResetError,
+                                          BrokenPipeError, TimeoutError)):
+            return  # peer closed its keep-alive connection (job teardown)
+        super().handle_error(request, client_address)
+
+
+class RendezvousServer:
+    """Blocking-GET KV store over HTTP. ``secret_key=None`` takes the job
+    secret from ``HOROVOD_SECRET_KEY``; without one the store is open."""
+
+    def __init__(self, port: int = 0, secret_key: Optional[str] = None):
+        key = (secret_key if secret_key is not None
+               else _secret.env_secret())
+        self._server = _KVServer(("0.0.0.0", port), _KVHandler)
+        self._server.store = _Store()  # type: ignore[attr-defined]
+        self._server.secret_key = key  # type: ignore[attr-defined]
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    def start(self) -> int:
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True, name="hvd-rendezvous")
+        self._thread.start()
+        return self.port
+
+    def stop(self):
+        self._server.shutdown()
+        self._server.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+class KVStoreClient:
+    """Client of ``RendezvousServer``: signs requests and checks GET
+    responses when a job secret is available (the server's rule). Each
+    thread keeps one persistent connection; a stale socket is retried once
+    on a fresh one (idempotent verbs only: every KV operation is
+    last-write-wins)."""
+
+    IDEMPOTENT_VERBS = frozenset({"GET", "PUT", "DELETE"})
+
+    def __init__(self, addr: str, port: int,
+                 secret_key: Optional[str] = None):
+        self.addr = addr
+        self.port = port
+        self.base = f"http://{addr}:{port}"
+        self._secret = (secret_key if secret_key is not None
+                        else _secret.env_secret())
+        self._local = threading.local()
+
+    def _attempt(self, method: str, path: str, body: Optional[bytes],
+                 headers: dict, timeout: float):
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = http.client.HTTPConnection(self.addr, self.port,
+                                              timeout=timeout)
+            try:
+                conn.connect()
+                conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                     socket.TCP_NODELAY, 1)
+            except OSError:
+                pass  # connect() is retried by conn.request below
+            self._local.conn = conn
+        try:
+            conn.timeout = timeout
+            if conn.sock is not None:
+                conn.sock.settimeout(timeout)
+            conn.request(method, "/" + path, body=body, headers=headers)
+            resp = conn.getresponse()
+            return resp.status, resp.headers, resp.read()
+        except (OSError, http.client.HTTPException):
+            # stale keep-alive socket: drop it so a retry dials fresh
+            conn.close()
+            self._local.conn = None
+            raise
+
+    def _request(self, method: str, path: str, body: Optional[bytes],
+                 headers: dict, timeout: float, site: str = ""):
+        policy = (_retry.RetryPolicy.from_env(max_attempts=2,
+                                              base_delay_s=0.05,
+                                              max_delay_s=1.0)
+                  if method in self.IDEMPOTENT_VERBS
+                  else _retry.RetryPolicy(max_attempts=1))
+        return _retry.Retrier(site or f"kv.{method.lower()}", policy).call(
+            lambda: self._attempt(method, path, body, headers, timeout))
+
+    def _headers(self, method: str, path: str, body: bytes = b"",
+                 exclude: str = "", mode: str = "") -> dict:
+        if not self._secret:
+            return {}
+        ts = f"{time.time():.6f}"
+        return {
+            _secret.TS_HEADER: ts,
+            _secret.DIGEST_HEADER: _secret.request_digest(
+                self._secret, method, path, body, exclude, ts=ts,
+                mode=mode),
+        }
+
+    def _check_status(self, status: int, path: str, what: str):
+        if status == 200:
+            return
+        if status == 403:
+            raise KVAuthError(
+                f"KV store refused {what}: HMAC digest rejected — either "
+                "the secret key differs (is HOROVOD_SECRET_KEY consistent "
+                "across the job?) or this host's clock is more than "
+                f"{_secret.MAX_SKEW_SECONDS:.0f}s off the store's")
+        # HTTPError for the rest: callers tell the blocking-GET timeout
+        # (404) by its code
+        raise HTTPError(f"{self.base}/{path}", status, what, None, None)
+
+    def _check_response(self, rhdrs, path: str, body: bytes, what: str):
+        if self._secret and not _secret.check_digest(
+                self._secret, rhdrs.get(_secret.DIGEST_HEADER),
+                b"RESP", path.encode(), body):
+            raise KVAuthError(
+                f"{what}: response digest missing or invalid — the value "
+                "was tampered with in transit or the store does not hold "
+                "the job secret")
+
+    def put(self, scope: str, key: str, value: bytes):
+        path = f"{scope}/{key}"
+        status, _, _ = self._request(
+            "PUT", path, value, self._headers("PUT", path, value), 30.0)
+        self._check_status(status, path, f"PUT {path}")
+
+    def get(self, scope: str, key: str, timeout: float = 30.0) -> bytes:
+        path = f"{scope}/{key}"
+        headers = {"X-Timeout": str(timeout)}
+        headers.update(self._headers("GET", path))
+        status, rhdrs, body = self._request("GET", path, None, headers,
+                                            timeout + 10)
+        self._check_status(status, path, f"GET {path}")
+        self._check_response(rhdrs, path, body, f"GET {path}")
+        return body
+
+    def put_get(self, scope: str, put_key: str, value: bytes,
+                get_key: str, timeout: float = 30.0) -> bytes:
+        """Store ``scope/put_key``, then block on ``scope/get_key``."""
+        self.put(scope, put_key, value)
+        return self.get(scope, get_key, timeout=timeout)
+
+    def get_prefix(self, scope: str, prefix: str = "", min_count: int = 1,
+                   timeout: float = 30.0) -> dict:
+        """Every key under ``scope/prefix`` in one request, blocking on the
+        server until ``min_count`` keys exist or the timeout passes
+        (partial results return then). Returns {key_suffix: bytes}."""
+        path = f"{scope}/{prefix}"
+        mode = f"prefix:{min_count}"
+        headers = {"X-Prefix-Read": "1", "X-Min-Count": str(min_count),
+                   "X-Timeout": str(timeout)}
+        headers.update(self._headers("GET", path, mode=mode))
+        status, rhdrs, body = self._request("GET", path, None, headers,
+                                            timeout + 10, site="kv.wait")
+        self._check_status(status, path, f"GET(prefix) {path}")
+        self._check_response(rhdrs, path, body, f"GET(prefix) {path}")
+        return {k: base64.b64decode(v) for k, v in json.loads(body).items()}
+
+    def delete_scope(self, scope: str):
+        self.delete_prefix(f"{scope}/")
+
+    def delete_prefix(self, prefix: str, exclude: Optional[str] = None):
+        """Delete every key under ``prefix`` except those under
+        ``exclude``."""
+        headers = self._headers("DELETE", prefix, exclude=exclude or "")
+        if exclude:
+            headers["X-Exclude-Prefix"] = exclude
+        status, _, _ = self._request("DELETE", prefix, None, headers, 30.0)
+        self._check_status(status, prefix, f"DELETE {prefix}")

@@ -7,18 +7,20 @@
     optimizer = hvd.DistributedOptimizer(
         optimizer, named_parameters=model.named_parameters())
 
-Collectives run on ``torch.distributed`` (NCCL on the GPU, gloo on the CPU)
-and tensors stay on their device: nothing goes through numpy. A handle is
-an ``int`` over an asynchronous ``torch.distributed`` work item. As in any
-``torch.distributed`` program, every rank issues its collectives in the same
-order; ``name`` is accepted for the Horovod signature, and the name-based
-negotiation of the JAX package's background runtime is ROADMAP.md queue 1
-item 6.
+Every collective is a named ``TensorEntry`` enqueued on the background
+runtime (``ops/queue.py``), as ``horovod_tpu/__init__.py`` :226-330 does:
+the runtime negotiates the names across ranks, fuses allreduces into
+chunks and runs them on its cycle thread, so the ranks need not issue
+their collectives in one order. A handle is an ``int``; ``synchronize``
+returns the result, ready on the caller's current stream. Tensors stay on
+their device: nothing goes through numpy (unlike the JAX shim's
+``_to_np``). ``DistributedOptimizer``'s gradient hooks enqueue
+``allreduce.<param name>``.
 
 Not ported in this slice, and raising ``NotImplementedError``: the ZeRO-1
-sharded update (queue 1 item 12), Adasum and sparse gradients (item 13).
+sharded update (ROADMAP.md queue 1 item 12), Adasum and sparse gradients
+(item 13).
 """
-
 from __future__ import annotations
 
 import contextlib
@@ -40,8 +42,10 @@ from ..common.context import (  # noqa: F401  (topology + lifecycle)
     shutdown,
     size,
 )
+from ..common.context import runtime as _runtime
 from ..common.exceptions import HorovodInternalError  # noqa: F401
 from ..ops import collectives as _coll
+from ..ops.queue import TensorEntry
 from ..ops.collectives import (  # noqa: F401
     Adasum,
     Average,
@@ -77,67 +81,133 @@ class Compression:
             return t.to(ctx) if ctx is not None else t
 
 
-# handle -> in-flight collective; handles may be created on the autograd
-# engine's threads (gradient hooks) and are completed on the caller's
-_pending: dict[int, _coll.Pending] = {}
-_next_handle = itertools.count()
+# handle -> (tensor the caller passed, its contiguous stand-in): an
+# in-place op on a non-contiguous tensor runs on a contiguous copy, which
+# synchronize writes back
+_write_back: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+_group_counter = itertools.count()
 
 
-def _register(p: _coll.Pending) -> int:
-    h = next(_next_handle)
-    _pending[h] = p
-    return h
+def _default_name(prefix: str) -> str:
+    return f"{prefix}.noname.{_runtime().handles._next}"
 
 
-# --- async ops --------------------------------------------------------------
+def _enqueue_all(op: str, tensors, names, inplace: bool, **kw) -> list:
+    """Enqueue one entry per tensor at once: one cycle drains them all."""
+    rt = _runtime()
+    entries, targets = [], []
+    for tensor, name in zip(tensors, names):
+        t = tensor.detach()
+        work = t if t.is_contiguous() else t.contiguous()
+        out = work if inplace else torch.empty_like(work)
+        entries.append(TensorEntry(name=name or _default_name(op), op=op,
+                                   tensor=work, output=out, **kw))
+        targets.append(t if inplace and work is not t else None)
+    hs = rt.enqueue_group(entries)
+    for h, e, t in zip(hs, entries, targets):
+        if t is not None:
+            _write_back[h] = (t, e.tensor)
+    return hs
+
+
+def _enqueue(op: str, tensor, name, inplace: bool, **kw) -> int:
+    return _enqueue_all(op, [tensor], [name], inplace, **kw)[0]
+
+
+def _allreduce_kw(tensors, average, op, prescale_factor, postscale_factor,
+                  process_set) -> dict:
+    op = _coll._resolve_op(op, average)
+    for t in tensors:
+        _coll._check_average_dtype(t, op)
+    if op == Adasum:
+        raise NotImplementedError(
+            "Adasum is not ported yet (ROADMAP.md queue 1 item 13)")
+    return dict(reduce_op=op, prescale_factor=float(prescale_factor),
+                postscale_factor=float(postscale_factor),
+                process_set=process_set)
+
 
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
                     process_set=None) -> int:
-    return _register(_coll.allreduce_start(
-        tensor.detach(), op, average, prescale_factor, postscale_factor,
+    return _enqueue("allreduce", tensor, name, False, **_allreduce_kw(
+        [tensor], average, op, prescale_factor, postscale_factor,
         process_set))
 
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
                      process_set=None) -> int:
-    """In place: the result lands in ``tensor`` at ``synchronize``."""
-    return _register(_coll.allreduce_start(
-        tensor.detach(), op, average, prescale_factor, postscale_factor,
-        process_set, inplace=True))
+    """In place: the result lands in ``tensor`` (in its dtype)."""
+    return _enqueue("allreduce", tensor, name, True, **_allreduce_kw(
+        [tensor], average, op, prescale_factor, postscale_factor,
+        process_set))
+
+
+def _group_base(name):
+    # unique per unnamed call: two pending unnamed groups must not collide
+    # on the in-flight name guard
+    return name or f"grouped_allreduce.noname.{next(_group_counter)}"
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             prescale_factor=1.0, postscale_factor=1.0,
                             process_set=None) -> list:
-    return [allreduce_async(t, average, name, op, prescale_factor,
-                            postscale_factor, process_set) for t in tensors]
+    """One logical op over a list, named ``<name>.<i>``, enqueued at once:
+    one cycle drains the whole group and fuses it (reference
+    torch/mpi_ops.py:345)."""
+    base = _group_base(name)
+    return _enqueue_all("allreduce", tensors,
+                        [f"{base}.{i}" for i in range(len(tensors))], False,
+                        **_allreduce_kw(tensors, average, op,
+                                        prescale_factor, postscale_factor,
+                                        process_set))
 
 
 def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
                              process_set=None) -> list:
-    return [allreduce_async_(t, average, name, op, prescale_factor,
-                             postscale_factor, process_set) for t in tensors]
+    base = _group_base(name)
+    return _enqueue_all("allreduce", tensors,
+                        [f"{base}.{i}" for i in range(len(tensors))], True,
+                        **_allreduce_kw(tensors, average, op,
+                                        prescale_factor, postscale_factor,
+                                        process_set))
+
+
+def _check_root(root_rank, process_set):
+    ps = process_set or global_process_set()
+    if not 0 <= int(root_rank) < ps.size:
+        # synchronous, like the reference's rank check
+        raise ValueError(f"root_rank {root_rank} out of range for process "
+                         f"set of size {ps.size}")
 
 
 def broadcast_async(tensor, root_rank, name=None, process_set=None) -> int:
-    return _register(_coll.broadcast_start(tensor.detach(), root_rank,
-                                           process_set))
+    _check_root(root_rank, process_set)
+    return _enqueue("broadcast", tensor, name, False,
+                    root_rank=int(root_rank), process_set=process_set)
 
 
 def broadcast_async_(tensor, root_rank, name=None, process_set=None) -> int:
-    return _register(_coll.broadcast_start(tensor.detach(), root_rank,
-                                           process_set, inplace=True))
+    _check_root(root_rank, process_set)
+    return _enqueue("broadcast", tensor, name, True,
+                    root_rank=int(root_rank), process_set=process_set)
 
 
 def poll(handle: int) -> bool:
-    return _pending[handle].done()
+    return _runtime().handles.poll(handle)
 
 
 def synchronize(handle: int):
-    return _pending.pop(handle).wait()
+    try:
+        result = _runtime().handles.wait(handle)
+    finally:
+        target = _write_back.pop(handle, None)
+    if target is not None:
+        target[0].copy_(result)
+        return target[0]
+    return result
 
 
 # --- differentiable sync ops ------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-it never falls back silently to the CPU or to a plain path."""
+"""The port stands alone: it imports neither JAX nor the JAX package (the
+runtime, the controller, the launcher and K1 included), and it never falls
+back silently to the CPU or to a plain path."""
 
 import os
 import re
@@ -55,6 +56,15 @@ _ISOLATED = textwrap.dedent("""
     loss.backward()
     opt.step()
     assert torch.isfinite(loss) and not torch.equal(before, model.embed)
+    # the gradients went through the runtime's fused chunks
+    from horovod_tpu_torch.common import context
+    rt = context.runtime()
+    assert rt.chunks > 0 and rt.collective_calls >= rt.chunks
+    for name in ("runner.launch", "runner.http_server", "runner.hosts",
+                 "runner.network", "runner.secret", "ops.queue",
+                 "ops.controller", "ops.fused_pack", "ops.wire", "_native",
+                 "utils.metrics", "utils.lockcheck", "utils.retry"):
+        assert "horovod_tpu_torch." + name in sys.modules, name
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
     hvd.shutdown()
@@ -77,7 +87,8 @@ _FORBIDDEN = re.compile(
 
 def test_no_source_names_jax_or_the_jax_package():
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
-                                             "flash_probe.py")]
+                                             "flash_probe.py",
+                                             "runtime_probe.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu"))]
