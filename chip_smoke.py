@@ -9,30 +9,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build every kernel from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (the two flash-attention sources and ``fused_pack.cu``), one
    ``nvcc`` each, started together, and print each build's seconds and
-   ``ptxas`` report; count the ``HGMMA`` (``wgmma``) instructions in the
-   bf16 flash kernel's SASS (``cuobjdump``) and fail on none;
+   ``ptxas`` report (registers, spills); count the tensor-core
+   instructions (``HGMMA``) in both flash kernels' SASS (``cuobjdump``),
+   by opcode, and fail on none;
 3. flash phase: the flash-attention forward, through ``attention_stats``
-   (bf16 inputs launch the tensor-core kernel ``flash_attention_sm90.cu``,
-   fp32 inputs the SIMT kernel ``flash_attention.cu``), against its plain
-   version ``lax_stats`` on the same inputs in fp32 on the card (TF32 off),
-   at small shapes for every head dim, dtype and mask the kernels take, at
-   the tile edges of the bf16 kernel, and at the slice's shape
-   (B = batch*heads = 128, s = 1024, d = 128, causal); each kernel, its
-   plain version and ``F.scaled_dot_product_attention`` (a yardstick only,
-   never called by the port) are timed at the slice shape in the kernel's
-   dtype with CUDA events around back-to-back calls, and the kernel and
-   sdpa also by their device time under ``torch.profiler``;
+   (bf16 inputs launch ``flash_attention_sm90.cu``, fp32 inputs the 3xTF32
+   kernel ``flash_attention_tf32.cu``), against its plain version
+   ``lax_stats`` on the same inputs in fp32 on the card (TF32 off), at
+   small shapes for every head dim, dtype and mask the kernels take, at
+   the bf16 kernel's tile edges, and at the slice's shape (B =
+   batch*heads = 128, s = 1024, d = 128, causal): 14 shapes a dtype; each
+   kernel, its plain version and ``F.scaled_dot_product_attention`` (a
+   yardstick only, never called by the port) are timed at the slice shape
+   in the kernel's dtype with CUDA events around back-to-back calls, and
+   the kernel and sdpa also by their device time under ``torch.profiler``,
+   kernel and sdpa in turns;
 4. K1 phase: the fused-chunk pack and unpack (``fused_pack.cu``) through
    the port's dispatch, held bitwise against their plain version on the
-   card (ragged lengths with 0 and 1 element, starts off 16-byte
-   alignment, more tensors than one launch's table holds, fp32, bf16, fp16
-   and fp64, factors 1, 0.5 and 1/3, AVERAGE with and without the divide
-   in the unpack); then, at the slice's gradient set (the full-width LM's
-   99 fp32 gradients chunked at 128 MiB, the chunks the main path's
-   grouped steps form), every packed chunk is held bitwise against the
-   plain version again, and pack and unpack are timed by CUDA events and
-   device time, beside their bound, their plain version and
-   ``torch.cat``/``split`` + ``copy_`` (a yardstick only);
+   card in 144 cases (ragged lengths with 0 and 1 element, starts off
+   16-byte alignment, more tensors than one launch's table holds, chunks
+   of millions of elements, fp32, bf16, fp16 and fp64, factors 1, 0.5,
+   1/3, 0.1 and 0.7, AVERAGE with and without the divide in the unpack;
+   bf16 and fp16 round the factor to their dtype first); then, at the
+   slice's gradient set (the full-width LM's 99 fp32 gradients chunked at
+   128 MiB, the chunks the main path's grouped steps form), every packed
+   chunk is held bitwise against the plain version again, and pack and
+   unpack are timed by CUDA events and device time, in turns with
+   ``torch.cat``/``split`` + ``copy_`` (a yardstick only), beside their
+   bound and their plain version;
 5. main path: ``hvd.init()`` (NCCL and the background runtime),
    ``broadcast_parameters`` and ``DistributedOptimizer(SGD(lr=1e-3,
    momentum=0.9))`` train the transformer LM at the full width of
@@ -52,15 +56,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    under ``HOROVOD_FUSION_THRESHOLD=0`` (every tensor its own chunk, no
    pack): at a world of one the fused chain may change no bit. One more
    hook step is traced with ``torch.profiler``;
-6. the slice against plain: a 2-layer model of the same widths, one loss and
+6. fp32 path: the same LM, batch and loop in fp32 (``cfg.dtype =
+   torch.float32``, TF32 off) for 3 steps through the runtime: exactly one
+   fp32 flash launch per layer and step (the bf16 kernel's none), finite
+   and falling losses, the first loss within 1e-4 (relative) of the same
+   step with ``use_flash=False``; median step, tokens/s and peak memory;
+7. the slice against plain: a 2-layer model of the same widths, one loss and
    its gradients through the kernel path and through ``causal_attention``;
-7. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+8. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
    exits 0; the phase fails when the worker fails.
 
-The line before the last is one JSON object with the kernels' launches,
-errors and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with the kernels' launches
+(each on the path that runs it: the fp32 flash kernel's on the fp32 path,
+the others' on the main path), errors, times, bounds and shares; the last
+line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
 prints no result.
 """
@@ -79,6 +90,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
+              "tf32": 495e12,      # dense tensor cores
               "float32": 67e12}    # fp32 outside the tensor cores
 
 
@@ -132,28 +144,68 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def flash_bound(B: int, sq: int, sk: int, d: int, dtype: str,
-                causal: bool) -> tuple[float, str]:
+                causal: bool, route: str = "") -> tuple[float, str]:
     """Least time (ms) for the forward at these shapes: q, k, v read once,
     o, m, l written once, over HBM bandwidth; or the products over the
-    causally kept (row, col) pairs, over the peak rate of the input type."""
+    causally kept (row, col) pairs, over the peak rate of the input type.
+    fp32 runs on the tensor cores in 3xTF32 (three TF32 products for each
+    fp32 one, the least that holds fp32's accuracy there); ``route="fma"``
+    gives its bound on the fp32 FMA pipes instead."""
     item = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * B * sq * d + 2 * B * sk * d) * item + 2 * B * sq * 4
     pairs = (sum(min(sk, r + 1) for r in range(sq)) if causal
              else sq * sk)
     flops = 2 * 2 * B * pairs * d
+    if dtype == "bfloat16":
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+    elif route == "fma":
+        t_ops = flops / PEAK_FLOPS["float32"]
+    else:
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops *= 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def in_turns(fns: dict, timer, rounds: int = 2) -> dict:
+    """Mean of ``timer(fn)`` for each of ``fns``, taken in turns (a b b a
+    for two), so drift in the card's clock or its host's load falls on
+    every function alike."""
+    names = list(fns)
+    order = []
+    for r in range(rounds):
+        order += names if r % 2 == 0 else names[::-1]
+    got = {name: [] for name in names}
+    for name in order:
+        got[name].append(timer(fns[name]))
+    return {name: statistics.mean(v) for name, v in got.items()}
 
 
 # --- phase 2: build ---------------------------------------------------------
 
-SOURCES = ("flash_attention_sm90", "flash_attention", "fused_pack")
+SOURCES = ("flash_attention_sm90", "flash_attention_tf32", "fused_pack")
+
+
+def _tensor_core_ops(lib: str) -> dict:
+    """The library's SASS tensor-core instructions (``cuobjdump``), counted
+    by opcode."""
+    from horovod_tpu_torch.ops import _build
+
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "--dump-sass",
+                           _build.lib_path(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    ops: dict = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if word.startswith(("HGMMA", "HMMA")):
+                ops[word] = ops.get(word, 0) + 1
+    return ops
 
 
 def build_phase():
     """Builds every kernel source at once (one nvcc each) and checks that
-    the bf16 kernel's SASS runs on the tensor cores."""
+    both flash kernels' SASS runs on the tensor cores: HGMMA (wgmma) in
+    the bf16 one, HGMMA in TF32 in the fp32 one."""
     from concurrent.futures import ThreadPoolExecutor
 
     from horovod_tpu_torch.ops import _build
@@ -172,15 +224,16 @@ def build_phase():
             if any(w in line for w in ("Function properties", "registers",
                                        "spill", "arning")):
                 _log(f"    {line.strip()}")
-    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "--dump-sass",
-                           _build.lib_path("flash_attention_sm90")],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    _log(f"  flash_attention_sm90 SASS: {hgmma} HGMMA instructions")
-    if hgmma == 0:
-        raise AssertionError("the bf16 kernel has no HGMMA instruction: it "
-                             "does not run on the tensor cores")
+    for lib, kind in (("flash_attention_sm90", "BF16"),
+                      ("flash_attention_tf32", "TF32")):
+        ops = _tensor_core_ops(lib)
+        n = sum(c for op, c in ops.items() if kind in op)
+        _log(f"  {lib} SASS: {sum(ops.values())} tensor-core instructions, "
+             f"{n} of them {kind}: {ops}")
+        if n == 0:
+            raise AssertionError(f"{lib} has no {kind} HGMMA/HMMA "
+                                 "instruction: it does not run on the "
+                                 "tensor cores")
 
 
 # --- phase 3: flash attention against its plain version ----------------------
@@ -280,7 +333,9 @@ def time_flash(name, B, s, d, dtype, iters, device) -> dict:
     then timed beside it, its bound and ``scaled_dot_product_attention``
     on the same inputs. ``ms``, ``plain_ms`` and ``library_ms`` are CUDA
     events around back-to-back calls, the host's work per call included;
-    ``device_ms`` and ``library_device_ms`` are the kernels' own time."""
+    ``device_ms`` and ``library_device_ms`` are the kernels' own time,
+    and ``share`` is the bound over ``device_ms``. Kernel and sdpa are
+    timed in turns (kernel, sdpa, sdpa, kernel)."""
     import torch
     import torch.nn.functional as F
 
@@ -290,37 +345,38 @@ def time_flash(name, B, s, d, dtype, iters, device) -> dict:
     torch.cuda.empty_cache()
     q, k, v = _qkv(B, s, d, dtype, 7, device)
     q4, k4, v4 = q[None], k[None], v[None]
-
-    def kernel():
-        fa.attention_stats(q, k, v, True)
-
-    def library():
-        F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-
-    ms = time_ms(kernel, iters=iters)
-    lib_ms = time_ms(library, iters=iters)
-    dev_ms = device_ms(kernel, iters=iters)
-    lib_dev_ms = device_ms(library, iters=iters)
+    fns = {"kernel": lambda: fa.attention_stats(q, k, v, True),
+           "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)}
+    ev = in_turns(fns, lambda fn: time_ms(fn, iters=iters))
+    dev = in_turns(fns, lambda fn: device_ms(fn, iters=iters))
     plain_ms = time_ms(lambda: fa.lax_stats(q, k, v, True, 0), iters=5)
     dt = str(dtype)[6:]
     bound_ms, bound_by = flash_bound(B, s, s, d, dt, True)
     flops = 2 * 2 * B * (s * (s + 1) // 2) * d
-    _log(f"  {name} at the slice shape ({dt}): kernel {ms:.4f} ms a call "
-         f"back to back, {dev_ms:.4f} ms of device time "
-         f"({flops / dev_ms / 1e9:.1f} TFLOP/s, {bound_ms / dev_ms:.3f} of "
-         f"its bound); sdpa {lib_ms:.4f} ms a call, {lib_dev_ms:.4f} ms of "
-         f"device time; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-         f"({bound_by})")
+    extra = ""
+    if dtype == torch.float32:
+        fma_ms = flash_bound(B, s, s, d, dt, True, route="fma")[0]
+        extra = (f"; on the fp32 FMA pipes the bound would be {fma_ms:.4f} "
+                 f"ms ({fma_ms / dev['kernel']:.3f} of it)")
+    _log(f"  {name} at the slice shape ({dt}): kernel {ev['kernel']:.4f} ms "
+         f"a call back to back, {dev['kernel']:.4f} ms of device time "
+         f"({flops / dev['kernel'] / 1e9:.1f} TFLOP/s of the kept pairs, "
+         f"{bound_ms / dev['kernel']:.3f} of its bound); sdpa "
+         f"{ev['sdpa']:.4f} ms a call, {dev['sdpa']:.4f} ms of device time; "
+         f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})"
+         + extra)
     del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
     source = fa.KERNELS[dtype][1]
     return {"name": name, "route": "cuda",
             "source": f"horovod_tpu_torch/csrc/{source}.cu",
             "replaces": "horovod_tpu/ops/pallas/flash_attention.py:122",
-            "launches": None, "max_abs_err": err, "ms": ms,
+            "launches": None, "max_abs_err": err, "ms": ev["kernel"],
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "device_ms": dev_ms,
-            "library_device_ms": lib_dev_ms}
+            "library_ms": ev["sdpa"], "device_ms": dev["kernel"],
+            "library_device_ms": dev["sdpa"],
+            "share": bound_ms / dev["kernel"]}
 
 
 # --- phase 4: K1, the fused-chunk pack and unpack --------------------------
@@ -367,9 +423,11 @@ def _k1_case(dtype, sizes, pre, unpack_factor, device, seed, misalign=0):
 
 # (prescale, unpack factor): factors 1, 0.5 and 1/3; AVERAGE over 3 ranks
 # with the 1/n in the unpack (a backend without AVG) and without it (NCCL's
-# AVG divides, the unpack applies the postscale alone)
+# AVG divides, the unpack applies the postscale alone); factors that no
+# half-precision type holds exactly (0.1, 0.7), which bf16 and fp16 chunks
+# round to their dtype before they multiply
 K1_FACTORS = ((1.0, 1.0), (0.5, 1.0), (1.0 / 3.0, 1.0), (1.0, 0.5),
-              (1.0, 1.0 / 3.0), (2.0, 0.5 / 3.0))
+              (1.0, 1.0 / 3.0), (2.0, 0.5 / 3.0), (0.1, 0.7))
 
 
 def k1_check_phase(device) -> float:
@@ -381,8 +439,13 @@ def k1_check_phase(device) -> float:
     rng = random.Random(0)
     ragged = [0, 1, 7, 33, 1024, 4099, 3 * 4096 + 5]
     many = [rng.randint(0, 70) for _ in range(300)]  # > 128 per launch
+    # millions of elements: many blocks, whose tiles start and end inside
+    # tensors, and odd lengths that leave later tensors off the flat
+    # buffer's 16-byte phase
+    large = [1_000_003, 5, 777_777, 0, 2_500_001]
     layouts = (("ragged", ragged, 0), ("ragged, unaligned starts", ragged, 1),
-               ("300 tensors", many, 0), ("300 tensors, unaligned", many, 3))
+               ("300 tensors", many, 0), ("300 tensors, unaligned", many, 3),
+               ("large", large, 0), ("large, unaligned", large, 2))
     n = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16,
                   torch.float64):
@@ -396,7 +459,8 @@ def k1_check_phase(device) -> float:
                         f"prescale {pre}, unpack factor {post}, {label}")
     torch.cuda.synchronize()
     _log(f"  K1: {n} cases (fp32, bf16, fp16, fp64; ragged lengths with 0 "
-         "and 1 element; unaligned starts; 300 tensors a chunk; factors "
+         "and 1 element; unaligned starts; 300 tensors a chunk; 4.3 million "
+         "elements a chunk; factors "
          f"{sorted({f for c in K1_FACTORS for f in c})}): pack and unpack "
          "bitwise equal to the plain version")
     return 0.0
@@ -503,22 +567,26 @@ def k1_time_phase(device, cfg) -> list:
              "horovod_tpu/ops/collectives.py:777"),
             ("fused_unpack", unpack, plain_unpack, lib_unpack,
              "horovod_tpu/ops/collectives.py:740")):
-        ms = time_ms(kfn, iters=10)
-        dev = device_ms(kfn, iters=5, warmup=1)
-        lib = time_ms(lfn, iters=10)
-        lib_dev = device_ms(lfn, iters=5, warmup=1)
+        # kernel and library in turns (kernel, library, library, kernel)
+        fns = {"kernel": kfn, "library": lfn}
+        ev = in_turns(fns, lambda fn: time_ms(fn, iters=10))
+        dev = in_turns(fns, lambda fn: device_ms(fn, iters=5, warmup=1))
         plain = time_ms(pfn, iters=5)
-        _log(f"  {name}: {ms:.4f} ms a step by events, {dev:.4f} ms of "
-             f"device time ({2 * moved / dev / 1e6:.0f} GB/s, "
-             f"{bound_ms / dev:.3f} of its bound {bound_ms:.4f} ms); "
-             f"torch.cat/split + copy_ {lib:.4f} ms ({lib_dev:.4f} device); "
-             f"plain {plain:.4f} ms")
+        _log(f"  {name}: {ev['kernel']:.4f} ms a step by events, "
+             f"{dev['kernel']:.4f} ms of device time "
+             f"({2 * moved / dev['kernel'] / 1e6:.0f} GB/s, "
+             f"{bound_ms / dev['kernel']:.3f} of its bound {bound_ms:.4f} "
+             f"ms); torch.cat/split + copy_ {ev['library']:.4f} ms "
+             f"({dev['library']:.4f} device, kernel/library "
+             f"{dev['kernel'] / dev['library']:.4f}); plain {plain:.4f} ms")
         out.append({"name": name, "route": "cuda",
                     "source": "horovod_tpu_torch/csrc/fused_pack.cu",
                     "replaces": src, "launches": None, "max_abs_err": 0.0,
-                    "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": lib,
-                    "device_ms": dev, "library_device_ms": lib_dev})
+                    "ms": ev["kernel"], "plain_ms": plain,
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": ev["library"], "device_ms": dev["kernel"],
+                    "library_device_ms": dev["library"],
+                    "share": bound_ms / dev["kernel"]})
     _log(f"  pack + unpack a step: {out[0]['ms'] + out[1]['ms']:.4f} ms by "
          f"events, {out[0]['device_ms'] + out[1]['device_ms']:.4f} ms of "
          f"device time; bound {2 * bound_ms:.4f} ms")
@@ -799,7 +867,62 @@ def main_path_phase(device) -> dict:
     return launches
 
 
-# --- phase 6: the slice against plain attention ---------------------------
+# --- phase 6: the fp32 path ------------------------------------------------
+
+def fp32_path_phase(device, steps: int = 3) -> dict:
+    """The same LM, batch and loop as the main path with
+    ``cfg.dtype = torch.float32``: every product in fp32 (TF32 off), the
+    attention forward in the 3xTF32 kernel. Checks its launches (one per
+    layer and step, the bf16 kernel's none), finite and falling losses, and
+    the first step's loss against the same step with ``use_flash=False``
+    (the blockwise plain path). Returns the launches."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.parallel import ring_attention
+
+    cfg = dataclasses.replace(full_width_config(12), dtype=torch.float32)
+    batch = 8
+    res = train(cfg, batch, steps, device, trace=False)
+    losses = res["losses"]
+    want = {"flash_attention_fwd_fp32": cfg.n_layers * steps,
+            "flash_attention_fwd": 0}
+    _log(f"  losses: {losses}; launches {res['launches']}")
+    if {k: res["launches"][k] for k in want} != want:
+        raise AssertionError(f"flash kernels launched {res['launches']} "
+                             f"times on the fp32 path, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    # the first step again, attention through the blockwise plain path
+    model = TransformerLM(cfg, device=device, seed=0)
+    with torch.no_grad():
+        plain = lm_loss(model, tokens_for(cfg, batch, 0, device),
+                        attn_fn=functools.partial(ring_attention,
+                                                  use_flash=False)).item()
+    del model
+    torch.cuda.empty_cache()
+    rel = abs(losses[0] - plain) / abs(plain)
+    _log(f"  first-step loss {losses[0]:.7f} against {plain:.7f} with "
+         f"use_flash=False: relative {rel:.3g} (tol 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError("the fp32 kernel path disagrees with the plain "
+                             "path on the first step")
+    steady = statistics.median(res["step_s"][1:])
+    tok = batch * cfg.max_seq
+    _log(f"  step ms: first {res['step_s'][0] * 1e3:.1f}, then "
+         f"{[round(x * 1e3, 1) for x in res['step_s'][1:]]}; median "
+         f"{steady * 1e3:.1f} ms, {tok / steady:.0f} tokens/s; "
+         f"max_memory_allocated {res['peak_bytes'] / 2**30:.2f} GiB; "
+         f"per step {res['per_step'][-1]}")
+    return res["launches"]
+
+
+# --- phase 7: the slice against plain attention ---------------------------
 
 def loss_and_grads(model, tokens, attn_fn):
     from horovod_tpu_torch.models.transformer import lm_loss
@@ -841,7 +964,7 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
     torch.cuda.empty_cache()
 
 
-# --- phase 7: the launcher ------------------------------------------------
+# --- phase 8: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -924,8 +1047,14 @@ def main() -> int:
 
     _log("[main path] 12 layers at full width, 5 steps, through the runtime")
     launches = main_path_phase(device)
+    _log("[fp32 path] the same LM in fp32, 3 steps, through the runtime")
+    fp32_launches = fp32_path_phase(device)
+    # each kernel's launches on the path that runs it: the fp32 flash
+    # kernel's on the fp32 path, the others' on the main path
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
+                else launches)
+        entry["launches"] = path[entry["name"]]
 
     _log("[slice vs plain]")
     slice_vs_plain_phase(device)

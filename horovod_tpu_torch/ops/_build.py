@@ -3,9 +3,10 @@ use and loads them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C function and compiles with
 ``nvcc`` alone (no PyTorch headers) into ``_build/<name>-<digest>.so``
-inside the package, for ``sm_90a``. The digest covers the source, the
-flags and the compiler, so an edited source builds anew and an unchanged
-one loads the existing library. A failed build raises: there is no
+inside the package, for ``sm_90a``; the headers beside it (``csrc/*.cuh``)
+are on its include path. The digest covers the source, every header, the
+flags and the compiler, so an edited source or header builds anew and an
+unchanged one loads the existing library. A failed build raises: there is no
 fallback.
 """
 
@@ -44,8 +45,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str, nvcc: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
@@ -53,6 +57,12 @@ def _lib_path(name: str, nvcc: str) -> str:
 def lib_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
     return _lib_path(name, _nvcc())
+
+
+def nvcc_command(source: str, out: str) -> list:
+    """The nvcc command that builds ``source`` into the library ``out``,
+    with ``csrc/`` on the include path."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", out, source]
 
 
 def cuda_tool(tool: str) -> str:
@@ -70,7 +80,7 @@ def build(name: str) -> str:
         return ""
     with atomic_tmp(path) as tmp:
         run = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+            nvcc_command(os.path.join(CSRC, name + ".cu"), tmp),
             capture_output=True, text=True)
         report = run.stdout + run.stderr
         if run.returncode != 0:

@@ -10,8 +10,9 @@ serve it, by input dtype:
 
 - bf16 (the main path): ``csrc/flash_attention_sm90.cu``, on the tensor
   cores (``wgmma``, TMA, an mbarrier pipeline);
-- fp32: ``csrc/flash_attention.cu``, the SIMT kernel on the fp32 FMA pipes,
-  since the tensor cores' TF32 cannot hold fp32's tolerance.
+- fp32: ``csrc/flash_attention_tf32.cu``, on the same skeleton in 3xTF32
+  (each operand split into two TF32 parts, three products summed in fp32),
+  since one TF32 product cannot hold fp32's tolerance.
 
 The backward is not a kernel, as in the JAX package (``_stats_bwd``/``_bwd``
 :263-286): it recomputes through ``scan_stats``, a blockwise loop over K/V
@@ -39,8 +40,8 @@ _KERNEL_D = (32, 64, 128)
 KERNELS = {
     torch.bfloat16: ("flash_attention_fwd", "flash_attention_sm90",
                      "hvd_flash_fwd_sm90"),
-    torch.float32: ("flash_attention_fwd_fp32", "flash_attention",
-                    "hvd_flash_fwd"),
+    torch.float32: ("flash_attention_fwd_fp32", "flash_attention_tf32",
+                    "hvd_flash_fwd_tf32"),
 }
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

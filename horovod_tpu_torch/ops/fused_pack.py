@@ -12,15 +12,18 @@ program in ``horovod_tpu/ops/collectives.py`` ``_build_fused_plan``
   into its output, multiplied by ``factor`` (the postscale, times 1/n for
   AVERAGE where the backend has no average).
 
-The rule for the factor, which kernel and plain version share: fp32, bf16
-and fp16 elements are multiplied by the factor rounded to fp32, in fp32,
-and rounded once to their dtype (round to nearest even); fp64 elements in
-fp64. The JAX package multiplies a bf16 or fp16 array by a Python float
-under weak typing, which rounds the factor to the array's dtype first, so
-the two agree bit for bit where the factor is a power of two and within a
-rounding of the dtype otherwise. A factor of 1 is a byte copy, valid for
-any dtype; any other dtype with another factor raises (the runtime sends
-such tensors to the per-tensor path instead).
+The rule for the factor, which kernel and plain version share, is the JAX
+package's multi-rank rule (``_allreduce_body``, :576-597: ``g * pre``, the
+reduction, ``* post``, each a product with a weakly typed Python float):
+for bf16 and fp16 elements the factor is first rounded to the element's
+dtype (round to nearest even), then the element is multiplied by it in
+fp32 and the product rounded once to the dtype; fp32 elements are
+multiplied by the factor rounded to fp32, and fp64 elements in fp64. So
+the fused chain equals that rule, run op by op, bit for bit wherever the
+collective's own sum rounds as JAX's does: always at two ranks (ROADMAP.md
+queue 3 has the rest). A factor of 1 is a byte copy,
+valid for any dtype; any other dtype with another factor raises (the
+runtime sends such tensors to the per-tensor path instead).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel, on PyTorch's current stream, or raise. ``kernel_launches`` counts
@@ -94,7 +97,9 @@ def scaled(x: torch.Tensor, factor: float) -> torch.Tensor:
     if factor == 1.0:
         return x
     if x.dtype in (torch.bfloat16, torch.float16):
-        return (x.float() * factor).to(x.dtype)
+        # the factor in the element's dtype, as JAX's weak typing makes it
+        f = float(torch.tensor(factor, dtype=x.dtype))
+        return (x.float() * f).to(x.dtype)
     return x * factor
 
 

@@ -235,31 +235,32 @@ _U_BF16 = 2.0 ** -8
 NEG_INF_F32 = float(np.float32(fa.NEG_INF))
 
 
-def _emulate_sm90(q, k, v, causal, offset):
-    """(o bf16, m, l) as the sm90 kernel computes them; q, k, v bf16."""
+def _emulate_tiled(q, k, v, causal, offset, bk, mm_s, mm_pv):
+    """(o, m, l) in fp32 as the Hopper kernels compute them, tile by tile:
+    128-row Q tiles in two 64-row warpgroups, ``bk``-key K tiles, S =
+    ``mm_s(q, k^T)``, O += ``mm_pv(p, v)``; q, k, v fp32."""
     B, sq, d = q.shape
     sk = k.shape[1]
     f32 = torch.float32
     scale = torch.tensor(d ** -0.5, dtype=f32)
     sl2 = (scale * torch.tensor(_LOG2E, dtype=f32)).double()
-    qf, kf, vf = q.float(), k.float(), v.float()
     o = torch.zeros((B, sq, d), dtype=f32)
     m_out = torch.zeros((B, sq), dtype=f32)
     l_out = torch.zeros((B, sq), dtype=f32)
     for q0 in range(0, sq, _BQ):
         q_last = min(q0 + _BQ, sq) - 1
         k_end = min(sk, q_last - offset + 1) if causal else sk
-        n_k = -(-k_end // _BK) if k_end > 0 else 0
+        n_k = -(-k_end // bk) if k_end > 0 else 0
         for row0 in range(q0, min(q0 + _BQ, sq), _ROWS):   # warpgroups
             rows = torch.arange(row0, min(row0 + _ROWS, sq))
             m = torch.full((B, len(rows)), NEG_INF_F32, dtype=f32)
             l = torch.zeros((B, len(rows)), dtype=f32)
             acc = torch.zeros((B, len(rows), d), dtype=f32)
             for j in range(n_k):
-                k0 = j * _BK
-                cols = torch.arange(k0, min(k0 + _BK, sk))  # -inf past sk
-                s = torch.einsum("bqd,bkd->bqk", qf[:, rows], kf[:, cols])
-                masked = causal and k0 + _BK - 1 + offset > row0
+                k0 = j * bk
+                cols = torch.arange(k0, min(k0 + bk, sk))  # -inf past sk
+                s = mm_s(q[:, rows], k[:, cols].transpose(1, 2))
+                masked = causal and k0 + bk - 1 + offset > row0
                 keep = (rows[:, None] >= cols[None] + offset
                         if masked else torch.ones((), dtype=torch.bool))
                 s = torch.where(keep, s, -torch.inf)
@@ -271,13 +272,19 @@ def _emulate_sm90(q, k, v, causal, offset):
                 p = torch.where(keep, p, (m_new == NEG_INF_F32).to(f32)
                                 [..., None])
                 l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "bqk,bkd->bqd", p.to(torch.bfloat16).float(), vf[:, cols])
+                acc = acc * alpha[..., None] + mm_pv(p, v[:, cols])
                 m = m_new
             o[:, rows] = acc / torch.where(l == 0, 1.0, l)[..., None]
             m_out[:, rows], l_out[:, rows] = m, l
-    return o.to(torch.bfloat16), m_out, l_out
+    return o, m_out, l_out
 
+
+def _emulate_sm90(q, k, v, causal, offset):
+    """(o bf16, m, l) as the sm90 kernel computes them; q, k, v bf16."""
+    o, m, l = _emulate_tiled(
+        q.float(), k.float(), v.float(), causal, offset, _BK, torch.matmul,
+        lambda p, vj: p.to(torch.bfloat16).float() @ vj)
+    return o.to(torch.bfloat16), m, l
 
 
 @pytest.mark.parametrize("B,sq,sk,d,causal,offset", [
@@ -327,6 +334,116 @@ def test_sm90_emulation_rounds_p_before_pv():
     assert (o.float() - o32).abs().max() > 1e-4
 
 
+# --- the fp32 kernel's 3xTF32 arithmetic, rehearsed on the CPU ------------
+#
+# csrc/flash_attention_tf32.cu runs both products on the TF32 tensor cores,
+# which read an fp32 operand as TF32 by ignoring its 13 low mantissa bits.
+# Each operand is split as x = hi + lo with hi = x itself (read as
+# trunc(x)) and lo = x - trunc(x) (exact in fp32, read as trunc(lo)), and a
+# product is hi*lo + lo*hi + hi*hi in fp32; 32-key K tiles; P V takes the
+# keys of each group of 8 in the order [0,2,4,6,1,3,5,7], in p's columns
+# and V's rows alike. This emulates that arithmetic and holds it against
+# both packages' plain stats attention at chip_smoke.py's fp32 tolerances
+# (o 1e-4, m 1e-5, l 1e-5 relative).
+
+_TF32_BK = 32
+_TF32_PERM = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _tf32(x):
+    """fp32 as the TF32 tensor cores read it: the 13 low mantissa bits
+    cleared (toward zero), by bit operations."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, products=3):
+    """a @ b on TF32 tensor cores: hi*lo + lo*hi + hi*hi (3xTF32), or the
+    one product hi*hi, with hi = x and lo = x - trunc(x) as the kernel
+    passes them and each read through tf32()."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _pv_permuted(p, vj, products=3):
+    """P V with the keys of each group of 8 permuted, in p and V alike; a
+    ragged last tile pads p and V with zeros (the kernel's p = 0 and the
+    zero rows TMA reads past sk)."""
+    n = p.shape[-1]
+    pad = -n % 8
+    p = torch.nn.functional.pad(p, (0, pad))
+    vj = torch.nn.functional.pad(vj, (0, 0, 0, pad))
+    idx = (torch.arange(0, n + pad, 8)[:, None] + _TF32_PERM).reshape(-1)
+    return _mm_tf32(p[..., idx], vj[:, idx], products)
+
+
+def _emulate_tf32(q, k, v, causal, offset, products=3):
+    return _emulate_tiled(
+        q, k, v, causal, offset, _TF32_BK,
+        lambda a, b: _mm_tf32(a, b, products),
+        lambda p, vj: _pv_permuted(p, vj, products))
+
+
+TF32_CASES = [(2, 256, 256, d, causal, offset) for d in (32, 64, 128)
+              for causal, offset in ((False, 0), (True, 0), (True, 1))]
+TF32_CASES += [(2, 200, 200, 64, True, 0),    # ragged Q and K tiles
+               (3, 200, 200, 128, True, 1),
+               (1, 256, 512, 64, False, 0)]   # sq < sk
+
+
+@pytest.mark.parametrize("B,sq,sk,d,causal,offset", TF32_CASES)
+def test_tf32_tiled_emulation_matches_plain(B, sq, sk, d, causal, offset):
+    rng = np.random.RandomState(sq + sk + d + offset + 7)
+    arrs = [rng.randn(B, n, d).astype(np.float32) for n in (sq, sk, sk)]
+    q, k, v = _pt(arrs)
+    o, m, l = _emulate_tf32(q, k, v, causal, offset)
+    o_p, m_p, l_p = fa.lax_stats(q, k, v, causal, offset)
+    o_j, m_j, l_j = jfa._lax_stats(*_jx(arrs), causal, offset)
+    r0 = offset if causal else 0
+    jax_out = [torch.tensor(np.asarray(x)) for x in (o_j, m_j, l_j)]
+    for o_ref, m_ref, l_ref in ((o_p, m_p, l_p), jax_out):
+        np.testing.assert_allclose(_np(o)[:, r0:], _np(o_ref)[:, r0:],
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_allclose(_np(m)[:, r0:], _np(m_ref)[:, r0:],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(_np(l)[:, r0:], _np(l_ref)[:, r0:],
+                                   rtol=1e-5, atol=0)
+    if r0:
+        assert (m[:, :r0] == NEG_INF_F32).all()
+        assert torch.isfinite(o).all() and torch.isfinite(l).all()
+
+
+def test_tf32_rounding_and_split():
+    """tf32() keeps 10 mantissa bits, truncating toward zero, x - trunc(x)
+    is exact in fp32, and hi + lo as read holds 21 or more bits of x."""
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -10 + 2.0 ** -11, -(1.0 + 2.0 ** -10),
+                      3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1.0, -1.0, 1.0 + 2.0 ** -10,
+                                 -(1.0 + 2.0 ** -10), 3.0]
+    y = torch.tensor(np.random.RandomState(3).randn(4096), dtype=torch.float32)
+    hi = _tf32(y)
+    lo = y - hi
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert torch.equal(hi.double() + lo.double(), y.double())
+    assert ((hi + _tf32(lo) - y).abs() <= 2.0 ** -21 * y.abs()).all()
+
+
+def test_tf32_single_product_misses_fp32_tolerance():
+    """One TF32 product (hi*hi) moves o by more than the 1e-4 that the
+    three products hold: why the kernel needs 3xTF32."""
+    rng = np.random.RandomState(11)
+    q, k, v = _pt([rng.randn(2, 256, 128).astype(np.float32)
+                   for _ in range(3)])
+    o1, _, _ = _emulate_tf32(q, k, v, True, 0, products=1)
+    o3, _, _ = _emulate_tf32(q, k, v, True, 0)
+    o_p = fa.lax_stats(q, k, v, True, 0)[0]
+    assert (o1 - o_p).abs().max() > 1e-4
+    assert (o3 - o_p).abs().max() <= 1e-4
+
+
 # --- _kernel_fwd's argument checks, before any build -----------------------
 
 def _no_build(monkeypatch):
@@ -364,10 +481,10 @@ def test_kernel_fwd_argument_checks_raise_before_build(monkeypatch, case):
 
 @pytest.mark.parametrize("dtype,source,symbol", [
     (torch.bfloat16, "flash_attention_sm90", "hvd_flash_fwd_sm90"),
-    (torch.float32, "flash_attention", "hvd_flash_fwd"),
+    (torch.float32, "flash_attention_tf32", "hvd_flash_fwd_tf32"),
 ])
 def test_kernel_dispatch_by_dtype(monkeypatch, dtype, source, symbol):
-    """bf16 loads the tensor-core kernel, fp32 the SIMT kernel."""
+    """bf16 loads the bf16 tensor-core kernel, fp32 the 3xTF32 one."""
     from horovod_tpu_torch.ops import _build
 
     loaded = []

@@ -91,7 +91,7 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "runtime_probe.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
-                  if n.endswith((".py", ".cu"))]
+                  if n.endswith((".py", ".cu", ".cuh"))]
     hits = []
     for f in files:
         with open(f) as fh:
@@ -122,19 +122,31 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build("flash_attention")
+        _build.build("flash_attention_tf32")
 
 
 def test_kernel_library_name_follows_source_and_flags(tmp_path, monkeypatch):
-    a = _build._lib_path("flash_attention", "/x/nvcc")
-    assert a.startswith(os.path.join(PKG, "_build", "flash_attention-"))
-    assert a == _build._lib_path("flash_attention", "/x/nvcc")
-    assert a != _build._lib_path("flash_attention", "/y/nvcc")
-    src = tmp_path / "flash_attention.cu"
-    shutil.copy(os.path.join(_build.CSRC, src.name), src)
-    src.write_text(src.read_text() + "\n")
+    """The library's name carries a digest of the compiler, the flags, the
+    source and every header beside it: an edit to any of them builds
+    anew."""
+    name = "flash_attention_tf32"
+    a = _build._lib_path(name, "/x/nvcc")
+    assert a.startswith(os.path.join(PKG, "_build", name + "-"))
+    assert a == _build._lib_path(name, "/x/nvcc")
+    assert a != _build._lib_path(name, "/y/nvcc")
+    headers = [f for f in os.listdir(_build.CSRC) if f.endswith(".cuh")]
+    assert headers
+    for f in [name + ".cu", *headers]:
+        shutil.copy(os.path.join(_build.CSRC, f), tmp_path / f)
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
-    assert a != _build._lib_path("flash_attention", "/x/nvcc")
+    assert a == _build._lib_path(name, "/x/nvcc")  # same files, same name
+    for f in (name + ".cu", headers[0]):
+        path = tmp_path / f
+        text = path.read_text()
+        path.write_text(text + "\n")
+        assert a != _build._lib_path(name, "/x/nvcc"), f
+        path.write_text(text)
+    assert a == _build._lib_path(name, "/x/nvcc")
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
@@ -152,3 +164,20 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
                              text=True, timeout=120, env=env)
         assert out.returncode != 0, out.stdout
         assert '"ok"' not in out.stdout, out.stdout
+
+
+def test_probe_ablations_patch_text_in_the_sources(monkeypatch):
+    """Every ablation of ``flash_probe.py`` names text that is in the
+    kernel's source or the shared header, so an edit that moves a patched
+    line fails here and not on the card."""
+    monkeypatch.syspath_prepend(REPO)
+    import flash_probe
+
+    for source, _, ablations in flash_probe.ABLATIONS.values():
+        texts = []
+        for name in (source + ".cu", flash_probe.HEADER):
+            with open(os.path.join(_build.CSRC, name)) as f:
+                texts.append(f.read())
+        for name, patches in ablations:
+            for old, _ in patches:
+                assert any(old in t for t in texts), (source, name, old)

@@ -5,8 +5,13 @@ package's, on the CPU (gloo):
   type, ``"cpu"`` here, where the JAX package names a memory kind);
 - ``_chunk_group``'s chunk boundaries on the same byte sizes;
 - the fused chain at a world of one against ``_build_fused_plan``'s
-  output with pre- and postscale: exact wherever the factors are powers
-  of two; otherwise within ``FP32_RTOL`` or ``BF16_RTOL`` (below);
+  output with pre- and postscale: bitwise for bf16 and wherever the
+  factors are powers of two; fp32 with other factors within ``FP32_RTOL``
+  (below);
+- the fused chain at two ranks, op by op, against the JAX package's
+  multi-rank rule (``_allreduce_body``) bit for bit, for fp32, bf16 and
+  fp16, SUM and AVERAGE, with factors that are not powers of two; and bf16
+  AVERAGE through both packages' ``hvdrun`` in 2-process jobs;
 - ``slot_env`` against the JAX launcher's for the same slots;
 - the runtime's own rules in one process: plan cache, the dtype rule for
   integer chunks with a factor, a chunk of one tensor reduced in place,
@@ -62,13 +67,14 @@ from horovod_tpu_torch.runner import launch as plaunch
 
 # Factors that are not powers of two. The port rounds after the prescale
 # (pack) and after the postscale (unpack), as the JAX package does on more
-# than one rank, where the reduction lies between the two; at a world of
-# one XLA folds ``flat * pre * post`` into one product by ``pre * post``
-# and rounds once. fp32: 1 + 1 + 1 half-ulps of 2^-23 < 2^-22. bf16: JAX
-# also rounds each Python-float factor to bf16 first (weak typing) where
-# the port keeps it in fp32, two more half-ulps of 2^-8: 3 * 2^-8.
+# than one rank, where the reduction lies between the two, and rounds a
+# bf16 chunk's factors to bf16 first, as JAX's weak typing does. At a world
+# of one the JAX plan is ``flat * pre * post`` under jit: for bf16 XLA
+# keeps the two products, so the port matches it bit for bit; for fp32 it
+# folds them into one product by ``pre * post`` and rounds once, so the
+# two differ by the rounding of the folded factor and of the intermediate
+# product: 1 + 1 + 1 half-ulps of 2^-23 < 2^-22.
 FP32_RTOL = 2.0 ** -22
-BF16_RTOL = 3 * 2.0 ** -8
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -185,11 +191,54 @@ def test_fused_chain_matches_jax_plan_at_world_one(port, dtype, pre, post):
             assert g.dtype == ts[0].dtype and tuple(g.shape) == w.shape
             g = _to_np(g).astype(np.float64)
             w = w.astype(np.float64)
-            if _dyadic(pre) and _dyadic(post):
+            if dtype != np.float32 or (_dyadic(pre) and _dyadic(post)):
                 np.testing.assert_array_equal(g, w)
             else:
-                rtol = FP32_RTOL if dtype == np.float32 else BF16_RTOL
-                assert (np.abs(g - w) <= rtol * np.abs(w)).all(), (g, w)
+                assert (np.abs(g - w) <= FP32_RTOL * np.abs(w)).all(), (g, w)
+
+
+RULE_CASES = [(dt, op, pre, post)
+              for dt in (np.float32, ml_dtypes.bfloat16, np.float16)
+              for op in ("SUM", "AVERAGE")
+              for pre, post in ((1.0 / 3, 3.0), (0.1, 0.7),
+                                (1.0 / 3, 1.0 / 7))]
+
+
+@pytest.mark.parametrize(
+    "dtype,op,pre,post", RULE_CASES,
+    ids=[f"{np.dtype(c[0]).name}-{c[1]}-{c[2]:.3g}-{c[3]:.3g}"
+         for c in RULE_CASES])
+def test_fused_chain_equals_jax_multi_rank_rule_bitwise(port, dtype, op,
+                                                        pre, post):
+    """Two ranks, op by op: each rank packs its tensors with the plan's
+    prescale, the collective adds the two flat buffers in the chunk's dtype
+    (what gloo and NCCL compute for two ranks), and the unpack applies the
+    plan's factor (the postscale, times 1/2 for AVERAGE on gloo, which has
+    no AVG). The JAX package: ``_allreduce_body`` on the two ranks' flat
+    buffers. Bit for bit."""
+    shapes = [(3, 4), (1,), (0,), (7, 5), (129,)]
+    rs = np.random.RandomState(1)
+    ranks = [[rs.uniform(-4, 4, sh).astype(dtype) for sh in shapes]
+             for _ in range(2)]
+    flats = [np.concatenate([a.reshape(-1) for a in r]) for r in ranks]
+    body = jcoll._allreduce_body(None, getattr(jcoll.ReduceOp, op), pre,
+                                 post, False)
+    want = np.asarray(body(jax.numpy.asarray(np.stack(flats))))
+    sizes = tuple(int(np.prod(sh)) for sh in shapes)
+    tdtype = _from_np(flats[0]).dtype
+    plan = pcoll.FusedChunkPlan(None, 2, getattr(pcoll.ReduceOp, op), pre,
+                                post, sizes, tuple(shapes), tdtype)
+    packed = []
+    for r in ranks:
+        flat = torch.empty(sum(sizes), dtype=tdtype)
+        fused_pack.pack([_from_np(a) for a in r], flat, plan.pre)
+        packed.append(flat)
+    outs = [torch.empty(sh, dtype=tdtype) for sh in shapes]
+    fused_pack.unpack(packed[0] + packed[1], outs, plan.unpack_factor)
+    got = np.concatenate([_to_np(o).reshape(-1) for o in outs])
+    assert got.dtype == want.dtype
+    bits = np.dtype(f"u{got.dtype.itemsize}")
+    np.testing.assert_array_equal(got.view(bits), want.view(bits))
 
 
 def test_unpack_flat_matches_jax():
@@ -211,16 +260,17 @@ def test_inplace_on_a_non_contiguous_tensor_writes_back(port):
 
 
 def test_bf16_factor_rounding_differs_from_jax_by_one_ulp(port):
-    """The pinned mismatch (ROADMAP.md queue 3): 5 * (1/3) in bf16 is
-    1.6640625 under the port's rule (fp32 factor) and 1.671875 in JAX
-    (bf16 factor)."""
+    """The once-pinned mismatch (ROADMAP.md queue 3), repaired: the port
+    rounds a bf16 chunk's factor to bf16 before it multiplies, as JAX's
+    weak typing does, so 5 * (1/3) in bf16 is 1.671875 in both (an fp32
+    factor gave 1.6640625, one bf16 ulp off)."""
     x = np.array([5.0], ml_dtypes.bfloat16)
     plan = jcoll._build_fused_plan(None, 1, jcoll.ReduceOp.SUM, 1.0 / 3,
                                    1.0, (1,), ((1,),), False, False)
     j = float(np.asarray(plan.execute(x)[0])[0])
     p = float(hvd.allreduce(_from_np(x), op=hvd.Sum,
                             prescale_factor=1.0 / 3)[0])
-    assert (p, j) == (1.6640625, 1.671875)
+    assert p == j == 1.671875
 
 
 # --- the runtime's own rules, in one process ---------------------------------
@@ -694,6 +744,61 @@ def test_slice_losses_match_jax_package_two_processes(tmp_path):
                                    rtol=1e-6, atol=0)
         assert losses["port"][r][-1] < losses["port"][r][0]
     assert not np.array_equal(losses["port"][0], losses["port"][1])
+
+
+AVG_SIZES = (12, 1, 35, 129)
+AVG_PRE, AVG_POST = 1.0 / 3, 0.7
+
+AVG_BODY = """
+    rs = np.random.RandomState(7 + r)
+    ts = [torch.from_numpy(rs.uniform(-4, 4, n).astype(np.float32))
+          .to(torch.bfloat16) for n in {sizes!r}]
+    outs = hvd.grouped_allreduce(ts, name="bf16avg", op=hvd.Average,
+                                 prescale_factor={pre!r},
+                                 postscale_factor={post!r})
+    assert [o.dtype for o in outs] == [torch.bfloat16] * len(ts)
+    np.save({out!r}.format(r), np.concatenate(
+        [o.view(torch.int16).numpy() for o in outs]))
+    hvd.shutdown()
+"""
+
+
+def test_bf16_average_matches_jax_package_two_processes(tmp_path):
+    """bf16 AVERAGE with factors that bf16 does not hold exactly, as one
+    fused chunk, in a 2-process job of the port's ``hvdrun`` and of the JAX
+    package's (``horovod_tpu.torch``), over gloo. Both ranks of the port
+    give, bit for bit, the JAX package's multi-rank rule run op by op
+    (``_allreduce_body``: the prescaled values rounded to bf16, as they
+    cross the wire, then mean and postscale). The JAX package's own job
+    gives that rule under ``jax.jit``, where XLA keeps the prescaled values
+    in fp32 through the mean and rounds once after it: a different
+    result (ROADMAP.md queue 3), which this test pins."""
+    inputs = []
+    for r in range(2):
+        rs = np.random.RandomState(7 + r)
+        inputs.append(np.concatenate([
+            _to_np(torch.from_numpy(rs.uniform(-4, 4, n).astype(np.float32))
+                   .to(torch.bfloat16)) for n in AVG_SIZES]))
+    body = jcoll._allreduce_body(None, jcoll.ReduceOp.AVERAGE, AVG_PRE,
+                                 AVG_POST, False)
+    g = jax.numpy.asarray(np.stack(inputs))
+    rule = np.asarray(body(g)).view(np.int16)
+    jitted = np.asarray(jax.jit(body)(g)).view(np.int16)
+    got = {}
+    for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
+                              ("jax", JAX_HEAD, "horovod_tpu")):
+        out = str(tmp_path / (pkg + ".{}.npy"))
+        script = tmp_path / f"{pkg}_avg.py"
+        script.write_text(textwrap.dedent(head) + textwrap.dedent(
+            AVG_BODY.format(sizes=AVG_SIZES, pre=AVG_PRE, post=AVG_POST,
+                            out=out)))
+        rc, log = _hvdrun(runner, script)
+        assert rc == 0, log
+        got[pkg] = [np.load(out.format(r)) for r in range(2)]
+    for r in range(2):
+        np.testing.assert_array_equal(got["port"][r], rule)
+        np.testing.assert_array_equal(got["jax"][r], jitted)
+    assert (rule != jitted).any()
 
 
 def test_no_lock_order_inversions():
