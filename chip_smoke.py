@@ -36,7 +36,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    chunk is held bitwise against the plain version again, and pack and
    unpack are timed by CUDA events and device time, in turns with
    ``torch.cat``/``split`` + ``copy_`` (a yardstick only), beside their
-   bound and their plain version;
+   bound and their plain version; then the compaction of a ragged
+   allgather (``compact_rows``: K1's pack over the table of the ``nproc``
+   row slices ``gathered[i*maxn : i*maxn + size_i]``), held bitwise
+   against the plain version in 72 layouts (``nproc`` 2, 4 and 8, row
+   counts with 0 and 1, rows of [2048], [3] and [] elements, fp32, bf16,
+   int32 and uint8, aligned and misaligned slice starts) and timed at
+   ``nproc`` 4, rows [8192, 6000, 0, 1] of [2048] bf16, beside
+   ``torch.cat`` of the same slices and its bound;
 5. main path: ``hvd.init()`` (NCCL and the background runtime),
    ``broadcast_parameters`` and ``DistributedOptimizer(SGD(lr=1e-3,
    momentum=0.9))`` train the transformer LM at the full width of
@@ -63,15 +70,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    step with ``use_flash=False``; median step, tokens/s and peak memory;
 7. the slice against plain: a 2-layer model of the same widths, one loss and
    its gradients through the kernel path and through ``causal_attention``;
-8. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+8. collectives path: the same LM at full width and ``hvd.init()``,
+   through the rest of Horovod's surface, each result checked exactly
+   (a world of one, so every result is its input, through the NCCL calls
+   and K1 launches a multi-GPU run makes): ``allgather`` of one
+   evaluation forward's per-token losses ([8192] fp32) and of its final
+   hidden states ([8192, 2048] bf16, with its backward through the
+   autograd op), ``alltoall`` of the hidden states with ``splits=[8192]``
+   (and its backward), ``reducescatter`` of the embedding gradient
+   ([32768, 2048] fp32) with SUM and AVERAGE, ``sparse_allreduce_async``
+   of the input embedding's gradient rows as COO, one hook step of
+   ``DistributedOptimizer(process_set=add_process_set([0]))`` (fused
+   through K1 on the set's group) bitwise equal to one step on the global
+   set, ``join()`` and an allreduce after it, ``allgather_object``. Per
+   op it prints event and device ms, host us from enqueue to
+   ``synchronize``, bytes, and the NCCL calls and K1 launches of one call;
+9. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
    exits 0; the phase fails when the worker fails.
 
 The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
-the others' on the main path), errors, times, bounds and shares; the last
-line is ``{"ok": true, "device": {...}}``.
+the others' on the main path; ``launches_by_path`` gives every path's
+count), errors, times, bounds and shares; the last line is
+``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
 prints no result.
 """
@@ -381,15 +404,14 @@ def time_flash(name, B, s, d, dtype, iters, device) -> dict:
 
 # --- phase 4: K1, the fused-chunk pack and unpack --------------------------
 
-_INT_VIEW = {"float32": "int32", "bfloat16": "int16", "float16": "int16",
-             "float64": "int64"}
-
-
 def _same_bits(a, b) -> bool:
+    """Bit for bit, any dtype (NaNs and signed zeros included)."""
     import torch
 
-    iv = getattr(torch, _INT_VIEW[str(a.dtype)[6:]])
-    return torch.equal(a.view(iv), b.view(iv))
+    iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+          8: torch.int64}[a.element_size()]
+    return (a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(iv), b.contiguous().view(iv)))
 
 
 def _k1_case(dtype, sizes, pre, unpack_factor, device, seed, misalign=0):
@@ -595,6 +617,92 @@ def k1_time_phase(device, cfg) -> list:
     return out
 
 
+# the layouts of a ragged allgather's compaction: per nproc, each rank's
+# rows, with ranks of 0 and 1 rows
+COMPACT_SIZES = {2: [3, 0], 4: [5, 0, 1, 2], 8: [1, 0, 4, 0, 1, 3, 2, 0]}
+COMPACT_TIMED = (4, [8192, 6000, 0, 1], (2048,))  # sized from the LM
+
+
+def _ragged(nproc, sizes, rest, dtype, device, seed, mis=0):
+    """A gathered buffer of ``nproc * max(sizes)`` rows of ``rest``,
+    starting ``mis`` elements past its allocation."""
+    import torch
+
+    maxn, row = max(sizes), math.prod(rest)
+    g = torch.Generator(device=device).manual_seed(seed)
+    buf = torch.randn(nproc * maxn * row + mis, generator=g, device=device)
+    if dtype in (torch.int32, torch.uint8):
+        buf = (buf * 30).abs()
+    buf = buf.to(dtype)[mis:]
+    return buf.view((nproc * maxn,) + rest), maxn, row
+
+
+def k1_compaction_phase(device) -> dict:
+    """K1 as a ragged allgather's compaction: bitwise against its plain
+    version in every layout, then timed at the LM-sized layout, kernel
+    and ``torch.cat`` of the same slices in turns. Returns the readings."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    n = 0
+    for nproc, sizes in COMPACT_SIZES.items():
+        for rest in ((2048,), (3,), ()):
+            for dtype in (torch.float32, torch.bfloat16, torch.int32,
+                          torch.uint8):
+                for mis in (0, 1):
+                    n += 1
+                    gathered, maxn, row = _ragged(nproc, sizes, rest, dtype,
+                                                  device, n, mis)
+                    out = torch.empty((sum(sizes),) + rest, dtype=dtype,
+                                      device=device)
+                    ref = torch.empty_like(out)
+                    C.compact_rows(gathered, sizes, maxn, row, out)
+                    parts = [gathered.view(-1)[i * maxn * row:
+                                               (i * maxn + s) * row]
+                             for i, s in enumerate(sizes) if s]
+                    fp.plain_pack(parts, ref.view(-1))
+                    if not _same_bits(out, ref):
+                        raise AssertionError(
+                            f"K1's compaction differs from its plain version"
+                            f": nproc {nproc}, rows {sizes}, rest {rest}, "
+                            f"{dtype}, misaligned by {mis}")
+    _log(f"  K1 compaction: {n} layouts (nproc 2, 4, 8; rows with 0 and 1; "
+         "rows of [2048], [3], []; fp32, bf16, int32, uint8; aligned and "
+         "misaligned slice starts) bitwise equal to the plain version")
+    nproc, sizes, rest = COMPACT_TIMED
+    gathered, maxn, row = _ragged(nproc, sizes, rest, torch.bfloat16,
+                                  device, 0)
+    out = torch.empty((sum(sizes),) + rest, dtype=torch.bfloat16,
+                      device=device)
+    parts = [gathered[i * maxn:i * maxn + s] for i, s in enumerate(sizes)
+             if s]
+    C.compact_rows(gathered, sizes, maxn, row, out)
+    if not _same_bits(out, torch.cat(parts)):
+        raise AssertionError("K1's compaction differs from torch.cat at "
+                             "the timed layout")
+    fns = {"kernel": lambda: C.compact_rows(gathered, sizes, maxn, row, out),
+           "library": lambda: torch.cat(parts, out=out)}
+    ev = in_turns(fns, lambda fn: time_ms(fn, iters=20))
+    dev = in_turns(fns, lambda fn: device_ms(fn, iters=10))
+    plain = time_ms(lambda: fp.plain_pack([p.view(-1) for p in parts],
+                                          out.view(-1)), iters=5)
+    moved = out.numel() * out.element_size()
+    bound = 2 * moved / HBM_BYTES_PER_S * 1e3
+    _log(f"  K1 compaction at nproc {nproc}, rows {sizes} of {list(rest)} "
+         f"bf16 ({moved / 2**20:.1f} MiB): {ev['kernel']:.4f} ms by events, "
+         f"{dev['kernel']:.4f} ms of device time ({bound / dev['kernel']:.3f}"
+         f" of its bound {bound:.4f} ms); torch.cat {ev['library']:.4f} ms "
+         f"({dev['library']:.4f} device); plain {plain:.4f} ms")
+    del gathered, out, parts
+    torch.cuda.empty_cache()
+    return {"compact_cases": n, "compact_ms": ev["kernel"],
+            "compact_device_ms": dev["kernel"], "compact_plain_ms": plain,
+            "compact_bound_ms": bound, "compact_library_ms": ev["library"],
+            "compact_library_device_ms": dev["library"]}
+
+
 # --- phase 5: the main path at full width ---------------------------------
 
 def fwd_flops_per_token(cfg, seq: int) -> int:
@@ -655,8 +763,6 @@ def train(cfg, batch: int, steps: int, device, trace: bool = True,
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
-    from horovod_tpu_torch.ops import flash_attention as fa
-    from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.parallel import ring_attention
 
     model = TransformerLM(cfg, device=device, seed=0)
@@ -686,10 +792,7 @@ def train(cfg, batch: int, steps: int, device, trace: bool = True,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s, per_step = [], [], []
-    # every count to 0 just before the main path runs
-    for counts in (fa.kernel_launches, fp.kernel_launches):
-        for name in counts:
-            counts[name] = 0
+    _zero_launch_counts()  # just before the path runs
     for _ in range(steps):
         c0 = _runtime_counts() if horovod else {}
         t0 = time.perf_counter()
@@ -697,8 +800,7 @@ def train(cfg, batch: int, steps: int, device, trace: bool = True,
         step_s.append(time.perf_counter() - t0)
         c1 = _runtime_counts() if horovod else {}
         per_step.append({k: c1[k] - c0[k] for k in c0})
-    launches = dict(fa.kernel_launches)
-    launches.update(fp.kernel_launches)
+    launches = _launch_counts()
     res = {"losses": losses, "step_s": step_s, "launches": launches,
            "per_step": per_step,
            "peak_bytes": torch.cuda.max_memory_allocated(), "profile": None}
@@ -964,7 +1066,224 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
     torch.cuda.empty_cache()
 
 
-# --- phase 8: the launcher ------------------------------------------------
+# --- phase 8: the collectives path ---------------------------------------
+
+def _launch_counts() -> dict:
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    counts = dict(fa.kernel_launches)
+    counts.update(fp.kernel_launches)
+    return counts
+
+
+def _zero_launch_counts():
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    for counts in (fa.kernel_launches, fp.kernel_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def _exact(name: str, got, want):
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    if not _same_bits(got, want):
+        raise AssertionError(f"{name}: not bitwise equal")
+
+
+def op_readings(name: str, fn, nbytes: int, readings: list):
+    """One op's NCCL calls and K1 launches in one call, host us from
+    enqueue to ``synchronize`` (the median of 5 calls, each from an idle
+    card, after one more), event ms and device ms of back-to-back
+    calls."""
+    import torch
+
+    from horovod_tpu_torch.common import context
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    rt = context.runtime()
+    fn()
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        calls0, k10 = rt.collective_calls, sum(fp.kernel_launches.values())
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e6)
+    host_us = statistics.median(host)
+    calls, k1 = (rt.collective_calls - calls0,
+                 sum(fp.kernel_launches.values()) - k10)
+    ev = time_ms(fn, iters=5)
+    dev = device_ms(fn, iters=5, warmup=1)
+    _log(f"  {name}: {ev:.4f} ms by events, {dev:.4f} ms of device time, "
+         f"{host_us:.0f} us host enqueue to synchronize; {nbytes} bytes; "
+         f"{calls} NCCL calls, {k1} K1 launches a call")
+    readings.append({"op": name, "ms": ev, "device_ms": dev,
+                     "host_us": host_us, "bytes": nbytes,
+                     "nccl_calls": calls, "k1_launches": k1})
+
+
+def _set_step(cfg, batch, device, process_set):
+    """One hook step of ``DistributedOptimizer`` on ``process_set`` from
+    the weights and tokens of seed 0; returns the parameters after it."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.parallel import ring_attention
+
+    model = TransformerLM(cfg, device=device, seed=0)
+    tokens = tokens_for(cfg, batch, 0, device)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9),
+        named_parameters=model.named_parameters(), process_set=process_set)
+    opt.zero_grad()
+    lm_loss(model, tokens, attn_fn=ring_attention).backward()
+    opt.step()
+    out = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def collectives_path_phase(device) -> tuple:
+    """Allgather, alltoall, reducescatter, sparse allreduce, a process
+    set's hook step, join and ``allgather_object`` on the full-width LM's
+    tensors, each checked exactly (see the module docstring). Returns the
+    path's kernel launches and the per-op readings."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel import ring_attention
+
+    cfg = full_width_config(12)
+    batch = 8
+    readings: list = []
+    _zero_launch_counts()
+    model = TransformerLM(cfg, device=device, seed=0)
+    tokens = tokens_for(cfg, batch, 0, device)
+    # one evaluation forward: per-token losses and the final hidden states
+    seen = {}
+    hook = model.blocks[-1].register_forward_hook(
+        lambda m, i, o: seen.update(hidden=o))
+    with torch.no_grad():
+        logits = model(tokens[:, :-1], attn_fn=ring_attention)
+        losses = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                 tokens[:, 1:].reshape(-1), reduction="none")
+    hook.remove()
+    del logits
+    hidden = seen.pop("hidden").reshape(-1, cfg.d_model)
+    if (losses.shape, hidden.shape, hidden.dtype) != (
+            (batch * cfg.max_seq,), (batch * cfg.max_seq, cfg.d_model),
+            torch.bfloat16):
+        raise AssertionError(f"unexpected shapes {losses.shape} "
+                             f"{hidden.shape} {hidden.dtype}")
+    _exact("allgather of the per-token losses",
+           hvd.allgather(losses, name="losses"), losses)
+    op_readings(f"allgather {list(losses.shape)} fp32",
+                lambda: hvd.allgather(losses, name="losses"),
+                losses.numel() * 4, readings)
+    g = torch.Generator(device=device).manual_seed(1)
+    dy = torch.randn(hidden.shape, generator=g, device=device).to(
+        torch.bfloat16)
+    h = hidden.clone().requires_grad_()
+    y = hvd.allgather(h, name="hidden")
+    _exact("allgather of the hidden states", y.detach(), hidden)
+    y.backward(dy)
+    _exact("allgather's backward", h.grad, dy)
+    nb = hidden.numel() * 2
+    op_readings(f"allgather {list(hidden.shape)} bf16",
+                lambda: hvd.allgather(hidden, name="hidden"), nb, readings)
+    h = hidden.clone().requires_grad_()
+    out, recv = hvd.alltoall(h, splits=[batch * cfg.max_seq], name="a2a")
+    _exact("alltoall of the hidden states", out.detach(), hidden)
+    if recv.tolist() != [batch * cfg.max_seq] or recv.device.type != "cpu":
+        raise AssertionError(f"alltoall received splits {recv}")
+    out.backward(dy)
+    _exact("alltoall's backward", h.grad, dy)
+    op_readings(f"alltoall {list(hidden.shape)} bf16",
+                lambda: hvd.alltoall(hidden, splits=[batch * cfg.max_seq],
+                                     name="a2a"), nb, readings)
+    del h, y, out, dy
+    # the embedding's gradient, and its input rows' part of it
+    seen.clear()
+    hook = model.blocks[0].register_forward_pre_hook(
+        lambda m, args: seen.update(x=args[0]) or args[0].retain_grad())
+    model.zero_grad()
+    lm_loss(model, tokens, attn_fn=ring_attention).backward()
+    hook.remove()
+    grad = model.embed.grad
+    for opn, op in (("SUM", hvd.Sum), ("AVERAGE", hvd.Average)):
+        _exact(f"reducescatter {opn} of the embedding gradient",
+               hvd.reducescatter(grad, name=f"rs.{opn}", op=op), grad)
+        op_readings(f"reducescatter {opn} {list(grad.shape)} fp32",
+                    lambda op=op: hvd.reducescatter(grad, name="rs", op=op),
+                    grad.numel() * 4, readings)
+    dense = torch.zeros_like(grad)
+    dense.index_add_(0, tokens[:, :-1].reshape(-1),
+                     seen.pop("x").grad.reshape(-1, cfg.d_model).float())
+    rows = dense.abs().sum(1).nonzero().view(-1)
+    sparse = torch.sparse_coo_tensor(rows[None], dense[rows], dense.shape)
+    _exact("sparse allreduce of the input embedding's gradient",
+           hvd.sparse_allreduce_async(sparse, "emb.sparse")().to_dense(),
+           dense)
+    op_readings(f"sparse_allreduce_async ({rows.numel()} rows of "
+                f"{cfg.vocab_size})",
+                lambda: hvd.sparse_allreduce_async(sparse, "emb.sparse")(),
+                rows.numel() * (cfg.d_model * 4 + 8), readings)
+    _log(f"  every result above bitwise equal to its input; the sparse "
+         f"gradient has {rows.numel()} nonzero rows")
+    del model, grad, dense, sparse, rows, losses, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a process set's hook step against the global set's
+    C.invalidate_fused_plans()
+    ps = hvd.add_process_set([0], name="solo")
+    k0 = _launch_counts()
+    on_set = _set_step(cfg, batch, device, ps)
+    k1 = _launch_counts()
+    plans = [p for key, p in C._PLANS.items() if key[2] == "solo"]
+    if not plans or any(p.group is not ps.runtime_group for p in plans):
+        raise AssertionError("the set's chunks did not run on its group")
+    if k1["fused_pack"] == k0["fused_pack"]:
+        raise AssertionError("the set's step never launched K1")
+    on_global = _set_step(cfg, batch, device, None)
+    for n, p in on_set.items():
+        _exact(f"the set's step, parameter {n}", p, on_global[n])
+    _log(f"  process set [0]: one hook step, {len(plans)} fused plans on "
+         f"the set's group, K1 {k1['fused_pack'] - k0['fused_pack']} packs "
+         f"and {k1['fused_unpack'] - k0['fused_unpack']} unpacks; "
+         f"parameters bitwise equal to the global set's step")
+    hvd.remove_process_set(ps)
+    del on_set, on_global
+    torch.cuda.empty_cache()
+    if hvd.join() != 0:
+        raise AssertionError("join() did not return 0")
+    after = hvd.allreduce(torch.ones(4, device=device), name="after.join",
+                          op=hvd.Sum)
+    _exact("an allreduce after join", after, torch.ones(4, device=device))
+    metrics = {"loss": 1.5, "tokens": batch * cfg.max_seq}
+    if hvd.allgather_object(metrics) != [metrics]:
+        raise AssertionError("allgather_object")
+    _log("  join() returned 0, an allreduce after it completed, "
+         "allgather_object returned [dict]")
+    launches = _launch_counts()
+    _log(f"  the path's kernel launches: {launches}")
+    for name in ("flash_attention_fwd", "fused_pack", "fused_unpack"):
+        if not launches[name]:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"collectives path: {launches}")
+    return launches, readings
+
+
+# --- phase 9: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -1044,26 +1363,37 @@ def main() -> int:
     _log("[K1]")
     k1_check_phase(device)
     kernels += k1_time_phase(device, full_width_config(12))
+    kernels[-2].update(k1_compaction_phase(device))  # the pack's entry
 
     _log("[main path] 12 layers at full width, 5 steps, through the runtime")
     launches = main_path_phase(device)
     _log("[fp32 path] the same LM in fp32, 3 steps, through the runtime")
     fp32_launches = fp32_path_phase(device)
+
+    _log("[slice vs plain]")
+    slice_vs_plain_phase(device)
+    _log("[collectives path] allgather, alltoall, reducescatter, sparse, "
+         "a process set, join, objects, on the full-width LM's tensors")
+    t_coll = time.perf_counter()
+    coll_launches, readings = collectives_path_phase(device)
+    _log(f"  collectives path: {time.perf_counter() - t_coll:.1f} s")
+    hvd.shutdown()
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, the others' on the main path
     for entry in kernels:
         path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
                 else launches)
         entry["launches"] = path[entry["name"]]
-
-    _log("[slice vs plain]")
-    slice_vs_plain_phase(device)
-    hvd.shutdown()
+        entry["launches_by_path"] = {
+            "main": launches[entry["name"]],
+            "fp32": fp32_launches[entry["name"]],
+            "collectives": coll_launches[entry["name"]]}
 
     _log("[launcher]")
     launcher_phase(root)
 
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"collectives": readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -25,10 +25,16 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     DistributedOptimizer,
     HorovodInternalError,
     ProcessSet,
+    add_process_set,
+    allgather,
+    allgather_async,
+    allgather_object,
     allreduce,
     allreduce_,
     allreduce_async,
     allreduce_async_,
+    alltoall,
+    alltoall_async,
     barrier,
     broadcast,
     broadcast_async,
@@ -46,11 +52,16 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     grouped_allreduce_async_,
     init,
     is_initialized,
+    join,
     local_rank,
     local_size,
     poll,
     rank,
+    reducescatter,
+    reducescatter_async,
+    remove_process_set,
     shutdown,
     size,
+    sparse_allreduce_async,
     synchronize,
 )

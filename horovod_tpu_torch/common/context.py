@@ -15,6 +15,16 @@ The data plane is ``torch.distributed``: NCCL on the GPU, gloo on the CPU.
 Without CUDA, ``init`` raises unless the caller asks for
 ``device="cpu"``: it never carries on silently on the CPU.
 
+Process sets (``add_process_set``, JAX ``common/context.py`` :519-540)
+are named sets of ranks, each with two ``torch.distributed`` groups: one
+for the caller's thread (``barrier``, the object collectives) and one for
+the runtime's cycle thread, so the two never interleave on a
+communicator. Creating a group is collective over the world, so unlike
+the JAX package's purely local call, ``add_process_set`` and
+``remove_process_set`` must be called by every rank, members and
+non-members alike, in the same order (the reference Horovod's contract
+since 0.21).
+
 ``init`` also reads the ``RuntimeConfig`` and starts the background runtime
 (``ops/queue.py``) on ``device()``, as ``horovod_tpu/common/context.py``
 :337-362 does. The runtime runs its collectives on a process group of its
@@ -41,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from . import env as env_schema
+from .exceptions import HorovodInternalError
 
 _KV_KEY = "horovod_tpu_torch/kv"
 
@@ -48,22 +59,42 @@ _STORE_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 class ProcessSet:
-    """A named set of ranks backed by a ``torch.distributed`` group (the
-    counterpart of ``horovod_tpu``'s mesh-backed ``ProcessSet``)."""
+    """A named set of ranks (the counterpart of ``horovod_tpu``'s
+    mesh-backed ``ProcessSet``). ``group`` serves the caller's thread,
+    ``runtime_group`` the background runtime; on a non-member both are
+    ``torch.distributed``'s non-member marker. A port rank is one process,
+    so ``rank``/``size`` and the process-level ``cross_rank``/
+    ``cross_size`` coincide: they equal the JAX package's for a launch that
+    gives each JAX worker one device."""
 
-    def __init__(self, name: str, ranks: Sequence[int], group):
+    def __init__(self, name: str, ranks: Sequence[int], group,
+                 runtime_group=None):
         self.name = name
         self.ranks = list(ranks)
         self.group = group
+        self.runtime_group = runtime_group
 
     @property
     def size(self) -> int:
         return len(self.ranks)
 
+    def included(self) -> bool:
+        return dist.get_rank() in self.ranks
+
     @property
     def rank(self) -> int:
-        """This process's index within the set."""
-        return dist.get_rank(self.group)
+        """This process's index within the set; a non-member raises."""
+        me = dist.get_rank()
+        if me not in self.ranks:
+            raise HorovodInternalError(
+                f"rank {me} is not a member of process set {self.name!r}")
+        return self.ranks.index(me)
+
+    cross_rank = rank
+
+    @property
+    def cross_size(self) -> int:
+        return self.size
 
     def __repr__(self) -> str:
         return f"ProcessSet({self.name!r}, ranks={self.ranks})"
@@ -75,6 +106,7 @@ class _Context:
         self.initialized = False
         self.device: Optional[torch.device] = None
         self.global_set: Optional[ProcessSet] = None
+        self.process_sets: dict[str, ProcessSet] = {}
         self.rank = self.size = 0
         self.local_rank = self.local_size = 0
         self.cross_rank = self.cross_size = 0
@@ -183,7 +215,9 @@ def _start_runtime(store):
     from ..ops.queue import BackgroundRuntime
 
     # the runtime's own communicator (see the module docstring)
-    group = dist.new_group(list(range(_ctx.size)))
+    group = _new_group(list(range(_ctx.size)))
+    _ctx.global_set.runtime_group = group
+    _ctx.process_sets = {"global": _ctx.global_set}
     kv = _kv_client(store) if _ctx.size > 1 else None
     _ctx.runtime = BackgroundRuntime(_ctx.global_set, _ctx.config,
                                      _ctx.device, group, kv_client=kv)
@@ -202,9 +236,10 @@ def shutdown():
         if _ctx.kv_server is not None:
             _ctx.kv_server.stop()
             _ctx.kv_server = None
-        dist.destroy_process_group()
+        dist.destroy_process_group()  # every set's groups with the world's
         _ctx.initialized = False
         _ctx.global_set = None
+        _ctx.process_sets = {}
         _ctx.device = None
 
 
@@ -221,6 +256,57 @@ def _require_init() -> _Context:
 
 def global_process_set() -> ProcessSet:
     return _require_init().global_set
+
+
+def _new_group(ranks: list):
+    """A group over ``ranks``, its NCCL communicator bound to
+    ``device()``. Collective over the world: every rank calls it."""
+    kw = {"device_id": _ctx.device} if _ctx.device.type == "cuda" else {}
+    return dist.new_group(ranks, **kw)
+
+
+def add_process_set(ranks: Sequence[int],
+                    name: Optional[str] = None) -> ProcessSet:
+    """A process set over the global ``ranks`` (reference
+    ``hvd.add_process_set``), keyed by ``name`` (by default
+    ``set_<ranks>``, as in the JAX package); a name already present
+    returns its set unchanged. Collective over the world: every rank,
+    members and non-members, calls it with the same arguments and in the
+    same order, because each set's groups are made by
+    ``torch.distributed.new_group``."""
+    ctx = _require_init()
+    ranks = sorted({int(r) for r in ranks})
+    if not ranks or ranks[0] < 0 or ranks[-1] >= ctx.size:
+        raise ValueError(f"process set ranks {ranks} must be a non-empty "
+                         f"subset of 0..{ctx.size - 1}")
+    name = name or f"set_{','.join(map(str, ranks))}"
+    with ctx.lock:
+        if name in ctx.process_sets:
+            return ctx.process_sets[name]
+        ps = ProcessSet(name, ranks, _new_group(ranks), _new_group(ranks))
+        ctx.process_sets[name] = ps
+        return ps
+
+
+def remove_process_set(process_set) -> None:
+    """Forget a process set, given by name or by the set itself; the
+    global set cannot be removed. Called by every rank, like
+    ``add_process_set``. The set's groups live until ``shutdown``; its
+    cached fused plans are dropped, so a set later added under the same
+    name never runs on the old groups."""
+    from ..ops.collectives import invalidate_fused_plans
+
+    ctx = _require_init()
+    name = getattr(process_set, "name", process_set)
+    if name == "global":
+        raise ValueError("cannot remove the global process set")
+    with ctx.lock:
+        if ctx.process_sets.pop(name, None) is not None:
+            invalidate_fused_plans()
+
+
+def process_set_by_name(name: str) -> Optional[ProcessSet]:
+    return _require_init().process_sets.get(name)
 
 
 def runtime():

@@ -15,20 +15,40 @@
   tensor is reduced in place, with no pack. Plans are cached by the JAX
   package's key (:853-856), the elastic generation included.
 - ``unpack_flat`` (:475): a flat result split back into per-tensor views.
+- ``_eager_allgather`` (:1302-1358): a ragged first dimension. The
+  first-dimension sizes are exchanged; even sizes take one
+  ``all_gather_single`` with no pad; ragged ones pad this rank's rows to
+  the largest (K1 packs them into the front of the padded buffer, the
+  tail is zeroed), gather, and compact the ``nproc`` row slices
+  ``gathered[i*maxn : i*maxn + size_i]`` into the output in one K1 pack.
+- ``_eager_alltoall`` (:1465-1512): explicit or even splits, validated as
+  in the JAX package; the split matrix is an allgather of the splits, and
+  one ``all_to_all_single`` moves the data with its input and output
+  split sizes. Returns (output, received splits). The JAX package's
+  choice between a per-edge and a dense exchange (``_edge_limit``) is how
+  XLA does it, not the contract, and is not ported; the results are the
+  same bit for bit.
+- ``_eager_reducescatter`` (:1767-1779): an allreduce, then this rank's
+  slice, which keeps the JAX result at every size.
 
 One deliberate departure, which changes no result: at a world of one the
-JAX plan skips pack and unpack (:749-767), while here a group of one still
-goes through the communicator, so a single-GPU run drives the same
-pack → NCCL → unpack chain that a multi-GPU run takes.
+JAX package skips the exchange (the fused plan's pack and unpack,
+:749-767, and allgather, alltoall and reducescatter, which return their
+input), while here a group of one still goes through the communicator, so
+a single-GPU run drives the NCCL calls and K1 launches that a multi-GPU
+run makes.
 
-``broadcast_object`` and ``barrier`` are called on the caller's thread, on
-the world group; the runtime runs its collectives on a group of its own,
-so the two never interleave on one communicator.
+``broadcast_object``, ``allgather_object`` and ``barrier`` are called on
+the caller's thread, on the set's caller group; the runtime runs its
+collectives on groups of its own, so the two never interleave on one
+communicator. ``dist_calls`` counts the calls the runtime's bodies make
+into the communicator.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 from enum import IntEnum
 from typing import Optional
 
@@ -66,6 +86,20 @@ _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MIN: dist.ReduceOp.MIN,
              ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
 
 
+# calls into the communicator made by the runtime's bodies below (the
+# runtime reads the difference across each op it dispatches)
+dist_calls = 0
+
+# torch names the one-tensor allgather all_gather_single from 2.13 on
+_all_gather = (getattr(dist, "all_gather_single", None)
+               or dist.all_gather_into_tensor)
+
+
+def _count_call():
+    global dist_calls
+    dist_calls += 1
+
+
 def _resolve_op(op, average) -> ReduceOp:
     if average is not None:  # legacy kwarg
         return ReduceOp.AVERAGE if average else ReduceOp.SUM
@@ -99,6 +133,7 @@ def _eager_allreduce(x: torch.Tensor, op, group, prescale_factor: float,
         # zero-element reduction: no call, still scaled
         return _scaled(buf, postscale_factor)
     buf = buf.contiguous()
+    _count_call()
     if op == ReduceOp.AVERAGE and _has_avg(group):
         dist.all_reduce(buf, dist.ReduceOp.AVG, group=group)
     elif op == ReduceOp.AVERAGE:
@@ -122,10 +157,147 @@ def _eager_broadcast(x: torch.Tensor, root_rank: int, group,
         return out
     src = dist.get_global_rank(group, root_rank)
     flat = out if out.is_contiguous() else out.contiguous()
+    _count_call()
     dist.broadcast(flat, src, group=group)
     if flat is not out:
         out.copy_(flat)
     return out
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host. A device tensor is copied on the current stream
+    (the runtime's comm stream), and only that stream is waited on."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host
+
+
+def _exchange_ints(values: list, group, device) -> list:
+    """Every rank's ``values`` (one int64 vector each, all of one length),
+    as ``nproc`` lists, by one allgather on ``group``."""
+    nproc = dist.get_world_size(group)
+    mine = torch.tensor(values, dtype=torch.int64)
+    if device.type == "cuda":
+        mine = mine.pin_memory().to(device, non_blocking=True)
+    every = torch.empty(nproc * len(values), dtype=torch.int64,
+                        device=device)
+    _count_call()
+    _all_gather(every, mine, group=group)
+    flat = _to_host(every).tolist()
+    return [flat[i * len(values):(i + 1) * len(values)]
+            for i in range(nproc)]
+
+
+def _rows(x: torch.Tensor, op: str):
+    if x.dim() == 0:
+        raise ValueError(f"{op} needs a tensor with a first dimension")
+    return int(x.shape[0]), tuple(int(n) for n in x.shape[1:])
+
+
+def allgather_sizes(x: torch.Tensor, group) -> list:
+    """Every rank's first-dimension size, in rank order."""
+    n, _ = _rows(x, "allgather")
+    return [v[0] for v in _exchange_ints([n], group, x.device)]
+
+
+def compact_rows(gathered: torch.Tensor, sizes, maxn: int, row: int,
+                 out: torch.Tensor):
+    """K1's pack of the row slices ``gathered[i*maxn : i*maxn + size_i]``
+    (in elements of ``row`` each) into ``out``, back to back; slices of no
+    rows are left out of the table."""
+    flat = gathered.view(-1)
+    parts = [flat[i * maxn * row:(i * maxn + s) * row]
+             for i, s in enumerate(sizes) if s]
+    fused_pack.pack(parts, out.view(-1))
+
+
+def _eager_allgather(x: torch.Tensor, group, sizes=None) -> torch.Tensor:
+    """Allgather ``x`` along its first dimension, which may differ across
+    ranks; ``sizes`` are the ranks' first dimensions when already
+    exchanged (``allgather_sizes``)."""
+    n, rest = _rows(x, "allgather")
+    if sizes is None:
+        sizes = allgather_sizes(x, group)
+    nproc, maxn, row = len(sizes), max(sizes), math.prod(rest)
+    out = torch.empty((sum(sizes),) + rest, dtype=x.dtype, device=x.device)
+    if maxn == 0 or row == 0:
+        return out  # no element moves
+    xf = x.contiguous().view(-1)
+    if min(sizes) == maxn:
+        _count_call()
+        _all_gather(out.view(-1), xf, group=group)
+        return out
+    if n < maxn:
+        pad = torch.empty(maxn * row, dtype=x.dtype, device=x.device)
+        if n:
+            fused_pack.pack([xf], pad)
+        pad[n * row:].zero_()
+        xf = pad
+    gathered = torch.empty(nproc * maxn * row, dtype=x.dtype,
+                           device=x.device)
+    _count_call()
+    _all_gather(gathered, xf, group=group)
+    compact_rows(gathered, sizes, maxn, row, out)
+    return out
+
+
+def alltoall_split_matrix(x: torch.Tensor, splits, group) -> tuple:
+    """Validate ``splits`` as the JAX package does (None asks for an even
+    split of the first dimension) and exchange them: returns this rank's
+    splits and the ``nproc x nproc`` split matrix (row = sender)."""
+    n, _ = _rows(x, "alltoall")
+    nproc = dist.get_world_size(group)
+    if splits is None:
+        if n % max(nproc, 1):
+            raise ValueError(
+                "tensor not evenly divisible; pass explicit splits")
+        splits = [n // nproc] * nproc
+    s = torch.as_tensor(splits).to(torch.int64)
+    if tuple(s.shape) != (nproc,):
+        raise ValueError(f"splits must have length {nproc}")
+    if int(s.sum()) != n:
+        raise ValueError("splits must sum to the first dimension")
+    splits = s.tolist()
+    return splits, _exchange_ints(splits, group, x.device)
+
+
+def _eager_alltoall(x: torch.Tensor, splits, group, mat=None) -> tuple:
+    """Send ``splits[j]`` rows of ``x`` to rank j; returns the rows
+    received, in rank order, and the received splits (a CPU int32 tensor,
+    as the reference's and the JAX package's)."""
+    if mat is None:
+        splits, mat = alltoall_split_matrix(x, splits, group)
+    me = dist.get_rank(group)
+    recv = [row[me] for row in mat]
+    _, rest = _rows(x, "alltoall")
+    out = torch.empty((sum(recv),) + rest, dtype=x.dtype, device=x.device)
+    recv_t = torch.tensor(recv, dtype=torch.int32)
+    if max(max(r) for r in mat) == 0 or math.prod(rest) == 0:
+        return out, recv_t  # all splits zero: nothing moves
+    _count_call()
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=splits, group=group)
+    return out, recv_t
+
+
+def _eager_reducescatter(x: torch.Tensor, op, group) -> torch.Tensor:
+    """Reduce across the group, keep this rank's equal share of the first
+    dimension."""
+    nproc = dist.get_world_size(group)
+    if x.dim() == 0 or x.shape[0] % nproc:
+        raise ValueError(
+            "first dim must be divisible by the number of processes")
+    red = _eager_allreduce(x, op, group, 1.0, 1.0)
+    if nproc == 1:
+        return red
+    chunk = int(x.shape[0]) // nproc
+    me = dist.get_rank(group)
+    return red[me * chunk:(me + 1) * chunk].clone()
 
 
 def unpack_flat(red: torch.Tensor, sizes: tuple, shapes: tuple) -> list:
@@ -178,12 +350,14 @@ class FusedChunkPlan:
             x, out = inputs[0].view(-1), outputs[0].view(-1)
             if self.pre != 1.0 or out.data_ptr() != x.data_ptr():
                 fused_pack.pack([x], out, self.pre)
+            _count_call()
             dist.all_reduce(out, self.dist_op, group=self.group)
             if self.unpack_factor != 1.0:
                 fused_pack.unpack(out, [out], self.unpack_factor)
             return
         flat = fusion_buffer.lease(self.dtype, self.total)
         fused_pack.pack(inputs, flat, self.pre)
+        _count_call()
         dist.all_reduce(flat, self.dist_op, group=self.group)
         fused_pack.unpack(flat, outputs, self.unpack_factor)
 
@@ -257,6 +431,15 @@ def broadcast_object(obj, root_rank: int = 0, process_set=None):
     dist.broadcast_object_list(box, dist.get_global_rank(ps.group, root_rank),
                                group=ps.group)
     return box[0]
+
+
+def allgather_object(obj, process_set=None) -> list:
+    """Every rank's pickled ``obj``, in rank order (JAX
+    ``allgather_object`` :2065-2080)."""
+    ps = _ps(process_set)
+    out = [None] * ps.size
+    dist.all_gather_object(out, obj, group=ps.group)
+    return out
 
 
 def barrier(process_set: Optional[ProcessSet] = None):

@@ -59,19 +59,30 @@ def dtype_name(dtype) -> str:
 
 def entry_signature(entry) -> list:
     """The fields every rank must agree on for one name: [op, dtype, shape,
-    reduce op, root rank, prescale, postscale, process set, device]. The
-    device field is the device type the collective runs on, ``"cuda"`` or
-    ``"cpu"`` (the JAX package names its memory kind there). Metadata only,
-    cached on the entry."""
+    reduce op, root rank, prescale, postscale, process set, device], plus,
+    for a set other than the global one, its members' global ranks
+    (``sig[9]``), which scope the name's readiness to them. allgather and
+    alltoall are ragged in the first dimension, marked ``"*"`` and not
+    checked. The device field is the device type the collective runs on,
+    ``"cuda"`` or ``"cpu"`` (the JAX package names its memory kind there).
+    Metadata only, cached on the entry."""
     cached = getattr(entry, "_sig", None)
     if cached is not None:
         return cached
     t = entry.tensor
+    shape = [int(n) for n in t.shape]
+    if entry.op in ("allgather", "alltoall") and shape:
+        shape[0] = "*"
     ps = getattr(entry, "process_set", None)
-    sig = [entry.op, dtype_name(t.dtype), [int(n) for n in t.shape],
+    ps_name = getattr(ps, "name", None) or "global"
+    sig = [entry.op, dtype_name(t.dtype), shape,
            int(entry.reduce_op), entry.root_rank,
            float(entry.prescale_factor), float(entry.postscale_factor),
-           getattr(ps, "name", None) or "global", t.device.type]
+           ps_name, t.device.type]
+    if ps_name != "global":
+        # the coordinator keeps no registry of sets: the signature tells
+        # it whom to wait for, as in the JAX package
+        sig.append(sorted(ps.ranks))
     entry._sig = sig
     return sig
 
@@ -241,9 +252,9 @@ class _Coordinator(threading.Thread):
             "coordinator stall warnings (round or per-tensor)")
 
     def _warn_stall(self, round_no: int, missing: set[int], elapsed: float):
-        waiting = {n: sorted(set(range(self.size)) - ranks)
+        waiting = {n: sorted(self._required(n) - ranks)
                    for n, (_, ranks) in self.table.items()
-                   if len(ranks) < self.size}
+                   if self._required(n) - ranks}
         detail = "; ".join(
             f"tensor {n!r} waiting on ranks {w}" for n, w in waiting.items()
         ) or "no named tensors pending"
@@ -339,9 +350,10 @@ class _Coordinator(threading.Thread):
 
     def _respond(self, subs: dict[int, dict]) -> dict:
         """Fold one round's submissions into the table and build the
-        response: a name is ready when every rank submitted it or has
-        joined (joined ranks contribute zeros); one real submission is
-        needed, so a join alone fires nothing."""
+        response: a name is ready when every rank it requires (its set's
+        members) submitted it or has joined (joined ranks contribute
+        zeros); one real submission is needed, so a join alone fires
+        nothing."""
         for k in sorted(subs):
             msg = subs[k]
             if msg.get("j") and k not in self._joined:
@@ -352,15 +364,18 @@ class _Coordinator(threading.Thread):
             for name, sig in msg.get("e", []):
                 self._increment(name, sig, k)
         self._check_stalled_tensors()
-        world = set(range(self.size))
         ready = [n for n in self.order
                  if n not in self.errors
-                 and not (world - self.table[n][1] - self._joined)]
+                 and not (self._required(n) - self.table[n][1]
+                          - self._joined)]
         join_done = None
         if len(self._joined) == self.size:
             join_done = self._last_joined_rank
             self._joined.clear()
             self._last_joined_rank = -1
+            # a repeated submission must not join again
+            for msg in self._last_submission.values():
+                msg["j"] = False
         errors = dict(self.errors)
         sigs = {n: self.table[n][0] for n in ready}
         for n in ready + list(errors):
@@ -395,9 +410,8 @@ class _Coordinator(threading.Thread):
         ``stall_warning_s`` is reported with the absent ranks; past
         ``stall_shutdown_s`` it fails on the ranks that submitted it."""
         now = time.monotonic()
-        world = set(range(self.size))
         for n, (_, ranks) in list(self.table.items()):
-            missing = sorted(world - ranks - self._joined)
+            missing = sorted(self._required(n) - ranks - self._joined)
             if not missing or n in self.errors:
                 continue
             age = now - self._first_seen.get(n, now)
@@ -414,6 +428,14 @@ class _Coordinator(threading.Thread):
                     n, sorted(ranks), age, missing)
                 self._stall_warned.add(n)
                 self._m_stall_warn.inc()
+
+    def _required(self, name: str) -> set:
+        """The ranks that must submit ``name``: its set's members when the
+        signature carries them, else the world."""
+        sig = self.table[name][0]
+        if len(sig) > 9 and sig[9]:
+            return set(sig[9])
+        return set(range(self.size))
 
     def _increment(self, name: str, sig: list, rank: int):
         """Count one rank's submission of ``name``; a signature that

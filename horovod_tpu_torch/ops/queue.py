@@ -14,7 +14,17 @@ a cycle thread — counterpart of ``horovod_tpu/ops/queue.py``.
   ``fusion_threshold_bytes`` (``_chunk_group`` :1183), each reduced by one
   fused-chunk plan (``ops/collectives.py``: pack → collective → unpack in
   the K1 kernel, through the device fusion buffer of ``_native``); every
-  other op runs alone (``_run_single`` :1454).
+  other op (allgather, alltoall, reducescatter, broadcast, the other
+  reductions) runs alone (``_run_single`` :1454).
+- Process sets: an entry on a set other than the global one negotiates
+  under ``ps:<set>:<name>`` (``_wire_name`` :1069), so two sets may each
+  have a tensor ``x``, is ready once the set's members submitted it, and
+  runs on the set's own runtime group, fused or alone.
+- Join (``join`` :1104): a joined rank keeps negotiating and, for every
+  name the others make ready, runs a zero contribution built from the
+  coordinator's signature (``_zero_entry_from_sig`` :1080; no rows for
+  allgather and alltoall, none for a set it is not in), until every rank
+  has joined.
 
 The cycle's timing follows the reference's ``RunLoopOnce``, not the JAX
 package's: a cycle starts ``cycle_time_ms`` after the last one started,
@@ -44,10 +54,16 @@ itself (the reference's ready events and finalizers, SURVEY.md N16):
   ``record_stream``, so the caching allocator cannot hand their memory to
   another stream early; the fusion buffer lives as long as the runtime.
 
+- *Host reads.* allgather and alltoall exchange their first-dimension
+  sizes before the data moves, a read of 8 bytes a rank to the host. It
+  is issued before the comm stream waits on the entry's ready event and
+  waits on the comm stream alone, so a backward still running on the
+  caller's stream does not hold up the cycle, and every other rank's
+  negotiation with it.
+
 On the CPU (gloo) the cycle thread runs each collective to its end, and no
-event is involved. Left out, as ROADMAP.md queue 1 lists them: join,
-allgather, alltoall, reducescatter, process sets other than the global one,
-the megaplan replay, the quantized and cast wires, autotuning, and the
+event is involved. Left out, as ROADMAP.md queue 1 lists them: the
+megaplan replay, the quantized and cast wires, autotuning, and the
 tracing, timeline, anatomy and perf-ledger hooks.
 """
 
@@ -62,6 +78,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..common import context as ctx_mod
 from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
@@ -77,7 +94,7 @@ class TensorEntry:
     """One pending op (reference TensorTableEntry, common.h:197-240)."""
 
     name: str
-    op: str  # allreduce | broadcast
+    op: str  # allreduce | broadcast | allgather | alltoall | reducescatter
     tensor: torch.Tensor
     # where the result lands: the tensor itself for an in-place op, a
     # buffer of its shape and dtype otherwise
@@ -87,6 +104,7 @@ class TensorEntry:
     prescale_factor: float = 1.0
     postscale_factor: float = 1.0
     process_set: Any = None
+    splits: Any = None  # alltoall: a CPU int64 tensor, or None for even
     handle: int = -1
     # CUDA event recorded on the caller's stream at enqueue
     ready: Any = None
@@ -141,9 +159,11 @@ class HandleManager:
         if exc is not None:
             raise exc
         if done is not None:
-            stream = torch.cuda.current_stream(result.device)
+            # an alltoall's result is (output, received splits on the CPU)
+            out = result[0] if isinstance(result, tuple) else result
+            stream = torch.cuda.current_stream(out.device)
             stream.wait_event(done)
-            result.record_stream(stream)
+            out.record_stream(stream)
         return result
 
 
@@ -213,8 +233,10 @@ class BackgroundRuntime:
                                           self.device)
         self.comm_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
-        self._has_avg = C._has_avg(group)
-        self._pending: dict[str, TensorEntry] = {}  # negotiated backlog
+        self._pending: dict[str, TensorEntry] = {}  # by negotiation key
+        self.joined = False  # set by join(), cleared when all have joined
+        self._join_done = threading.Event()
+        self._join_last_rank = -1
         self._stop = threading.Event()
         self._work = threading.Event()  # set by an enqueue and by stop
         self._thread: Optional[threading.Thread] = None
@@ -248,6 +270,7 @@ class BackgroundRuntime:
         self._m_op_errors = reg.counter(
             "hvd_op_errors_total", "eager ops failed during execution")
         self._m_by_op: dict[tuple, tuple] = {}
+        self._m_enq: dict[str, Any] = {}
         self.controller = self._maybe_controller(config, kv_client)
 
     def _maybe_controller(self, config, kv_client):
@@ -297,6 +320,9 @@ class BackgroundRuntime:
             if e.tensor.device != self.device:
                 raise ValueError(f"{e.name!r} lies on {e.tensor.device}; "
                                  f"the runtime runs on {self.device}")
+            if e.process_set is not None and not e.process_set.included():
+                raise ValueError(f"{e.name!r}: this rank is not a member "
+                                 f"of process set {e.process_set.name!r}")
         ready = None
         if self.comm_stream is not None:
             ready = torch.cuda.Event()
@@ -310,6 +336,12 @@ class BackgroundRuntime:
             for e in entries:
                 self.handles.discard(e.handle)
             raise
+        for e in entries:
+            c = self._m_enq.get(e.op)
+            if c is None:
+                c = self._m_enq[e.op] = self.metrics.counter(
+                    "hvd_ops_enqueued_total", "eager ops enqueued", op=e.op)
+            c.inc()
         self._work.set()
         return [e.handle for e in entries]
 
@@ -326,6 +358,7 @@ class BackgroundRuntime:
         fail with ``HorovodInternalError``."""
         self._stop.set()
         self._work.set()
+        self._join_done.set()  # a join() in wait fails
         cycle_exited = True
         if self._thread:
             self._thread.join(timeout=10)
@@ -408,17 +441,18 @@ class BackgroundRuntime:
                 self._run_single(e)
 
     def _negotiate(self, batch: list[TensorEntry]) -> list[TensorEntry]:
-        """One round: post the pending set, receive the globally ready
-        names in the coordinator's order. Runs every cycle: empty posts
-        keep the lockstep advancing for ranks with nothing pending."""
+        """One round: post the pending set (and whether this rank has
+        joined), receive the globally ready names in the coordinator's
+        order. Runs every cycle: empty posts keep the lockstep advancing
+        for ranks with nothing pending."""
         from .controller import entry_signature
 
         self._m_neg_rounds.inc()
         for e in batch:
-            self._pending[e.name] = e
+            self._pending[self._wire_name(e)] = e
         sigs = {n: entry_signature(e) for n, e in self._pending.items()}
         try:
-            resp = self.controller.negotiate(sigs)
+            resp = self.controller.negotiate(sigs, joined=self.joined)
         except Exception as exc:
             # fail everything, on shutdown too: a caller may be blocked in
             # synchronize
@@ -438,8 +472,75 @@ class BackgroundRuntime:
             if e is not None:
                 self._m_neg_errors.inc()
                 self._finish(e, None, HorovodInternalError(msg))
-        return [self._pending.pop(n) for n in resp["ready"]
-                if n in self._pending]
+        out = []
+        for n in resp["ready"]:
+            e = self._pending.pop(n, None)
+            if e is not None:
+                out.append(e)
+            elif self.joined:
+                # joined ranks contribute zeros (reference
+                # global_state.h:107-111), never to a set they are not in
+                sig = resp["sigs"].get(n)
+                if sig is not None and self._member_of_sig(sig):
+                    out.append(self._zero_entry_from_sig(n, sig))
+        if resp.get("join_done") is not None:
+            self._join_last_rank = int(resp["join_done"])
+            self.joined = False
+            self._join_done.set()
+        return out
+
+    @staticmethod
+    def _wire_name(e: TensorEntry) -> str:
+        """The negotiation key: the name on the global set, scoped by the
+        set's name on any other, where a name may repeat across sets."""
+        pname = getattr(e.process_set, "name", None)
+        return e.name if not pname or pname == "global" \
+            else f"ps:{pname}:{e.name}"
+
+    @staticmethod
+    def _member_of_sig(sig: list) -> bool:
+        if len(sig) <= 9 or not sig[9]:
+            return True  # the global set
+        return torch.distributed.get_rank() in sig[9]
+
+    def _zero_entry_from_sig(self, name: str, sig: list) -> TensorEntry:
+        """A zero contribution matching another rank's signature: zeros of
+        its shape, and no rows for allgather and alltoall (ragged, so the
+        empty contribution is exact). No caller waits on it."""
+        op, shape = sig[0], list(sig[2])
+        if op in ("allgather", "alltoall") and shape:
+            shape[0] = 0  # the signature's "*"
+        ps, plain = None, name
+        if sig[7] != "global":
+            ps = ctx_mod.process_set_by_name(sig[7])
+            if ps is None:
+                raise HorovodInternalError(
+                    f"{name!r} names process set {sig[7]!r}, which this "
+                    "rank never added")
+            plain = name[len(f"ps:{sig[7]}:"):]
+        t = torch.zeros(shape, dtype=getattr(torch, sig[1]),
+                        device=self.device)
+        return TensorEntry(name=plain, op=op, tensor=t, output=t,
+                           reduce_op=C.ReduceOp(sig[3]), root_rank=sig[4],
+                           prescale_factor=sig[5], postscale_factor=sig[6],
+                           process_set=ps)
+
+    def join(self, timeout: Optional[float] = None) -> int:
+        """Mark this rank out of data (reference ``hvd.join()``): it keeps
+        contributing zeros to the others' collectives until every rank has
+        joined, and returns the last rank to join. Without a controller
+        there is no one to wait for."""
+        if self.controller is None:
+            return self.process_set.rank
+        self._join_done.clear()
+        self.joined = True
+        if not self._join_done.wait(timeout or 600.0):
+            self.joined = False
+            raise HorovodInternalError(
+                "join() timed out waiting for all ranks")
+        if self._stop.is_set():
+            raise HorovodInternalError("Horovod has been shut down")
+        return self._join_last_rank
 
     # -- execution -----------------------------------------------------------
     def _finish(self, entry: TensorEntry, result, exc=None, done=None):
@@ -448,7 +549,8 @@ class BackgroundRuntime:
 
     def _wait_ready(self, entries):
         if self.comm_stream is not None:
-            for ev in {id(e.ready): e.ready for e in entries}.values():
+            for ev in {id(e.ready): e.ready for e in entries
+                       if e.ready is not None}.values():
                 self.comm_stream.wait_event(ev)
 
     def _record_done(self, tensors):
@@ -477,9 +579,17 @@ class BackgroundRuntime:
             chunks.append(chunk)
         return chunks
 
-    def _needs_scale(self, e: TensorEntry) -> bool:
+    def _group_of(self, ps):
+        """The runtime group an entry on ``ps`` runs on."""
+        if ps is None or ps is self.process_set:
+            return self.group
+        return ps.runtime_group
+
+    @staticmethod
+    def _needs_scale(e: TensorEntry, group) -> bool:
         return (e.prescale_factor != 1.0 or e.postscale_factor != 1.0
-                or (e.reduce_op == C.ReduceOp.AVERAGE and not self._has_avg))
+                or (e.reduce_op == C.ReduceOp.AVERAGE
+                    and not C._has_avg(group)))
 
     def _run_fused_allreduce(self, group: list[TensorEntry]):
         """Each chunk through its fused-chunk plan. A chunk the K1 kernel
@@ -489,7 +599,8 @@ class BackgroundRuntime:
         e0 = group[0]
         dtype = e0.tensor.dtype
         ps = e0.process_set or self.process_set
-        if self._needs_scale(e0) and not fused_pack.can_scale(dtype):
+        pg = self._group_of(e0.process_set)
+        if self._needs_scale(e0, pg) and not fused_pack.can_scale(dtype):
             for e in group:
                 self._run_single(e)
             return
@@ -497,7 +608,7 @@ class BackgroundRuntime:
             names = [e.name for e in chunk]
             t0 = time.perf_counter()
             plan = C.fused_chunk_plan(
-                ps, self.group, e0.reduce_op, e0.prescale_factor,
+                ps, pg, e0.reduce_op, e0.prescale_factor,
                 e0.postscale_factor, names,
                 [e.tensor.numel() for e in chunk],
                 [tuple(e.tensor.shape) for e in chunk], dtype,
@@ -506,6 +617,7 @@ class BackgroundRuntime:
                 for e in chunk:
                     self._run_single(e)
                 continue
+            calls0 = C.dist_calls
             try:
                 self._wait_ready(chunk)
                 plan.execute([e.tensor for e in chunk],
@@ -522,7 +634,7 @@ class BackgroundRuntime:
             nbytes = sum(e.tensor.numel() * e.tensor.element_size()
                          for e in chunk)
             self.chunks += 1
-            self.collective_calls += 1
+            self.collective_calls += C.dist_calls - calls0
             m_bytes, m_lat, m_ops = self._op_metrics(
                 "allreduce", dtype_name(dtype))
             m_bytes.inc(nbytes)
@@ -535,29 +647,46 @@ class BackgroundRuntime:
 
     def _run_single(self, e: TensorEntry):
         t0 = time.perf_counter()
+        calls0 = C.dist_calls
+        group = self._group_of(e.process_set)
         try:
-            self._wait_ready([e])
-            if e.op == "allreduce":
-                r = C._eager_allreduce(e.tensor, e.reduce_op, self.group,
-                                       e.prescale_factor,
-                                       e.postscale_factor)
-                if e.output is e.tensor:
-                    e.tensor.copy_(r)  # in place, in the tensor's dtype
-                    r = e.tensor
-            elif e.op == "broadcast":
-                r = C._eager_broadcast(e.tensor, e.root_rank, self.group,
-                                       e.output)
+            if e.op == "allgather":
+                # sizes first: their host read waits on the comm stream
+                # before it waits on the caller's
+                sizes = C.allgather_sizes(e.tensor, group)
+                self._wait_ready([e])
+                r = C._eager_allgather(e.tensor, group, sizes)
+                done = self._record_done([e.tensor, r])
+            elif e.op == "alltoall":
+                splits, mat = C.alltoall_split_matrix(e.tensor, e.splits,
+                                                      group)
+                self._wait_ready([e])
+                r = C._eager_alltoall(e.tensor, splits, group, mat)
+                done = self._record_done([e.tensor, r[0]])
             else:
-                raise HorovodInternalError(f"unknown op {e.op}")
-            done = self._record_done([e.tensor] if r is e.tensor
-                                     else [e.tensor, r])
+                self._wait_ready([e])
+                if e.op == "allreduce":
+                    r = C._eager_allreduce(e.tensor, e.reduce_op, group,
+                                           e.prescale_factor,
+                                           e.postscale_factor)
+                    if e.output is e.tensor:
+                        e.tensor.copy_(r)  # in place, in the tensor's dtype
+                        r = e.tensor
+                elif e.op == "broadcast":
+                    r = C._eager_broadcast(e.tensor, e.root_rank, group,
+                                           e.output)
+                elif e.op == "reducescatter":
+                    r = C._eager_reducescatter(e.tensor, e.reduce_op, group)
+                else:
+                    raise HorovodInternalError(f"unknown op {e.op}")
+                done = self._record_done([e.tensor] if r is e.tensor
+                                         else [e.tensor, r])
         except Exception as exc:
             self._m_op_errors.inc()
             self._finish(e, None, HorovodInternalError(str(exc)))
             return
         nbytes = e.tensor.numel() * e.tensor.element_size()
-        if e.tensor.numel():
-            self.collective_calls += 1
+        self.collective_calls += C.dist_calls - calls0
         m_bytes, m_lat, m_ops = self._op_metrics(
             e.op, dtype_name(e.tensor.dtype))
         m_bytes.inc(nbytes)

@@ -15,21 +15,25 @@ their collectives in one order. A handle is an ``int``; ``synchronize``
 returns the result, ready on the caller's current stream. Tensors stay on
 their device: nothing goes through numpy (unlike the JAX shim's
 ``_to_np``). ``DistributedOptimizer``'s gradient hooks enqueue
-``allreduce.<param name>``.
+``allreduce.<param name>``; a sparse gradient goes through
+``sparse_allreduce_async`` (its indices and values allgathered).
 
-Not ported in this slice, and raising ``NotImplementedError``: the ZeRO-1
-sharded update (ROADMAP.md queue 1 item 12), Adasum and sparse gradients
+Every op takes ``process_set=`` (``add_process_set``, which every rank
+calls, members or not). Not ported, and raising ``NotImplementedError``:
+the ZeRO-1 sharded update (ROADMAP.md queue 1 item 12) and Adasum
 (item 13).
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
+import logging
 
 import torch
 
 from ..common.context import (  # noqa: F401  (topology + lifecycle)
     ProcessSet,
+    add_process_set,
     cross_rank,
     cross_size,
     device,
@@ -39,6 +43,7 @@ from ..common.context import (  # noqa: F401  (topology + lifecycle)
     local_rank,
     local_size,
     rank,
+    remove_process_set,
     shutdown,
     size,
 )
@@ -55,6 +60,8 @@ from ..ops.collectives import (  # noqa: F401
     ReduceOp,
     Sum,
 )
+
+LOG = logging.getLogger("horovod_tpu_torch")
 
 
 class Compression:
@@ -99,7 +106,14 @@ def _enqueue_all(op: str, tensors, names, inplace: bool, **kw) -> list:
     for tensor, name in zip(tensors, names):
         t = tensor.detach()
         work = t if t.is_contiguous() else t.contiguous()
-        out = work if inplace else torch.empty_like(work)
+        # allreduce and broadcast write a result of the input's shape into
+        # ``out``; the other ops allocate their own
+        if inplace:
+            out = work
+        elif op in ("allreduce", "broadcast"):
+            out = torch.empty_like(work)
+        else:
+            out = None
         entries.append(TensorEntry(name=name or _default_name(op), op=op,
                                    tensor=work, output=out, **kw))
         targets.append(t if inplace and work is not t else None)
@@ -195,6 +209,37 @@ def broadcast_async_(tensor, root_rank, name=None, process_set=None) -> int:
                     root_rank=int(root_rank), process_set=process_set)
 
 
+def allgather_async(tensor, name=None, process_set=None) -> int:
+    """Gather ``tensor`` from every rank of the set along the first
+    dimension, which may differ across ranks."""
+    return _enqueue("allgather", tensor, name, False,
+                    process_set=process_set)
+
+
+def alltoall_async(tensor, splits=None, name=None, process_set=None) -> int:
+    """Send ``splits[j]`` rows to rank j of the set (an even split when
+    None); ``synchronize`` returns (output, received splits)."""
+    if splits is not None:
+        splits = torch.as_tensor(splits).detach().to("cpu", torch.int64)
+    return _enqueue("alltoall", tensor, name, False, splits=splits,
+                    process_set=process_set)
+
+
+def reducescatter_async(tensor, name=None, op=None,
+                        process_set=None) -> int:
+    """Reduce across the set (SUM by default) and keep this rank's equal
+    share of the first dimension, which must divide by the set's size."""
+    nproc = (process_set or global_process_set()).size
+    if tensor.dim() == 0 or tensor.shape[0] % nproc:
+        # synchronous: the local shape and the set's size decide it
+        raise ValueError("first dim must be divisible by the number of "
+                         f"processes ({tuple(tensor.shape)} over {nproc})")
+    op = ReduceOp(op) if op is not None else Sum
+    _coll._check_average_dtype(tensor, op)
+    return _enqueue("reducescatter", tensor, name, False, reduce_op=op,
+                    process_set=process_set)
+
+
 def poll(handle: int) -> bool:
     return _runtime().handles.poll(handle)
 
@@ -253,6 +298,50 @@ class _GroupedAllreduceOp(torch.autograd.Function):
             prescale_factor=prescale, postscale_factor=postscale,
             process_set=ps)
         return (None,) * 6 + tuple(red)
+
+
+class _AllgatherOp(torch.autograd.Function):
+    """The gradient of an allgather is the AVERAGE allreduce of ``dy``,
+    then this rank's rows, found by one exchange of row counts."""
+
+    @staticmethod
+    def forward(ctx, tensor, name, ps):
+        ctx.meta = (name, ps, int(tensor.shape[0]) if tensor.dim() else 0)
+        return synchronize(allgather_async(tensor, name, ps))
+
+    @staticmethod
+    def backward(ctx, dy):
+        name, ps, rows = ctx.meta
+        red = allreduce(dy, average=True,
+                        name=f"{name}.grad" if name else None,
+                        process_set=ps)
+        sizes = synchronize(allgather_async(
+            torch.tensor([rows], device=dy.device),
+            f"{name or 'allgather'}.grad.sizes", ps))
+        pset = ps or global_process_set()
+        start = int(sizes[:pset.rank].sum())
+        return red[start:start + rows], None, None
+
+
+class _AlltoallOp(torch.autograd.Function):
+    """The gradient of an alltoall is the alltoall of ``dy`` back, with the
+    received splits as its splits."""
+
+    @staticmethod
+    def forward(ctx, tensor, splits, name, ps):
+        out, recv = synchronize(alltoall_async(tensor, splits, name, ps))
+        ctx.meta = (name, ps)
+        ctx.recv = recv
+        ctx.mark_non_differentiable(recv)
+        return out, recv
+
+    @staticmethod
+    def backward(ctx, dy, _drecv=None):
+        name, ps = ctx.meta
+        back, _ = alltoall(dy.contiguous(), splits=ctx.recv,
+                           name=f"{name}.grad" if name else None,
+                           process_set=ps)
+        return back, None, None, None
 
 
 class _BroadcastOp(torch.autograd.Function):
@@ -326,8 +415,78 @@ def broadcast(tensor, root_rank, name=None, process_set=None):
     return synchronize(broadcast_async(tensor, root_rank, name, process_set))
 
 
+def allgather(tensor, name=None, process_set=None):
+    if _grad_wanted(tensor):
+        return _AllgatherOp.apply(tensor, name, process_set)
+    return synchronize(allgather_async(tensor, name, process_set))
+
+
+def alltoall(tensor, splits=None, name=None, process_set=None):
+    """Returns (output, received splits)."""
+    if _grad_wanted(tensor):
+        return _AlltoallOp.apply(tensor, splits, name, process_set)
+    return synchronize(alltoall_async(tensor, splits, name, process_set))
+
+
+def reducescatter(tensor, name=None, op=None, process_set=None):
+    return synchronize(reducescatter_async(tensor, name, op, process_set))
+
+
+def sparse_allreduce_async(tensor, name, op=Average, prescale_factor=1.0,
+                           postscale_factor=1.0, process_set=None):
+    """Reduce a sparse COO tensor (reference torch/mpi_ops.py:512): its
+    indices and values go through two allgathers, and the sum is the
+    ``coalesce`` of what every rank sent. The factors scale the values;
+    AVERAGE divides by the set's size, the number of contributors.
+    Returns a function that completes the op and returns the result."""
+    t = tensor.coalesce()
+    values = t.values()
+    if prescale_factor != 1.0:
+        values = values * prescale_factor
+    hi = allgather_async(t.indices().t().contiguous(), f"{name}.indices",
+                         process_set=process_set)
+    hv = allgather_async(values.contiguous(), f"{name}.values",
+                         process_set=process_set)
+
+    def finish():
+        indices = synchronize(hi).t()
+        values = synchronize(hv)
+        if postscale_factor != 1.0:
+            values = values * postscale_factor
+        if op == Average:
+            values = values / (process_set or global_process_set()).size
+        return torch.sparse_coo_tensor(indices, values, t.shape).coalesce()
+
+    return finish
+
+
+def join(timeout=None) -> int:
+    """Mark this rank out of data (reference ``hvd.join()``): until every
+    rank has joined it contributes zeros to the others' collectives (no
+    rows to an allgather or alltoall). Returns the last rank to join.
+    Without a negotiating runtime (a world of one) it is a MAX allreduce
+    of the ranks, which every rank must reach."""
+    rt = _runtime()
+    if rt.controller is not None:
+        return rt.join(timeout)
+    if size() > 1:
+        LOG.warning(
+            "join() without a rendezvous controller degenerates to a "
+            "barrier: all ranks must call join(), and no zero "
+            "contributions are fed to other ranks' collectives.")
+    last = allreduce(torch.tensor([rank()], dtype=torch.int32,
+                                  device=device()),
+                     name="join.barrier", op=Max)
+    return int(last[0])
+
+
 def barrier(process_set=None):
     _coll.barrier(process_set)
+
+
+def allgather_object(obj, name=None, process_set=None) -> list:
+    """Every rank's ``obj``, in rank order (pickled)."""
+    return _coll.allgather_object(obj, process_set)
 
 
 # --- parameter/optimizer broadcast (reference torch/functions.py) -----------
@@ -387,7 +546,7 @@ class _DistributedMixin:
                     "gradient_predivide_factor requires op=Average")
             op = Sum
             prescale_factor = prescale_factor / gradient_predivide_factor
-            n = process_set.size if process_set is not None else size()
+            n = (process_set or global_process_set()).size
             postscale_factor = (postscale_factor * gradient_predivide_factor
                                 / max(n, 1))
         self._compression = compression
@@ -397,6 +556,7 @@ class _DistributedMixin:
         self._postscale = postscale_factor
         self._sparse_as_dense = sparse_as_dense
         self._handles: dict[torch.Tensor, tuple[int, object]] = {}
+        self._sparse_thunks: dict[torch.Tensor, object] = {}
         self._passes: dict[torch.Tensor, int] = {}
         self._should_sync = True
         self._hook_handles = []
@@ -419,9 +579,14 @@ class _DistributedMixin:
     def _launch_reduce(self, p, grad):
         if grad.is_sparse:
             if not self._sparse_as_dense:
-                raise NotImplementedError(
-                    "sparse gradients are not ported yet (ROADMAP.md queue 1 "
-                    "item 13); pass sparse_as_dense=True")
+                # indices and values through allgathers, completed in
+                # synchronize(); the dense path's factors scale the values
+                self._sparse_thunks[p] = sparse_allreduce_async(
+                    grad, name=self._names[p], op=self._op,
+                    prescale_factor=self._prescale,
+                    postscale_factor=self._postscale,
+                    process_set=self._process_set)
+                return
             grad = grad.to_dense()
         comp, ctx = self._compression.compress(grad)
         h = allreduce_async_(comp, name=self._names[p], op=self._op,
@@ -435,7 +600,8 @@ class _DistributedMixin:
         # hooks that never fired (unused params) contribute zeros, so all
         # ranks issue the same collectives — and pass counters reset
         for p in self._names:
-            if not p.requires_grad or p in self._handles:
+            if (not p.requires_grad or p in self._handles
+                    or p in self._sparse_thunks):
                 continue
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -447,6 +613,9 @@ class _DistributedMixin:
             p.grad = self._compression.decompress(
                 reduced, ctx).reshape(p.shape).to(p.grad.dtype)
         self._handles.clear()
+        for p, finish in list(self._sparse_thunks.items()):
+            p.grad = finish().to(p.grad.dtype)
+        self._sparse_thunks.clear()
 
     def set_backward_passes_per_step(self, passes: int):
         """Change the local gradient-accumulation window; resets pass

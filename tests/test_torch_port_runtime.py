@@ -111,22 +111,39 @@ SIG_CASES = [("allreduce", np.float32, (3, 4), 1, 0, 1.0, 1.0),
              ("allreduce", ml_dtypes.bfloat16, (2, 2, 2), 0, 0, 1.0, 1.0 / 3),
              ("allreduce", np.int32, (7,), 1, 0, 3.0, 1.0),
              ("allreduce", np.float64, (), 4, 0, 1.0, 1.0),
-             ("broadcast", np.float32, (6, 1), 0, 1, 1.0, 1.0)]
+             ("broadcast", np.float32, (6, 1), 0, 1, 1.0, 1.0),
+             # ragged in the first dimension: marked "*"
+             ("allgather", np.float32, (6, 3), 0, 0, 1.0, 1.0),
+             ("allgather", np.uint8, (0,), 0, 0, 1.0, 1.0),
+             ("alltoall", ml_dtypes.bfloat16, (4, 2, 2), 0, 0, 1.0, 1.0),
+             ("reducescatter", np.float32, (4, 2), 0, 0, 1.0, 1.0),
+             # a set other than the global one carries its members
+             ("allreduce", np.float32, (3,), 1, 0, 1.0, 1.0, "sub"),
+             ("allgather", np.int32, (2, 5), 0, 0, 1.0, 1.0, "sub")]
 
 
 @pytest.mark.parametrize("case", SIG_CASES,
                          ids=[f"{c[0]}-{np.dtype(c[1]).name}-{c[3]}"
+                              f"{'-' + c[7] if len(c) > 7 else ''}"
                               for c in SIG_CASES])
 def test_entry_signature_matches_jax(case):
-    op, dtype, shape, reduce_op, root, pre, post = case
+    """Field for field but the device; a set other than the global one is
+    the JAX package's set of chip 0, whose one process is rank 0 here."""
+    op, dtype, shape, reduce_op, root, pre, post = case[:7]
     arr = np.zeros(shape, dtype=dtype)
     kw = dict(name="t", op=op, reduce_op=pcoll.ReduceOp(reduce_op),
               root_rank=root, prescale_factor=pre, postscale_factor=post)
-    j = jctl.entry_signature(jqueue.TensorEntry(tensor=arr, **kw))
-    p = pctl.entry_signature(pqueue.TensorEntry(tensor=_from_np(arr), **kw))
-    assert p[:8] == j[:8]
+    jps = pps = None
+    if len(case) > 7:
+        jps = types.SimpleNamespace(name=case[7], _proc_indices=[0])
+        pps = types.SimpleNamespace(name=case[7], ranks=[0])
+    j = jctl.entry_signature(jqueue.TensorEntry(tensor=arr, process_set=jps,
+                                                **kw))
+    p = pctl.entry_signature(pqueue.TensorEntry(tensor=_from_np(arr),
+                                                process_set=pps, **kw))
+    assert p[:8] == j[:8] and p[9:] == j[9:]
     assert p[8] == "cpu"
-    assert len(p) == len(j) == 9
+    assert len(p) == len(j) == (10 if jps else 9)
 
 
 # --- chunking -----------------------------------------------------------------

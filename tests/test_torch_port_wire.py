@@ -20,10 +20,14 @@ from horovod_tpu_torch.runner.http_server import KVStoreClient as PClient
 
 SIG = ["allreduce", "float32", [1024], 0, -1, 1.0, 1.0, "global", "cpu"]
 SIG2 = ["allgather", "int32", [8, 4], 2, None, 1.0, 1.0, "global", "cpu"]
+# a ragged first dimension and a set's members
+SIG3 = ["alltoall", "bfloat16", ["*", 4], 0, 0, 1.0, 1.0, "pair", "cuda",
+        [1, 3]]
 
 SUBMISSIONS = [([("t0", SIG), ("t1", SIG2)], True, False),
                ([], False, True),
-               ([(f"g{i}", SIG) for i in range(16)], False, False)]
+               ([(f"g{i}", SIG) for i in range(16)], False, False),
+               ([("ps:pair:x", SIG3), ("x", SIG2)], False, False)]
 DIRECTIONS = [(pwire, jwire), (jwire, pwire)]
 DIR_IDS = ["port-to-jax", "jax-to-port"]
 
@@ -60,8 +64,9 @@ def test_response_channel_cross_decodes_across_rounds(enc, dec):
     """The response channel interns across rounds: an encoder of one
     package and a decoder of the other stay in step."""
     e, d = enc.ResponseEncoder(), dec.ResponseDecoder()
-    resp = {"ready": [f"g{i}" for i in range(8)],
-            "sigs": {f"g{i}": SIG for i in range(8)},
+    resp = {"ready": [f"g{i}" for i in range(8)] + ["ps:pair:x"],
+            "sigs": {**{f"g{i}": SIG for i in range(8)},
+                     "ps:pair:x": SIG3},
             "errors": {"bad": "Mismatched"}, "join_done": 1,
             "shutdown_done": True}
     for _ in range(3):
