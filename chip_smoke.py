@@ -7,8 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a`` (the two flash-attention sources and ``fused_pack.cu``), one
-   ``nvcc`` each, started together, and print each build's seconds and
+   ``sm_90a`` (the two flash-attention sources, ``fused_pack.cu`` and
+   ``quant_wire.cu``), one ``nvcc`` each, started together, and print each build's seconds and
    ``ptxas`` report (registers, spills); count the tensor-core
    instructions (``HGMMA``) in both flash kernels' SASS (``cuobjdump``),
    by opcode, and fail on none;
@@ -43,7 +43,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    counts with 0 and 1, rows of [2048], [3] and [] elements, fp32, bf16,
    int32 and uint8, aligned and misaligned slice starts) and timed at
    ``nproc`` 4, rows [8192, 6000, 0, 1] of [2048] bf16, beside
-   ``torch.cat`` of the same slices and its bound;
+   ``torch.cat`` of the same slices and its bound; then K2/K3, the
+   compressed wire (``quant_wire.cu``): the cast pack, the quantize pack
+   and the reduce-unpack held bitwise against their plain versions in 171
+   cases (bf16, int8 and int4 at blocks 8, 9 (int4: 10), 256 and 1000;
+   fp32, bf16 and fp16 chunks; lengths 1, block - 1 and block + 1, a
+   chunk of 4.3 million elements, 300 tensors a chunk, misaligned starts;
+   all-zero, saturating and exact-tie blocks; error feedback on and off
+   over two rounds, prescale 1 and 0.7, 1 to 8 ranks, SUM and AVERAGE,
+   postscale 1 and 0.5);
 5. main path: ``hvd.init()`` (NCCL and the background runtime),
    ``broadcast_parameters`` and ``DistributedOptimizer(SGD(lr=1e-3,
    momentum=0.9))`` train the transformer LM at the full width of
@@ -83,8 +91,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``DistributedOptimizer(process_set=add_process_set([0]))`` (fused
    through K1 on the set's group) bitwise equal to one step on the global
    set, ``join()`` and an allreduce after it, ``allgather_object``. Per
-   op it prints event and device ms, host us from enqueue to
-   ``synchronize``, bytes, and the NCCL calls and K1 launches of one call;
+   per op it prints event and device ms, host us from enqueue to
+   ``synchronize``, bytes, and the NCCL calls and K1 launches of one call,
+   and the reducescatter's 256 MiB copy alone by events and by profiler;
+   then the compression path: the same LM's gradients from four seeded
+   batches stand in for four ranks; the 74 that the runtime sends on the
+   wire (the 25 norm scales are small leaves) chunk at 128 MiB and go
+   through ``quant_sim_chunk_plan(4, AVERAGE, ...).execute_simulated`` for
+   the bf16, int8 and int4 wires, error feedback over two rounds, every
+   chunk's outputs and residuals bitwise equal to the plain version; K2's,
+   K3's and the reduce-unpack's launches are counted over that run, then
+   each is timed a step by events and device time beside its byte bound
+   and a composite yardstick (``torch.cat(...).to(bfloat16)``,
+   ``gathered.float().sum(0)``); and the world-of-one fallback: one hook
+   step with ``HOROVOD_COMPRESSION=int8`` at a world of one bitwise equal
+   to the uncompressed step, ``hvd_quant_fallback_total{reason=
+   "world_size"}`` counting each of the 99 gradients once;
 9. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -92,7 +114,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
-the others' on the main path; ``launches_by_path`` gives every path's
+K2's and K3's on the compression path, the others' on the main path; ``launches_by_path`` gives every path's
 count), errors, times, bounds and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -150,7 +172,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call: the CUDA kernels' own time under
     ``torch.profiler``, summed over ``iters`` calls. The host's work and the
     gaps between launches are left out, which ``time_ms`` counts wherever
-    the host's work per call outlasts the device's."""
+    the host's work per call outlasts the device's. A device-to-device
+    memcpy (``clone``) is not counted whole: on the card's machine the
+    profiler records the copy's device time in some profiles and not in
+    others (``clone_reading``), so an op whose device work is such a copy
+    reads low here and is read by ``time_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -204,9 +230,26 @@ def in_turns(fns: dict, timer, rounds: int = 2) -> dict:
     return {name: statistics.mean(v) for name, v in got.items()}
 
 
+def share_of(bound_ms: float, dev_ms: float, ev_ms: float) -> tuple:
+    """(the bound's share of a kernel's time, which time it was read
+    from): its device ms, or its event ms where the device reading is
+    under the bound by more than 5 % (the profiler dropped records; no
+    kernel beats its bound). Raises if the event ms is under it too."""
+    if bound_ms / dev_ms <= 1.05:
+        return bound_ms / dev_ms, "device"
+    if bound_ms / ev_ms > 1.05:
+        raise AssertionError(f"a time under its bound: {ev_ms:.4f} ms by "
+                             f"events, {dev_ms:.4f} device, bound "
+                             f"{bound_ms:.4f} ms")
+    _log(f"    (device time {dev_ms:.4f} ms reads under the bound "
+         f"{bound_ms:.4f} ms: the share is read from events)")
+    return bound_ms / ev_ms, "events"
+
+
 # --- phase 2: build ---------------------------------------------------------
 
-SOURCES = ("flash_attention_sm90", "flash_attention_tf32", "fused_pack")
+SOURCES = ("flash_attention_sm90", "flash_attention_tf32", "fused_pack",
+           "quant_wire")
 
 
 def _tensor_core_ops(lib: str) -> dict:
@@ -399,7 +442,8 @@ def time_flash(name, B, s, d, dtype, iters, device) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": ev["sdpa"], "device_ms": dev["kernel"],
             "library_device_ms": dev["sdpa"],
-            "share": bound_ms / dev["kernel"]}
+            **dict(zip(("share", "share_by"),
+                       share_of(bound_ms, dev["kernel"], ev["kernel"])))}
 
 
 # --- phase 4: K1, the fused-chunk pack and unpack --------------------------
@@ -608,7 +652,9 @@ def k1_time_phase(device, cfg) -> list:
                     "bound_ms": bound_ms, "bound_by": "bytes",
                     "library_ms": ev["library"], "device_ms": dev["kernel"],
                     "library_device_ms": dev["library"],
-                    "share": bound_ms / dev["kernel"]})
+                    **dict(zip(("share", "share_by"),
+                               share_of(bound_ms, dev["kernel"],
+                                        ev["kernel"])))})
     _log(f"  pack + unpack a step: {out[0]['ms'] + out[1]['ms']:.4f} ms by "
          f"events, {out[0]['device_ms'] + out[1]['device_ms']:.4f} ms of "
          f"device time; bound {2 * bound_ms:.4f} ms")
@@ -700,7 +746,154 @@ def k1_compaction_phase(device) -> dict:
     return {"compact_cases": n, "compact_ms": ev["kernel"],
             "compact_device_ms": dev["kernel"], "compact_plain_ms": plain,
             "compact_bound_ms": bound, "compact_library_ms": ev["library"],
-            "compact_library_device_ms": dev["library"]}
+            "compact_library_device_ms": dev["library"],
+            **dict(zip(("compact_share", "compact_share_by"),
+                       share_of(bound, dev["kernel"], ev["kernel"])))}
+
+
+# --- K2 and K3: the compressed wire against its plain version --------------
+
+# (ranks, AVERAGE, postscale) cycled over the cases
+WIRE_REDUCE = ((1, False, 1.0), (2, True, 0.5), (3, True, 1.0),
+               (4, False, 0.5), (8, True, 0.5), (3, False, 0.5))
+
+
+def _wire_specs() -> list:
+    """The bf16 cast wire, and int8 and int4 at blocks 8, 9 (int4: 10),
+    256 and 1000."""
+    from horovod_tpu_torch.ops import compression as comp
+
+    return [comp.make_cast_spec()] + [
+        comp.make_quant_spec(bits, block, True)
+        for bits in (8, 4) for block in (8, 9, 256, 1000)]
+
+
+def _wire_tensors(sizes, dtype, device, seed, mis, spec, special):
+    """A chunk's tensors, each starting ``mis`` elements past an
+    allocation; with ``special`` the chunk's first three blocks are all
+    zeros, a block whose absmax recurs at both signs (q = +-qmax), and a
+    block of exact .5 ties of x / scale (absmax qmax * 0.5, so the bf16
+    scale is 0.5, and values (k + 0.5) * 0.5)."""
+    import torch
+
+    total, block, qmax = sum(sizes), spec.block, spec.qmax
+    g = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.randn(total, generator=g, device=device)
+    if special and spec.bits != 16 and total >= 3 * block:
+        flat[:block] = 0
+        sat = flat[block:2 * block]
+        sat[::3] = 5.0
+        sat[1::3] = -5.0
+        ties = flat[2 * block:3 * block]
+        k = torch.arange(block, device=device) % int(qmax)
+        ties.copy_((k + 0.5) * 0.5 * torch.where(k % 2 == 0, 1.0, -1.0))
+        ties[0] = qmax * 0.5
+    out, off = [], 0
+    for n in sizes:
+        buf = torch.empty(n + mis, dtype=dtype, device=device)[mis:]
+        buf.copy_(flat[off:off + n])
+        out.append(buf)
+        off += n
+    return out
+
+
+def _wire_case(spec, dtype, sizes, mis, special, pre, nrows, average, post,
+               device, seed) -> None:
+    """``nrows`` virtual ranks through the kernels and through the plain
+    versions on the same inputs: every rank's row and new residual, over
+    two rounds with error feedback (the second folds the first's
+    residual, one tensor of its own a tensor, every third tensor
+    without), and the reduce-unpack of the gathered rows, bit for
+    bit."""
+    import torch
+
+    from horovod_tpu_torch.ops import quant_wire as qw
+
+    total = sum(sizes)
+    nb = qw.row_bytes(total, spec)
+    ef = spec.bits != 16 and spec.error_feedback
+    gathered = torch.empty(nrows * nb, dtype=torch.uint8, device=device)
+    res = [None] * nrows
+    for rnd in range(2 if ef else 1):
+        for r in range(nrows):
+            ts = _wire_tensors(sizes, dtype, device, seed + 97 * r + rnd,
+                               mis, spec, special)
+            row = gathered[r * nb:(r + 1) * nb]
+            ref = torch.empty(nb, dtype=torch.uint8, device=device)
+            if spec.bits == 16:
+                qw.cast_pack(ts, row, pre)
+                qw.plain_cast_pack(ts, ref, pre)
+            else:
+                new = torch.empty(total, device=device) if ef else None
+                new_p = torch.empty(total, device=device) if ef else None
+                if res[r] is not None:
+                    res[r] = [None if i % 3 == 1 else part.clone()
+                              for i, part in enumerate(torch.split(
+                                  res[r], list(sizes)))]
+                qw.quantize_pack(ts, row, spec, pre, res[r], new)
+                qw.plain_quantize_pack(ts, ref, spec, pre, res[r], new_p)
+                if ef and not _same_bits(new, new_p):
+                    raise AssertionError("K3's residual differs")
+                res[r] = new
+            if not _same_bits(row, ref):
+                raise AssertionError("the packed row differs")
+        outs = _wire_tensors(sizes, dtype, device, seed + 1, mis, spec,
+                             False)
+        outs_p = [o.clone() for o in outs]
+        qw.reduce_unpack(gathered, outs, spec, nrows, average, post)
+        qw.plain_reduce_unpack(gathered, outs_p, spec, nrows, average, post)
+        if not all(_same_bits(a, b) for a, b in zip(outs, outs_p)):
+            raise AssertionError("the reduce-unpack differs")
+
+
+def wire_check_phase(device) -> int:
+    """K2, K3 and the reduce-unpack bitwise against their plain versions:
+    every wire and block, chunk dtypes fp32, bf16 and fp16, lengths 1,
+    block - 1 and block + 1, the special blocks, 300 tensors a chunk (more
+    than a table holds), misaligned starts, a chunk of 4.3 million
+    elements; error feedback on and off, prescale 1 and 0.7, and ranks,
+    op and postscale cycled over ``WIRE_REDUCE``."""
+    import random
+
+    import torch
+
+    rng = random.Random(1)
+    n, seen = 0, set()
+    for spec in _wire_specs():
+        b = spec.block if spec.bits != 16 else 256
+        layouts = [([1], 0, False), ([b - 1], 0, False),
+                   ([b + 1], 0, False),
+                   ([3 * b + 5, 7, b + 3], 0, True),
+                   ([3 * b + 5, 7, 2 * b + 1], 1, True),
+                   ([rng.randint(0, 70) for _ in range(300)], 0, False)]
+        if b == 256:
+            layouts.append(([1_000_003, 5, 777_777, 0, 2_500_001], 3, True))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for sizes, mis, special in layouts:
+                n += 1
+                ef = spec.bits != 16 and n % 2 == 0
+                case = spec._replace(error_feedback=ef)
+                pre = (1.0, 0.7)[(n // 2) % 2]
+                nrows, average, post = WIRE_REDUCE[n % len(WIRE_REDUCE)]
+                seen.add((ef, pre, nrows, average, post))
+                try:
+                    _wire_case(case, dtype, sizes, mis, special, pre, nrows,
+                               average, post, device, n)
+                except AssertionError as e:
+                    raise AssertionError(
+                        f"{e}: {case}, {dtype}, {len(sizes)} tensors of "
+                        f"{sum(sizes)} elements, misaligned by {mis}, "
+                        f"prescale {pre}, {nrows} ranks, "
+                        f"{'AVERAGE' if average else 'SUM'}, postscale "
+                        f"{post}") from None
+    torch.cuda.synchronize()
+    _log(f"  K2/K3: {n} cases (bf16, int8 and int4 at blocks 8, 9/10, 256, "
+         "1000; fp32, bf16, fp16 chunks; lengths 1, block -+ 1; zero, "
+         "saturating and tie blocks; 300 tensors; misaligned; 4.3 million "
+         f"elements; {len(seen)} combinations of error feedback, prescale "
+         "1/0.7, 1-8 ranks, SUM/AVERAGE, postscale 1/0.5): rows, residuals "
+         "and outputs bitwise equal to the plain version")
+    return n
 
 
 # --- phase 5: the main path at full width ---------------------------------
@@ -1071,17 +1264,21 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
 def _launch_counts() -> dict:
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_pack as fp
+    from horovod_tpu_torch.ops import quant_wire as qw
 
     counts = dict(fa.kernel_launches)
     counts.update(fp.kernel_launches)
+    counts.update(qw.kernel_launches)
     return counts
 
 
 def _zero_launch_counts():
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_pack as fp
+    from horovod_tpu_torch.ops import quant_wire as qw
 
-    for counts in (fa.kernel_launches, fp.kernel_launches):
+    for counts in (fa.kernel_launches, fp.kernel_launches,
+                   qw.kernel_launches):
         for name in counts:
             counts[name] = 0
 
@@ -1124,6 +1321,31 @@ def op_readings(name: str, fn, nbytes: int, readings: list):
     readings.append({"op": name, "ms": ev, "device_ms": dev,
                      "host_us": host_us, "bytes": nbytes,
                      "nccl_calls": calls, "k1_launches": k1})
+
+
+def clone_reading(t, readings: list):
+    """The reducescatter's copy of its input alone (``x.clone()``): event
+    ms, profiler device ms, and the profiler's records of one call, beside
+    the copy's byte bound (read once, written once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = time_ms(lambda: t.clone(), iters=10)
+    dev = device_ms(lambda: t.clone(), iters=5, warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t.clone()
+        torch.cuda.synchronize()
+    recs = [(e.key[:40], round(e.self_device_time_total / 1e3, 4))
+            for e in prof.key_averages()]
+    nbytes = t.numel() * t.element_size()
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    _log(f"  the {nbytes >> 20} MiB clone alone: {ev:.4f} ms by events, "
+         f"{dev:.4f} ms of device time, bound {bound:.4f} ms; the "
+         f"profiler's records of one clone (name, device ms): {recs}")
+    readings.append({"op": "clone (the reducescatter's copy)", "ms": ev,
+                     "device_ms": dev, "bound_ms": bound, "bytes": nbytes,
+                     "records": recs})
 
 
 def _set_step(cfg, batch, device, process_set):
@@ -1226,6 +1448,7 @@ def collectives_path_phase(device) -> tuple:
         op_readings(f"reducescatter {opn} {list(grad.shape)} fp32",
                     lambda op=op: hvd.reducescatter(grad, name="rs", op=op),
                     grad.numel() * 4, readings)
+    clone_reading(grad, readings)
     dense = torch.zeros_like(grad)
     dense.index_add_(0, tokens[:, :-1].reshape(-1),
                      seen.pop("x").grad.reshape(-1, cfg.d_model).float())
@@ -1281,6 +1504,349 @@ def collectives_path_phase(device) -> tuple:
             raise AssertionError(f"{name} never launched on the "
                                  f"collectives path: {launches}")
     return launches, readings
+
+
+# --- the compression path: the LM's gradients at four virtual ranks ------
+
+def _plain_simulate(plan, rank_inputs, residuals):
+    """``plan.execute_simulated`` through the plain versions."""
+    import torch
+
+    from horovod_tpu_torch.ops import quant_wire as qw
+
+    spec, nb = plan.spec, plan.row_bytes
+    dev = rank_inputs[0][0].device
+    gathered = torch.empty(plan.nproc * nb, dtype=torch.uint8, device=dev)
+    new_rs = []
+    for r, inputs in enumerate(rank_inputs):
+        row = gathered[r * nb:(r + 1) * nb]
+        if spec.bits == 16:
+            qw.plain_cast_pack(inputs, row, plan.pre)
+            new_rs.append(None)
+            continue
+        new = (torch.empty(plan.flat_size, device=dev)
+               if spec.error_feedback else None)
+        qw.plain_quantize_pack(inputs, row, spec, plan.pre,
+                               None if residuals is None else residuals[r],
+                               new)
+        new_rs.append(new)
+    outs = [torch.empty(s, dtype=plan.dtype, device=dev)
+            for s in plan.shapes]
+    qw.plain_reduce_unpack(gathered, outs, spec, plan.nproc, plan.average,
+                           plan.post)
+    return outs, new_rs
+
+
+def compression_path_phase(device, world: int = 4) -> list:
+    """The full-width LM stands in for ``world`` ranks: one backward on
+    each of ``world`` seeded batches. Its gradients split as the runtime
+    splits them (small leaves stay off the wire), the rest chunk at 128
+    MiB in backward order, and every chunk goes through
+    ``quant_sim_chunk_plan(world, AVERAGE, ...).execute_simulated`` for
+    the bf16, int8 and int4 wires, error feedback carried over two rounds
+    (the second cuts the chunks otherwise, as the runtime's timing may,
+    and each virtual rank's ``ResidualStore`` hands each tensor its own
+    residual);
+    outputs and residuals must equal the plain version's bit for bit.
+    Then each kernel is timed per step (all chunks) by events and device
+    time beside its bound and a composite yardstick. Returns the kernel
+    entries, each with its launches on the path."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import compression as comp
+    from horovod_tpu_torch.parallel import ring_attention
+
+    cfg = full_width_config(12)
+    model = TransformerLM(cfg, device=device, seed=0)
+    named = list(model.named_parameters())
+    grads = []
+    for r in range(world):
+        model.zero_grad(set_to_none=True)
+        lm_loss(model, tokens_for(cfg, 8, 100 + r, device),
+                attn_fn=ring_attention).backward()
+        grads.append([p.grad.detach().clone() for _, p in named])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the runtime's split and chunks, in the order the backward makes the
+    # gradients ready
+    pats, min_elems = comp.quant_optout_patterns(), comp.quant_min_elems()
+    reasons = {}
+    eligible = []
+    for i in reversed(range(len(named))):
+        n, p = named[i]
+        why = comp.quant_fallback_reason(n, p.numel(), p.dtype, pats,
+                                         min_elems)
+        reasons[why] = reasons.get(why, 0) + 1
+        if why is None:
+            eligible.append(i)
+    def cut(threshold):
+        out, chunk, nbytes = [], [], 0
+        for i in eligible:
+            sz = named[i][1].numel() * 4
+            if chunk and nbytes + sz > threshold:
+                out.append(chunk)
+                chunk, nbytes = [], 0
+            chunk.append(i)
+            nbytes += sz
+        return out + [chunk]
+
+    # the runtime's chunks follow its cycle's timing: the second round
+    # cuts them otherwise, and each tensor's residual follows it
+    chunks, recut = cut(FUSION_THRESHOLD), cut(FUSION_THRESHOLD * 3 // 4)
+    total = sum(named[i][1].numel() for i in eligible)
+    _log(f"  {len(named)} gradients: {reasons.get(None, 0)} on the wire "
+         f"({total} elements, {total * 4 / 1e9:.3f} GB, {len(chunks)} "
+         f"chunks), kept off: { {k: v for k, v in reasons.items() if k} }")
+    if reasons.get("optout_match") or set(reasons) - {None, "small_leaf"}:
+        raise AssertionError(f"an LM gradient matched an opt-out: {reasons}")
+    wires = [("bf16", comp.make_cast_spec()),
+             ("int8", comp.make_quant_spec(8, 256, True)),
+             ("int4", comp.make_quant_spec(4, 256, True))]
+    plans = {}
+    _zero_launch_counts()  # just before the path runs
+    for label, spec in wires:
+        stores = [comp.ResidualStore() for _ in range(world)]
+        sig = spec.signature()
+        for rnd in range(2 if spec.error_feedback else 1):
+            for c, idx in enumerate((chunks, recut)[rnd]):
+                names = [named[i][0] for i in idx]
+                sizes = [named[i][1].numel() for i in idx]
+                plan = C.quant_sim_chunk_plan(
+                    world, C.ReduceOp.AVERAGE, 1.0, 1.0, names, sizes,
+                    [tuple(named[i][1].shape) for i in idx], torch.float32,
+                    spec)
+                plans[label, c] = plan
+                inputs = [[grads[r][i] for i in idx] for r in range(world)]
+                res = [st.get(names, sizes, sig) for st in stores]
+                if spec.bits == 16:
+                    outs, new = plan.execute_simulated(inputs), [None]
+                else:
+                    outs, new = plan.execute_simulated(inputs, res)
+                ref, ref_new = _plain_simulate(plan, inputs, res)
+                if not (all(_same_bits(a, b) for a, b in zip(outs, ref))
+                        and all(a is None or _same_bits(a, b)
+                                for a, b in zip(new, ref_new))):
+                    raise AssertionError(f"{label} wire: chunk {c} (round "
+                                         f"{rnd}) differs from the plain "
+                                         "version")
+                for st, n in zip(stores, new):
+                    if n is not None:
+                        st.commit(names, sizes, sig, n)
+                del outs, ref, ref_new, res
+        if spec.error_feedback and stores[0].hits != len(eligible):
+            raise AssertionError(f"{label} wire: the second round found "
+                                 f"{stores[0].hits} residuals of "
+                                 f"{len(eligible)}")
+        _log(f"  {label}: {len(chunks)} chunks at {world} virtual ranks"
+             + (f", then {len(recut)} chunks cut otherwise, each tensor's "
+                "residual carried into them" if spec.error_feedback else "")
+             + ": outputs and residuals bitwise equal to the plain version")
+        del stores
+    launches = {k: v for k, v in _launch_counts().items()
+                if k.startswith("wire_")}
+    _log(f"  the path's K2/K3 launches: {launches}")
+    for k, v in launches.items():
+        if not v:
+            raise AssertionError(f"{k} never launched on the compression "
+                                 "path")
+    entries = _time_wire(chunks, grads, plans, world)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _time_wire(chunks, grads, plans, world) -> list:
+    """Each kernel's time a step (every chunk, rank 0's inputs) by events
+    and device time, its plain version's, a composite yardstick where one
+    exists, and its byte bound."""
+    import torch
+
+    from horovod_tpu_torch.ops import compression as comp
+    from horovod_tpu_torch.ops import quant_wire as qw
+
+    dev = grads[0][0].device
+    ins = [[grads[0][i] for i in idx] for idx in chunks]
+    sizes = [sum(t.numel() for t in c) for c in ins]
+    total = sum(sizes)
+    outs = [[torch.empty_like(t) for t in c] for c in ins]
+    out = []
+
+    def entry(name, src, replaces, fns, nbytes, extra=None):
+        ev = in_turns({k: v for k, v in fns.items() if k != "plain"},
+                      lambda fn: time_ms(fn, iters=5))
+        dv = in_turns({k: v for k, v in fns.items() if k != "plain"},
+                      lambda fn: device_ms(fn, iters=3, warmup=1))
+        plain = time_ms(fns["plain"], iters=1, warmup=1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        e = {"name": name, "route": "cuda",
+             "source": "horovod_tpu_torch/csrc/quant_wire.cu",
+             "replaces": replaces, "launches": None, "max_abs_err": 0.0,
+             "ms": ev["kernel"], "plain_ms": plain, "bound_ms": bound,
+             "bound_by": "bytes", "library_ms": ev.get("library"),
+             "library_device_ms": dv.get("library"),
+             "device_ms": dv["kernel"],
+             **dict(zip(("share", "share_by"),
+                        share_of(bound, dv["kernel"], ev["kernel"]))),
+             "composite_ms": ev.get("composite"),
+             "composite_device_ms": dv.get("composite"), "bytes": nbytes}
+        e.update(extra or {})
+        out.append(e)
+        _log(f"  {name}: {ev['kernel']:.4f} ms a step by events, "
+             f"{dv['kernel']:.4f} ms of device time "
+             f"({nbytes / dv['kernel'] / 1e6:.0f} GB/s, "
+             f"{e['share']:.3f} of its bound {bound:.4f} ms); plain "
+             f"{plain:.4f} ms"
+             + (f"; {src} {ev['composite']:.4f} ms ({dv['composite']:.4f} "
+                "device)" if "composite" in ev else "")
+             + (f"; library {ev['library']:.4f} ms ({dv['library']:.4f} "
+                "device)" if "library" in ev else ""))
+
+    # K2: the cast pack; at a prescale of 1 one PyTorch call computes the
+    # same: torch.cat casting into a bf16 out
+    rows16 = [torch.empty(2 * n, dtype=torch.uint8, device=dev)
+              for n in sizes]
+    lib16 = [torch.empty(n, dtype=torch.bfloat16, device=dev) for n in sizes]
+    flats = [[t.view(-1) for t in c] for c in ins]
+    fns = {"kernel": lambda: [qw.cast_pack(c, r) for c, r in
+                              zip(ins, rows16)],
+           "composite": lambda: [torch.cat(f).to(torch.bfloat16)
+                                 for f in flats],
+           "library": lambda: [torch.cat(f, out=o)
+                               for f, o in zip(flats, lib16)],
+           "plain": lambda: [qw.plain_cast_pack(c, r) for c, r in
+                             zip(ins, rows16)]}
+    try:
+        fns["library"]()
+        fns["kernel"]()
+        same = all(_same_bits(r.view(torch.bfloat16), o)
+                   for r, o in zip(rows16, lib16))
+        _log(f"  torch.cat(ts, out=bf16) runs on the card; "
+             f"{'bitwise equal to' if same else 'differs from'} K2's row")
+    except RuntimeError as e:
+        _log(f"  torch.cat(ts, out=bf16) does not run on the card ({e}); "
+             "K2 has no library call")
+        del fns["library"]
+    entry("wire_cast_pack", "torch.cat(ts).to(bfloat16)",
+          "horovod_tpu/ops/collectives.py:1065", fns, total * (4 + 2))
+    del rows16, lib16, flats
+    # K3: the quantize pack, int8 and int4 with error feedback (and int8
+    # without), the residual in and out
+    for bits in (8, 4):
+        spec = comp.make_quant_spec(bits, 256, True)
+        lay = [comp.quant_wire_layout(n, spec) for n in sizes]
+        rows = [torch.empty(p + s, dtype=torch.uint8, device=dev)
+                for _, _, p, s in lay]
+        # one residual a tensor, as the runtime's store keeps them
+        res = [[torch.zeros(t.numel(), device=dev) for t in c] for c in ins]
+        new = [torch.empty(n, device=dev) for n in sizes]
+        wire = sum(p + s for _, _, p, s in lay)
+        extra = {}
+        if bits == 8:
+            spec_nf = spec._replace(error_feedback=False)
+            kfn = (lambda: [qw.quantize_pack(c, r, spec_nf) for c, r in
+                            zip(ins, rows)])
+            extra = {"no_ef_ms": time_ms(kfn, iters=5),
+                     "no_ef_device_ms": device_ms(kfn, iters=3, warmup=1),
+                     "no_ef_bound_ms": (total * 4 + wire) / HBM_BYTES_PER_S
+                     * 1e3}
+            _log(f"    without error feedback: {extra['no_ef_ms']:.4f} ms "
+                 f"by events, {extra['no_ef_device_ms']:.4f} device, bound "
+                 f"{extra['no_ef_bound_ms']:.4f} ms")
+        entry(f"wire_quantize_int{bits}", "",
+              "horovod_tpu/ops/compression.py:299 (in collectives.py:987)",
+              {"kernel": lambda: [qw.quantize_pack(c, r, spec, 1.0, x, y)
+                                  for c, r, x, y in
+                                  zip(ins, rows, res, new)],
+               "plain": lambda: [qw.plain_quantize_pack(c, r, spec, 1.0,
+                                                        x, y)
+                                 for c, r, x, y in
+                                 zip(ins, rows, res, new)]},
+              total * 12 + wire, extra)
+        del rows, res, new
+    # the reduce-unpack at `world` rows, each wire, fp32 outputs
+    for label in ("bf16", "int8", "int4"):
+        spec = plans[label, 0].spec
+        gath = [torch.zeros(world * qw.row_bytes(n, spec), dtype=torch.uint8,
+                            device=dev) for n in sizes]
+        if label == "bf16":
+            for g in gath:
+                g.view(torch.bfloat16).copy_(torch.randn(
+                    g.numel() // 2, device=dev))
+        else:
+            # rows packed from the gradients of every rank
+            for c, (g, n) in enumerate(zip(gath, sizes)):
+                nb = g.numel() // world
+                for r in range(world):
+                    qw.quantize_pack([grads[r][i] for i in chunks[c]],
+                                     g[r * nb:(r + 1) * nb],
+                                     spec._replace(error_feedback=False))
+        fns = {"kernel": lambda: [qw.reduce_unpack(g, o, spec, world, True)
+                                  for g, o in zip(gath, outs)],
+               "plain": lambda: [qw.plain_reduce_unpack(g, o, spec, world,
+                                                        True)
+                                 for g, o in zip(gath, outs)]}
+        src = ""
+        if label == "bf16":
+            src = "gathered.float().sum(0)"
+            fns["composite"] = lambda: [
+                g.view(torch.bfloat16).view(world, -1).float().sum(0)
+                for g in gath]
+        entry(f"wire_reduce_{label}", src,
+              "horovod_tpu/ops/collectives.py:1072" if label == "bf16"
+              else "horovod_tpu/ops/collectives.py:996",
+              fns, sum(g.numel() for g in gath) + total * 4)
+        del gath
+    return out
+
+
+def fallback_phase(device) -> None:
+    """One hook step at the real world of one with
+    ``HOROVOD_COMPRESSION=int8`` against the same step uncompressed: the
+    parameters bitwise equal, and ``hvd_quant_fallback_total{reason=
+    "world_size"}`` counting each gradient once."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils import metrics
+
+    cfg = full_width_config(12)
+    reg = metrics.get_registry()
+
+    def world_size_fallbacks():
+        return reg.counter_value("hvd_quant_fallback_total",
+                                 reason="world_size")
+
+    plain = _set_step(cfg, 8, device, None)
+    hvd.shutdown()
+    os.environ["HOROVOD_COMPRESSION"] = "int8"
+    try:
+        hvd.init()
+        f0 = world_size_fallbacks()
+        wired = _set_step(cfg, 8, device, None)
+        counted = world_size_fallbacks() - f0
+        hvd.shutdown()
+    finally:
+        del os.environ["HOROVOD_COMPRESSION"]
+    hvd.init()
+    for n, p in plain.items():
+        _exact(f"the int8 step at a world of one, parameter {n}", wired[n],
+               p)
+    if counted != len(plain):
+        raise AssertionError(f"world_size fallbacks counted {counted}, "
+                             f"expected one for each of {len(plain)} "
+                             "gradients")
+    _log(f"  HOROVOD_COMPRESSION=int8 at a world of one: the hook step's "
+         f"{len(plain)} parameters bitwise equal to the uncompressed "
+         f"step's; hvd_quant_fallback_total{{reason=\"world_size\"}} "
+         f"+{counted:.0f}")
+    del plain, wired
+    torch.cuda.empty_cache()
 
 
 # --- phase 9: the launcher ------------------------------------------------
@@ -1364,6 +1930,10 @@ def main() -> int:
     k1_check_phase(device)
     kernels += k1_time_phase(device, full_width_config(12))
     kernels[-2].update(k1_compaction_phase(device))  # the pack's entry
+    _log("[K2/K3] the compressed wire against its plain version")
+    t_wire = time.perf_counter()
+    wire_check_phase(device)
+    _log(f"  wire phase: {time.perf_counter() - t_wire:.1f} s")
 
     _log("[main path] 12 layers at full width, 5 steps, through the runtime")
     launches = main_path_phase(device)
@@ -1377,9 +1947,19 @@ def main() -> int:
     t_coll = time.perf_counter()
     coll_launches, readings = collectives_path_phase(device)
     _log(f"  collectives path: {time.perf_counter() - t_coll:.1f} s")
+    _log("[compression path] the full-width LM's gradients at 4 virtual "
+         "ranks through the bf16, int8 and int4 wires")
+    t_comp = time.perf_counter()
+    wire_entries = compression_path_phase(device)
+    _log(f"  compression path: {time.perf_counter() - t_comp:.1f} s")
+    _log("[world-of-one fallback] HOROVOD_COMPRESSION=int8 at one rank")
+    fallback_phase(device)
     hvd.shutdown()
     # each kernel's launches on the path that runs it: the fp32 flash
-    # kernel's on the fp32 path, the others' on the main path
+    # kernel's on the fp32 path, K2's and K3's on the compression path,
+    # the others' on the main path
+    for entry in wire_entries:
+        entry["launches_by_path"] = {"compression": entry["launches"]}
     for entry in kernels:
         path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
                 else launches)
@@ -1388,6 +1968,8 @@ def main() -> int:
             "main": launches[entry["name"]],
             "fp32": fp32_launches[entry["name"]],
             "collectives": coll_launches[entry["name"]]}
+
+    kernels += wire_entries
 
     _log("[launcher]")
     launcher_phase(root)

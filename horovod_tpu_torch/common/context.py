@@ -13,7 +13,11 @@ The data plane is ``torch.distributed``: NCCL on the GPU, gloo on the CPU.
   rank 0 at ``MASTER_ADDR``/``MASTER_PORT``.
 
 Without CUDA, ``init`` raises unless the caller asks for
-``device="cpu"``: it never carries on silently on the CPU.
+``device="cpu"``: it never carries on silently on the CPU. ``init`` warns
+once for each knob of the JAX package that the port does not implement
+and that is turned on (``env.UNIMPLEMENTED_KNOBS``), and raises on a
+``HOROVOD_COMPRESSION`` value outside ``none|bf16|int8|int4`` before it
+joins the process group.
 
 Process sets (``add_process_set``, JAX ``common/context.py`` :519-540)
 are named sets of ranks, each with two ``torch.distributed`` groups: one
@@ -168,6 +172,11 @@ def init(device=None):
         local_size = env_schema.get_int(env_schema.HOROVOD_LOCAL_SIZE, size)
         cross_rank = env_schema.get_int(env_schema.HOROVOD_CROSS_RANK, 0)
         cross_size = env_schema.get_int(env_schema.HOROVOD_CROSS_SIZE, 1)
+        config = env_schema.RuntimeConfig.from_env()
+        from ..ops.compression import resolve_quant_spec
+
+        resolve_quant_spec(config)  # an unknown wire raises here
+        env_schema.warn_unimplemented()
         dev = _resolve_device(device, local_rank)
         kw = {}
         if dev.type == "cuda":
@@ -183,7 +192,7 @@ def init(device=None):
         _ctx.rank, _ctx.size = rank, size
         _ctx.local_rank, _ctx.local_size = local_rank, local_size
         _ctx.cross_rank, _ctx.cross_size = cross_rank, cross_size
-        _ctx.config = env_schema.RuntimeConfig.from_env()
+        _ctx.config = config
         _start_runtime(store)
         _ctx.initialized = True
 

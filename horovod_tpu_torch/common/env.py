@@ -2,12 +2,19 @@
 ``horovod_tpu/common/env.py`` that the port needs, under the same names,
 so a launcher sets one environment for either package. No knob here is
 missing from the JAX package.
+
+``UNIMPLEMENTED_KNOBS`` names the JAX package's knobs that change what a
+job computes or sends and that the port does not implement yet;
+``warn_unimplemented`` (called by ``hvd.init()``) warns once for each of
+them that is turned on, so a job configured for the JAX package does not
+run differently under the port without a word.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 # worker identity (the set the reference's launcher injects per slot)
 HOROVOD_RANK = "HOROVOD_RANK"
@@ -45,12 +52,37 @@ HOROVOD_RETRY_BASE_DELAY = "HOROVOD_RETRY_BASE_DELAY"
 HOROVOD_LOCKCHECK = "HOROVOD_LOCKCHECK"
 HOROVOD_LOCKCHECK_HOLD_MS = "HOROVOD_LOCKCHECK_HOLD_MS"
 
+# the compressed gradient wire (ops/compression.py): none|bf16|int8|int4,
+# the elements of an absmax block, error feedback, name-pattern opt-outs
+# and the small-leaf threshold in elements (JAX common/env.py:103-113)
+HOROVOD_COMPRESSION = "HOROVOD_COMPRESSION"
+HOROVOD_QUANT_BLOCK = "HOROVOD_QUANT_BLOCK"
+HOROVOD_QUANT_EF = "HOROVOD_QUANT_EF"
+HOROVOD_QUANT_OPTOUT = "HOROVOD_QUANT_OPTOUT"
+HOROVOD_QUANT_MIN_ELEMS = "HOROVOD_QUANT_MIN_ELEMS"
+# the ZeRO-1 sharded update, which excludes the compressed wire
+HOROVOD_SHARDED_UPDATE = "HOROVOD_SHARDED_UPDATE"
+
+# knobs of the JAX package that the port reads only to warn that it does
+# not implement them (JAX common/env.py:25, :47-48, :139, :163)
+UNIMPLEMENTED_KNOBS = (
+    "HOROVOD_HIERARCHICAL_ALLREDUCE",
+    "HOROVOD_HIERARCHICAL_ALLGATHER",
+    "HOROVOD_HIER_NEGOTIATION",
+    "HOROVOD_MEGAPLAN",
+    "HOROVOD_AUTOTUNE",
+)
+
 
 def get_bool(name: str, default: bool = False) -> bool:
     v = os.environ.get(name)
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def get_str(name: str, default: str = "") -> str:
+    return os.environ.get(name, default)
 
 
 def get_int(name: str, default: int) -> int:
@@ -69,6 +101,15 @@ def get_float(name: str, default: float) -> float:
         return default
 
 
+def warn_unimplemented() -> None:
+    """Warn once for each of ``UNIMPLEMENTED_KNOBS`` that is turned on."""
+    for k in UNIMPLEMENTED_KNOBS:
+        if get_bool(k):
+            warnings.warn(f"{k} is set, but horovod_tpu_torch does not "
+                          "implement it yet: the job runs as if it were "
+                          "unset", RuntimeWarning, stacklevel=3)
+
+
 @dataclasses.dataclass
 class RuntimeConfig:
     """The knobs the background runtime reads, once, at ``hvd.init()``
@@ -80,7 +121,10 @@ class RuntimeConfig:
     - ``cycle_time_ms``: the cycle's period: a cycle starts this long
       after the last one started;
     - the coordinator's stall warning and stall shutdown, and how long a
-      worker waits for a negotiation response.
+      worker waits for a negotiation response;
+    - the compressed wire: ``compression`` (``HOROVOD_COMPRESSION``, ""
+      keeps the wire uncompressed), the absmax block, error feedback, the
+      opt-out patterns and the small-leaf threshold.
     """
 
     fusion_threshold_bytes: int = 128 * 1024 * 1024
@@ -88,6 +132,11 @@ class RuntimeConfig:
     stall_warning_time_s: float = 60.0
     stall_shutdown_time_s: float = 0.0
     response_timeout_s: float = 300.0
+    compression: str = ""
+    quant_block: int = 256
+    quant_error_feedback: bool = True
+    quant_optout: str = ""
+    quant_min_elems: int = 4096
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -102,4 +151,10 @@ class RuntimeConfig:
             HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, c.stall_shutdown_time_s)
         c.response_timeout_s = get_float(HOROVOD_RESPONSE_TIMEOUT_S,
                                          c.response_timeout_s)
+        c.compression = get_str(HOROVOD_COMPRESSION).strip().lower()
+        c.quant_block = get_int(HOROVOD_QUANT_BLOCK, c.quant_block)
+        c.quant_error_feedback = get_bool(HOROVOD_QUANT_EF, True)
+        c.quant_optout = get_str(HOROVOD_QUANT_OPTOUT)
+        c.quant_min_elems = get_int(HOROVOD_QUANT_MIN_ELEMS,
+                                    c.quant_min_elems)
         return c

@@ -14,6 +14,19 @@
   has no average, the 1/n of AVERAGE) into the unpack. A chunk of one
   tensor is reduced in place, with no pack. Plans are cached by the JAX
   package's key (:853-856), the elastic generation included.
+- ``CastFusedChunkPlan`` and ``QuantFusedChunkPlan`` (:899-1116): a
+  chunk on the compressed wire (``HOROVOD_COMPRESSION`` or a
+  ``Compression.int8``/``int4`` marker): K2's cast or K3's quantize packs
+  this rank's row ``[payload | scales]``, one ``all_gather_into_tensor``
+  gathers every rank's row, and one reduce-unpack dequantizes, reduces in
+  rank order, scales and writes the outputs (``ops/quant_wire.py``).
+  ``fused_chunk_plan(..., quant=spec)`` builds them for more than one
+  process, SUM or AVERAGE and a float chunk; their key is the plain key
+  with the spec's signature appended. ``quant_sim_chunk_plan`` drives N
+  virtual ranks in one process (``execute_simulated``). The JAX package's
+  ``_eager_quantized_allreduce`` (:1119-1167) has no counterpart: every
+  allreduce of the port goes through the runtime, which owns the wire's
+  fallbacks (``ops/queue.py`` ``_quant_split``).
 - ``unpack_flat`` (:475): a flat result split back into per-tensor views.
 - ``_eager_allgather`` (:1302-1358): a ragged first dimension. The
   first-dimension sizes are exchanged; even sizes take one
@@ -59,7 +72,8 @@ from ..common import context as ctx_mod
 from ..common import env as env_schema
 from ..common.context import ProcessSet
 from ..utils import metrics as metrics_mod
-from . import fused_pack
+from . import compression as comp
+from . import fused_pack, quant_wire
 
 
 class ReduceOp(IntEnum):
@@ -388,21 +402,8 @@ def invalidate_fused_plans() -> int:
     return n
 
 
-def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
-                     postscale_factor: float, names, sizes, shapes,
-                     dtype: torch.dtype, device_type: str
-                     ) -> Optional[FusedChunkPlan]:
-    """The cached plan of one chunk, keyed by the full chunk signature —
-    ordered names, shapes, dtype, op, factors, set and its size, the
-    elastic generation and the device type. None for a chunk of no
-    elements, which the runtime reduces tensor by tensor."""
-    sizes = tuple(int(s) for s in sizes)
-    if sum(sizes) == 0:
-        return None
-    nproc = ps.size
-    key = ("fused_plan", "allreduce", ps.name, nproc, _plan_epoch(),
-           tuple(names), tuple(shapes), str(dtype), int(op),
-           float(prescale_factor), float(postscale_factor), device_type)
+def _insert_plan(key: tuple, build):
+    """The cached plan of ``key``, built by ``build`` on a miss."""
     hits, misses = _plan_metrics()
     plan = _PLANS.get(key)
     if plan is not None:
@@ -410,13 +411,192 @@ def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
         hits.inc()
         return plan
     misses.inc()
-    plan = FusedChunkPlan(group, nproc, ReduceOp(op), float(prescale_factor),
-                          float(postscale_factor), sizes, tuple(shapes),
-                          dtype)
-    _PLANS[key] = plan
+    plan = _PLANS[key] = build()
     while len(_PLANS) > _PLAN_CAPACITY:
         _PLANS.popitem(last=False)
     return plan
+
+
+def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
+                     postscale_factor: float, names, sizes, shapes,
+                     dtype: torch.dtype, device_type: str, quant=None):
+    """The cached plan of one chunk, keyed by the full chunk signature —
+    ordered names, shapes, dtype, op, factors, set and its size, the
+    elastic generation and the device type. None for a chunk of no
+    elements, which the runtime reduces tensor by tensor.
+
+    ``quant`` (a ``compression.QuantSpec``) asks for the compressed wire,
+    which exists for more than one process, SUM or AVERAGE and a float
+    chunk; the spec's signature is then appended to the key, so the plain
+    key stays as it was. Otherwise the plain plan is returned (the caller
+    counts the fallback)."""
+    sizes = tuple(int(s) for s in sizes)
+    if sum(sizes) == 0:
+        return None
+    nproc = ps.size
+    op = ReduceOp(op)
+    wire = (quant is not None and nproc > 1
+            and op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+            and dtype in quant_wire.DTYPES)
+    key = ("fused_plan", "allreduce", ps.name, nproc, _plan_epoch(),
+           tuple(names), tuple(shapes), str(dtype), int(op),
+           float(prescale_factor), float(postscale_factor), device_type)
+    if wire:
+        key = key + (quant.signature(),)
+        return _insert_plan(key, lambda: _wire_plan(
+            group, nproc, op, prescale_factor, postscale_factor, sizes,
+            shapes, dtype, quant))
+    return _insert_plan(key, lambda: FusedChunkPlan(
+        group, nproc, op, float(prescale_factor), float(postscale_factor),
+        sizes, tuple(shapes), dtype))
+
+
+# ===========================================================================
+# The compressed wire: the bf16 cast plan and the blockwise int8/int4 plan
+# ===========================================================================
+
+
+class _WireChunkPlan:
+    """One compressed chunk: this rank's row ``[payload | scales]`` packed
+    by ``_pack``, the rows of every rank gathered by one collective, and
+    one reduce-unpack into the outputs. ``group`` None is a simulated
+    world (``quant_sim_chunk_plan``)."""
+
+    __slots__ = ("group", "nproc", "average", "pre", "post", "sizes",
+                 "shapes", "dtype", "spec", "flat_size", "padded",
+                 "n_blocks", "row_bytes", "wire_bytes", "pre_bytes")
+
+    def __init__(self, group, nproc: int, op, pre: float, post: float,
+                 sizes: tuple, shapes: tuple, dtype: torch.dtype,
+                 spec: comp.QuantSpec):
+        self.group = group
+        self.nproc = nproc
+        self.average = op == ReduceOp.AVERAGE
+        self.pre = float(pre)
+        self.post = float(post)
+        self.sizes = sizes
+        self.shapes = tuple(shapes)
+        self.dtype = dtype
+        self.spec = spec
+        self.flat_size = sum(sizes)
+        if spec.bits == 16:
+            self.padded, self.n_blocks = self.flat_size, 0
+        else:
+            self.padded, self.n_blocks, _, _ = comp.quant_wire_layout(
+                self.flat_size, spec)
+        self.row_bytes = quant_wire.row_bytes(self.flat_size, spec)
+        # the bytes one rank puts on the wire, and the chunk's own
+        self.wire_bytes = self.row_bytes
+        self.pre_bytes = self.flat_size * torch.empty(
+            (), dtype=dtype).element_size()
+
+    def _pack(self, inputs, row, residual):
+        raise NotImplementedError
+
+    def _reduce(self, gathered, outputs):
+        quant_wire.reduce_unpack(gathered, outputs, self.spec, self.nproc,
+                                 self.average, self.post)
+
+    def _execute(self, inputs: list, outputs: list, residual=None):
+        """Reduce ``inputs`` into ``outputs`` (which may be the inputs) on
+        PyTorch's current stream; returns the new residual or None."""
+        dev = inputs[0].device
+        row = torch.empty(self.row_bytes, dtype=torch.uint8, device=dev)
+        new_res = self._pack(inputs, row, residual)
+        gathered = torch.empty(self.nproc * self.row_bytes,
+                               dtype=torch.uint8, device=dev)
+        _count_call()
+        _all_gather(gathered, row, group=self.group)
+        self._reduce(gathered, outputs)
+        return new_res
+
+    def _simulate(self, rank_inputs, residuals=None, outputs=None):
+        """One process stands in for ``len(rank_inputs)`` ranks: each
+        virtual rank packs its row of a stacked buffer in place of the
+        gather, and one reduce-unpack follows."""
+        dev = rank_inputs[0][0].device
+        gathered = torch.empty(self.nproc * self.row_bytes,
+                               dtype=torch.uint8, device=dev)
+        new_rs = []
+        for r, inputs in enumerate(rank_inputs):
+            row = gathered[r * self.row_bytes:(r + 1) * self.row_bytes]
+            new_rs.append(self._pack(
+                inputs, row, None if residuals is None else residuals[r]))
+        if outputs is None:
+            outputs = [torch.empty(s, dtype=self.dtype, device=dev)
+                       for s in self.shapes]
+        self._reduce(gathered, outputs)
+        return outputs, new_rs
+
+
+class CastFusedChunkPlan(_WireChunkPlan):
+    """The bf16 cast wire (``HOROVOD_COMPRESSION=bf16``): K2's cast pack,
+    no scales and no residual."""
+
+    __slots__ = ()
+
+    def _pack(self, inputs, row, residual):
+        quant_wire.cast_pack(inputs, row, self.pre)
+        return None
+
+    def execute(self, inputs: list, outputs: list):
+        self._execute(inputs, outputs)
+
+    def execute_simulated(self, rank_inputs, outputs=None) -> list:
+        return self._simulate(rank_inputs, outputs=outputs)[0]
+
+
+class QuantFusedChunkPlan(_WireChunkPlan):
+    """The blockwise int8/int4 wire: K3's quantize pack, with the
+    error-feedback residual in and out. The caller owns the residual:
+    it passes the last one in (one fp32 tensor or None a tensor, a flat
+    one of the chunk, or None for zeros) and commits the returned one
+    (flat, in chunk order) only after ``execute`` returned."""
+
+    __slots__ = ()
+
+    def _pack(self, inputs, row, residual):
+        new_res = None
+        if self.spec.error_feedback:
+            new_res = torch.empty(self.flat_size, dtype=torch.float32,
+                                  device=row.device)
+        quant_wire.quantize_pack(inputs, row, self.spec, self.pre, residual,
+                                 new_res)
+        return new_res
+
+    def execute(self, inputs: list, outputs: list, residual=None):
+        """Returns the new residual (None without error feedback)."""
+        return self._execute(inputs, outputs, residual)
+
+    def execute_simulated(self, rank_inputs, residuals=None,
+                          outputs=None) -> tuple:
+        """Returns (outputs, the ranks' new residuals)."""
+        return self._simulate(rank_inputs, residuals, outputs)
+
+
+def _wire_plan(group, nproc, op, pre, post, sizes, shapes, dtype, spec):
+    cls = CastFusedChunkPlan if spec.bits == 16 else QuantFusedChunkPlan
+    return cls(group, nproc, op, pre, post, tuple(sizes), tuple(shapes),
+               dtype, spec)
+
+
+def quant_sim_chunk_plan(world: int, op, prescale_factor: float,
+                         postscale_factor: float, names, sizes, shapes,
+                         dtype: torch.dtype, quant):
+    """The compressed plan of a simulated world of ``world`` ranks, cached
+    under the JAX package's key: the CPU tests and the card's compression
+    check drive it through ``execute_simulated``."""
+    sizes = tuple(int(s) for s in sizes)
+    if sum(sizes) == 0:
+        return None
+    op = ReduceOp(op)
+    key = ("fused_plan", "allreduce", "quant_sim", int(world),
+           _plan_epoch(), tuple(names), tuple(shapes), str(dtype), int(op),
+           float(prescale_factor), float(postscale_factor), True, False,
+           quant.signature())
+    return _insert_plan(key, lambda: _wire_plan(
+        None, int(world), op, prescale_factor, postscale_factor, sizes,
+        shapes, dtype, quant))
 
 
 def _ps(process_set: Optional[ProcessSet]) -> ProcessSet:

@@ -40,7 +40,7 @@ import torch
 _CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3,
           torch.float64: 4}
 SCALED_DTYPES = tuple(_CODES)
-MAX_SEGS = 128  # HVD_PACK_MAX_SEGS: tensors per launch
+MAX_SEGS = 128  # HVD_TABLE_MAX_SEGS: tensors per launch
 SOURCE = "fused_pack"
 
 # launches made by _launch, by direction (read and reset by chip_smoke.py)
@@ -121,6 +121,40 @@ def plain_unpack(flat: torch.Tensor, outputs, factor: float = 1.0):
         o.copy_(scaled(p, factor).view(o.shape))
 
 
+def ctypes_table(ptrs: list, offs: list):
+    """The ctypes arrays of one launch's table (``csrc/tensor_table.cuh``):
+    ``ptrs[n]`` and ``offs[n + 1]``."""
+    n = len(ptrs)
+    return ((ctypes.c_ulonglong * n)(*ptrs),
+            (ctypes.c_longlong * (n + 1))(*offs))
+
+
+def tables(tensors, item: int = 1):
+    """The launches of one chunk, as K1 and K2 make them: (ptrs, offs,
+    count) of at most ``MAX_SEGS`` tensors each, the offsets running on
+    from one launch to the next (elements, times ``item`` for the byte
+    copy)."""
+    off = 0
+    for i in range(0, len(tensors), MAX_SEGS):
+        seg = tensors[i:i + MAX_SEGS]
+        offs = [off]
+        for t in seg:
+            off += t.numel() * item
+            offs.append(off)
+        yield ctypes_table([t.data_ptr() for t in seg], offs) + (len(seg),)
+
+
+def current_stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def check_launch(name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: error {err} (a "
+                           "cudaError_t, or -1 for arguments the kernel "
+                           "refuses)")
+
+
 def _launch(pack_dir: int, tensors, flat: torch.Tensor, factor: float):
     fn = _kernel()
     # offsets in bytes for the byte copy, in elements when scaling
@@ -129,24 +163,12 @@ def _launch(pack_dir: int, tensors, flat: torch.Tensor, factor: float):
     else:
         code, item = _CODES[flat.dtype], 1
     dev = flat.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = current_stream(dev)
     name = "fused_pack" if pack_dir else "fused_unpack"
-    off = 0
-    for i in range(0, len(tensors), MAX_SEGS):
-        seg = tensors[i:i + MAX_SEGS]
-        n = len(seg)
-        ptrs = (ctypes.c_ulonglong * n)(*[t.data_ptr() for t in seg])
-        offs = (ctypes.c_longlong * (n + 1))()
-        offs[0] = off
-        for j, t in enumerate(seg):
-            off += t.numel() * item
-            offs[j + 1] = off
-        err = fn(pack_dir, code, ptrs, offs, n, flat.data_ptr(),
-                 float(factor), float(factor), dev.index, stream)
-        if err != 0:
-            raise RuntimeError(
-                f"{name} kernel launch failed: error {err} (a cudaError_t, "
-                "or -1 for arguments the kernel refuses)")
+    for ptrs, offs, n in tables(tensors, item):
+        check_launch(name, fn(pack_dir, code, ptrs, offs, n, flat.data_ptr(),
+                              float(factor), float(factor), dev.index,
+                              stream))
         kernel_launches[name] += 1
 
 

@@ -16,6 +16,17 @@ a cycle thread — counterpart of ``horovod_tpu/ops/queue.py``.
   the K1 kernel, through the device fusion buffer of ``_native``); every
   other op (allgather, alltoall, reducescatter, broadcast, the other
   reductions) runs alone (``_run_single`` :1454).
+- The compressed wire (``_quant_split`` :1132-1181,
+  ``_run_quant_allreduce`` :1331-1420): with ``HOROVOD_COMPRESSION`` set
+  or a ``Compression.int8``/``int4`` marker on the entries (a marker wins;
+  its signature is part of the fusable group's key), a group splits into
+  the tensors that go on the wire and those kept off it (opt-out names,
+  small leaves, non-float dtypes), each reason counted once per tensor in
+  ``hvd_quant_fallback_total``; a world of one sends the whole group
+  uncompressed (reason ``world_size``), because quantizing at one rank
+  would change the result. A quantized chunk reads its error-feedback
+  residual before its dispatch and commits the new one only after the
+  dispatch succeeded (``compression.ResidualStore``).
 - Process sets: an entry on a set other than the global one negotiates
   under ``ps:<set>:<name>`` (``_wire_name`` :1069), so two sets may each
   have a tensor ``x``, is ready once the set's members submitted it, and
@@ -63,8 +74,8 @@ itself (the reference's ready events and finalizers, SURVEY.md N16):
 
 On the CPU (gloo) the cycle thread runs each collective to its end, and no
 event is involved. Left out, as ROADMAP.md queue 1 lists them: the
-megaplan replay, the quantized and cast wires, autotuning, and the
-tracing, timeline, anatomy and perf-ledger hooks.
+megaplan replay, autotuning (``set_compression_spec``), and the tracing,
+timeline, flight-recorder, anatomy and perf-ledger hooks.
 """
 
 from __future__ import annotations
@@ -83,6 +94,7 @@ from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
 from . import collectives as C
+from . import compression as comp
 from . import fused_pack
 from .controller import dtype_name
 
@@ -108,6 +120,8 @@ class TensorEntry:
     handle: int = -1
     # CUDA event recorded on the caller's stream at enqueue
     ready: Any = None
+    # the entry's wire (a compression.QuantSpec from a marker), or None
+    quant: Any = None
 
 
 class HandleManager:
@@ -272,6 +286,13 @@ class BackgroundRuntime:
         self._m_by_op: dict[tuple, tuple] = {}
         self._m_enq: dict[str, Any] = {}
         self.controller = self._maybe_controller(config, kv_client)
+        # the compressed wire (HOROVOD_COMPRESSION) and its guardrails;
+        # the residuals are set up by the first group that asks for it
+        self._quant = comp.resolve_quant_spec(config)
+        self._quant_residuals: Optional[comp.ResidualStore] = None
+        self._quant_optout = comp.quant_optout_patterns(config.quant_optout)
+        self._quant_min_elems = config.quant_min_elems
+        self._quant_noted: set = set()
 
     def _maybe_controller(self, config, kv_client):
         """Negotiation over the rendezvous store, whenever the set has more
@@ -425,9 +446,11 @@ class BackgroundRuntime:
         for e in batch:
             if e.op == "allreduce" and e.reduce_op in (C.ReduceOp.SUM,
                                                        C.ReduceOp.AVERAGE):
+                # entries with different wires never share a chunk
                 key = (e.tensor.dtype, int(e.reduce_op), e.prescale_factor,
                        e.postscale_factor,
-                       getattr(e.process_set, "name", None) or "global")
+                       getattr(e.process_set, "name", None) or "global",
+                       None if e.quant is None else e.quant.signature())
                 fusable.setdefault(key, []).append(e)
             else:
                 singles.append(e)
@@ -595,55 +618,143 @@ class BackgroundRuntime:
         """Each chunk through its fused-chunk plan. A chunk the K1 kernel
         cannot scale (an integer or other non-float dtype whose factors are
         not both 1) promotes to float like the JAX package: its tensors go
-        one by one to ``_run_single``. So does a chunk of no elements."""
+        one by one to ``_run_single``. So does a chunk of no elements. With
+        a wire, the group's eligible tensors go to
+        ``_run_quant_allreduce`` first."""
+        spec = group[0].quant or self._quant
+        if spec is not None:
+            qgroup, group = self._quant_split(group, spec)
+            if qgroup:
+                self._run_quant_allreduce(qgroup, spec)
+            if not group:
+                return
         e0 = group[0]
         dtype = e0.tensor.dtype
-        ps = e0.process_set or self.process_set
-        pg = self._group_of(e0.process_set)
-        if self._needs_scale(e0, pg) and not fused_pack.can_scale(dtype):
+        if (self._needs_scale(e0, self._group_of(e0.process_set))
+                and not fused_pack.can_scale(dtype)):
             for e in group:
                 self._run_single(e)
             return
         for chunk in self._chunk_group(group):
-            names = [e.name for e in chunk]
-            t0 = time.perf_counter()
-            plan = C.fused_chunk_plan(
-                ps, pg, e0.reduce_op, e0.prescale_factor,
-                e0.postscale_factor, names,
-                [e.tensor.numel() for e in chunk],
-                [tuple(e.tensor.shape) for e in chunk], dtype,
-                self.device.type)
+            plan = self._chunk_plan(chunk)
             if plan is None:
                 for e in chunk:
                     self._run_single(e)
                 continue
-            calls0 = C.dist_calls
-            try:
-                self._wait_ready(chunk)
-                plan.execute([e.tensor for e in chunk],
-                             [e.output for e in chunk], self.fusion_buffer)
-                done = self._record_done(
-                    [e.tensor for e in chunk]
-                    + [e.output for e in chunk if e.output is not e.tensor])
-            except Exception as exc:  # fail the whole chunk
-                self._m_op_errors.inc(len(chunk))
-                err = HorovodInternalError(f"fused allreduce failed: {exc}")
-                for e in chunk:
-                    self._finish(e, None, err)
-                continue
-            nbytes = sum(e.tensor.numel() * e.tensor.element_size()
-                         for e in chunk)
-            self.chunks += 1
-            self.collective_calls += C.dist_calls - calls0
-            m_bytes, m_lat, m_ops = self._op_metrics(
-                "allreduce", dtype_name(dtype))
-            m_bytes.inc(nbytes)
-            m_ops.inc()
-            m_lat.observe(time.perf_counter() - t0)
-            self._m_fusion_batch.observe(len(chunk))
-            self._m_fused_bytes.observe(nbytes)
+            self._dispatch_chunk(chunk, lambda plan=plan, chunk=chunk:
+                                 plan.execute([e.tensor for e in chunk],
+                                              [e.output for e in chunk],
+                                              self.fusion_buffer))
+
+    def _chunk_plan(self, chunk: list[TensorEntry], quant=None):
+        e0 = chunk[0]
+        return C.fused_chunk_plan(
+            e0.process_set or self.process_set,
+            self._group_of(e0.process_set), e0.reduce_op,
+            e0.prescale_factor, e0.postscale_factor,
+            [e.name for e in chunk], [e.tensor.numel() for e in chunk],
+            [tuple(e.tensor.shape) for e in chunk], e0.tensor.dtype,
+            self.device.type, quant=quant)
+
+    def _dispatch_chunk(self, chunk: list[TensorEntry], run):
+        """Run one chunk's dispatch (``run``) on the comm stream after its
+        entries are ready; fail the whole chunk if it raises, else count
+        it and finish its entries with their outputs."""
+        t0 = time.perf_counter()
+        calls0 = C.dist_calls
+        try:
+            self._wait_ready(chunk)
+            run()
+            done = self._record_done(
+                [e.tensor for e in chunk]
+                + [e.output for e in chunk if e.output is not e.tensor])
+        except Exception as exc:  # fail the whole chunk
+            self._m_op_errors.inc(len(chunk))
+            err = HorovodInternalError(f"fused allreduce failed: {exc}")
             for e in chunk:
-                self._finish(e, e.output, done=done)
+                self._finish(e, None, err)
+            return
+        nbytes = sum(e.tensor.numel() * e.tensor.element_size()
+                     for e in chunk)
+        self.chunks += 1
+        self.collective_calls += C.dist_calls - calls0
+        m_bytes, m_lat, m_ops = self._op_metrics(
+            "allreduce", dtype_name(chunk[0].tensor.dtype))
+        m_bytes.inc(nbytes)
+        m_ops.inc()
+        m_lat.observe(time.perf_counter() - t0)
+        self._m_fusion_batch.observe(len(chunk))
+        self._m_fused_bytes.observe(nbytes)
+        for e in chunk:
+            self._finish(e, e.output, done=done)
+
+    def _quant_fallback(self, e: TensorEntry, reason: str):
+        """Count a tensor kept off the wire, once per name and reason."""
+        mark = (e.name, reason)
+        if mark not in self._quant_noted:
+            self._quant_noted.add(mark)
+            comp.quant_fallback_counter(reason).inc()
+
+    def _quant_split(self, group: list[TensorEntry], spec):
+        """(the entries that go on the wire, those kept off it)."""
+        if self._quant_residuals is None:  # the first group with a wire
+            self._quant_residuals = comp.ResidualStore()
+        ps = group[0].process_set or self.process_set
+        if ps.size <= 1:
+            # no wire at one rank: the whole group stays uncompressed
+            for e in group:
+                self._quant_fallback(e, "world_size")
+            return [], group
+        quant, plain = [], []
+        for e in group:
+            reason = comp.quant_fallback_reason(
+                e.name, e.tensor.numel(), e.tensor.dtype, self._quant_optout,
+                self._quant_min_elems)
+            if reason is None:
+                quant.append(e)
+            else:
+                self._quant_fallback(e, reason)
+                plain.append(e)
+        return quant, plain
+
+    def _run_quant_allreduce(self, group: list[TensorEntry], spec):
+        """The compressed flavour of ``_run_fused_allreduce``: the same
+        chunks, each through its cast or quantized plan. A quantized
+        chunk's residuals (one a tensor, keyed by its name and the wire's
+        signature) are read before the dispatch and committed only after
+        it succeeded, so a failed dispatch leaves the last ones in
+        place."""
+        store = self._quant_residuals
+        for chunk in self._chunk_group(group):
+            plan = self._chunk_plan(chunk, quant=spec)
+            if plan is None:
+                for e in chunk:
+                    self._run_single(e)
+                continue
+            inputs = [e.tensor for e in chunk]
+            outputs = [e.output for e in chunk]
+            if isinstance(plan, C.QuantFusedChunkPlan):
+                def run(plan=plan, inputs=inputs, outputs=outputs,
+                        names=[e.name for e in chunk]):
+                    sig = spec.signature()
+                    residual = (store.get(names, plan.sizes, sig)
+                                if spec.error_feedback else None)
+                    new_res = plan.execute(inputs, outputs, residual)
+                    if new_res is not None:
+                        store.commit(names, plan.sizes, sig, new_res)
+                    comp.record_quant_chunk(plan.pre_bytes, plan.wire_bytes,
+                                            spec.bits, plan.n_blocks)
+            elif isinstance(plan, C.CastFusedChunkPlan):
+                def run(plan=plan, inputs=inputs, outputs=outputs):
+                    plan.execute(inputs, outputs)
+                    comp.record_quant_chunk(plan.pre_bytes, plan.wire_bytes,
+                                            spec.bits, 0)
+            else:
+                # no compressed plan covers the chunk (an op or dtype the
+                # wire does not take): the plain plan
+                def run(plan=plan, inputs=inputs, outputs=outputs):
+                    plan.execute(inputs, outputs, self.fusion_buffer)
+            self._dispatch_chunk(chunk, run)
 
     def _run_single(self, e: TensorEntry):
         t0 = time.perf_counter()

@@ -19,9 +19,13 @@ their device: nothing goes through numpy (unlike the JAX shim's
 ``sparse_allreduce_async`` (its indices and values allgathered).
 
 Every op takes ``process_set=`` (``add_process_set``, which every rank
-calls, members or not). Not ported, and raising ``NotImplementedError``:
-the ZeRO-1 sharded update (ROADMAP.md queue 1 item 12) and Adasum
-(item 13).
+calls, members or not). ``Compression.int8``/``int4`` are markers: the
+allreduces and ``DistributedOptimizer`` carry them to the runtime as the
+entry's wire (``quant``), and their ``compress``/``decompress`` are the
+identity; a tensor that autograd tracks keeps the plain wire. Not
+ported, and raising ``NotImplementedError``: the ZeRO-1 sharded update
+(ROADMAP.md queue 1 item 12, also when ``sharded_update=None`` reads
+``HOROVOD_SHARDED_UPDATE``) and Adasum (item 13).
 """
 from __future__ import annotations
 
@@ -48,8 +52,10 @@ from ..common.context import (  # noqa: F401  (topology + lifecycle)
     size,
 )
 from ..common.context import runtime as _runtime
+from ..common import env as _env
 from ..common.exceptions import HorovodInternalError  # noqa: F401
 from ..ops import collectives as _coll
+from ..ops import compression as _comp
 from ..ops.queue import TensorEntry
 from ..ops.collectives import (  # noqa: F401
     Adasum,
@@ -86,6 +92,23 @@ class Compression:
         @staticmethod
         def decompress(t, ctx):
             return t.to(ctx) if ctx is not None else t
+
+    # the blockwise wire's markers (ops/compression.py)
+    int8 = _comp.Compression.int8
+    int4 = _comp.Compression.int4
+
+
+def _quant_of(compression):
+    """The wire a marker asks for, or None. An async op cannot carry a
+    cast compressor's decompress context, so it refuses one."""
+    if compression in (None, Compression.none, _comp.NoneCompressor):
+        return None
+    spec = getattr(compression, "quant_spec", None)
+    if spec is None:
+        raise ValueError(
+            "allreduce_async supports Compression.none/int8/int4; use "
+            "hvd.allreduce(...) for fp16/bf16 cast compression")
+    return spec
 
 
 # handle -> (tensor the caller passed, its contiguous stand-in): an
@@ -143,19 +166,19 @@ def _allreduce_kw(tensors, average, op, prescale_factor, postscale_factor,
 
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
-                    process_set=None) -> int:
-    return _enqueue("allreduce", tensor, name, False, **_allreduce_kw(
-        [tensor], average, op, prescale_factor, postscale_factor,
-        process_set))
+                    process_set=None, compression=None) -> int:
+    return _enqueue("allreduce", tensor, name, False, quant=_quant_of(
+        compression), **_allreduce_kw([tensor], average, op, prescale_factor,
+                                      postscale_factor, process_set))
 
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
-                     process_set=None) -> int:
+                     process_set=None, compression=None) -> int:
     """In place: the result lands in ``tensor`` (in its dtype)."""
-    return _enqueue("allreduce", tensor, name, True, **_allreduce_kw(
-        [tensor], average, op, prescale_factor, postscale_factor,
-        process_set))
+    return _enqueue("allreduce", tensor, name, True, quant=_quant_of(
+        compression), **_allreduce_kw([tensor], average, op, prescale_factor,
+                                      postscale_factor, process_set))
 
 
 def _group_base(name):
@@ -166,13 +189,14 @@ def _group_base(name):
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             prescale_factor=1.0, postscale_factor=1.0,
-                            process_set=None) -> list:
+                            process_set=None, compression=None) -> list:
     """One logical op over a list, named ``<name>.<i>``, enqueued at once:
     one cycle drains the whole group and fuses it (reference
     torch/mpi_ops.py:345)."""
     base = _group_base(name)
     return _enqueue_all("allreduce", tensors,
                         [f"{base}.{i}" for i in range(len(tensors))], False,
+                        quant=_quant_of(compression),
                         **_allreduce_kw(tensors, average, op,
                                         prescale_factor, postscale_factor,
                                         process_set))
@@ -180,10 +204,11 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
 
 def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
-                             process_set=None) -> list:
+                             process_set=None, compression=None) -> list:
     base = _group_base(name)
     return _enqueue_all("allreduce", tensors,
                         [f"{base}.{i}" for i in range(len(tensors))], True,
+                        quant=_quant_of(compression),
                         **_allreduce_kw(tensors, average, op,
                                         prescale_factor, postscale_factor,
                                         process_set))
@@ -362,25 +387,35 @@ class _BroadcastOp(torch.autograd.Function):
 
 # --- sync wrappers ----------------------------------------------------------
 
+def _marker(compression):
+    """``compression`` when it is a wire marker (int8/int4), else None:
+    a cast compressor has already compressed the tensor around the
+    collective."""
+    return (compression if getattr(compression, "quant_spec", None)
+            is not None else None)
+
+
 def allreduce(tensor, average=None, name=None, op=None,
               compression=Compression.none,
               prescale_factor=1.0, postscale_factor=1.0, process_set=None):
     t, ctx = compression.compress(tensor)
     if _grad_wanted(t):
+        # the backward collective has no marker to match: the plain wire
         out = _AllreduceOp.apply(t, average, name, op, prescale_factor,
                                  postscale_factor, process_set)
     else:
         out = synchronize(allreduce_async(t, average, name, op,
                                           prescale_factor, postscale_factor,
-                                          process_set))
+                                          process_set, _marker(compression)))
     return compression.decompress(out, ctx)
 
 
 def allreduce_(tensor, average=None, name=None, op=None,
-               prescale_factor=1.0, postscale_factor=1.0, process_set=None):
+               prescale_factor=1.0, postscale_factor=1.0, process_set=None,
+               compression=None):
     return synchronize(allreduce_async_(tensor, average, name, op,
                                         prescale_factor, postscale_factor,
-                                        process_set))
+                                        process_set, compression))
 
 
 def grouped_allreduce(tensors, average=None, name=None, op=None,
@@ -395,17 +430,17 @@ def grouped_allreduce(tensors, average=None, name=None, op=None,
     else:
         hs = grouped_allreduce_async([c[0] for c in comp], average, name, op,
                                      prescale_factor, postscale_factor,
-                                     process_set)
+                                     process_set, _marker(compression))
         outs = [synchronize(h) for h in hs]
     return [compression.decompress(o, c[1]) for o, c in zip(outs, comp)]
 
 
 def grouped_allreduce_(tensors, average=None, name=None, op=None,
                        prescale_factor=1.0, postscale_factor=1.0,
-                       process_set=None):
+                       process_set=None, compression=None):
     hs = grouped_allreduce_async_(tensors, average, name, op,
                                   prescale_factor, postscale_factor,
-                                  process_set)
+                                  process_set, compression)
     return [synchronize(h) for h in hs]
 
 
@@ -592,7 +627,8 @@ class _DistributedMixin:
         h = allreduce_async_(comp, name=self._names[p], op=self._op,
                              prescale_factor=self._prescale,
                              postscale_factor=self._postscale,
-                             process_set=self._process_set)
+                             process_set=self._process_set,
+                             compression=_marker(self._compression))
         self._handles[p] = (h, ctx)
 
     def synchronize(self):
@@ -668,6 +704,22 @@ def _build_param_names(optimizer, named_parameters, noname_prefix):
     return names
 
 
+def _sharded_update_enabled() -> bool:
+    """``HOROVOD_SHARDED_UPDATE``, read when ``sharded_update=None``; with
+    the compressed wire also set it raises, as the JAX package's
+    ``sharded_update_enabled`` (``opt/sharded.py:80-99``) does."""
+    enabled = _env.get_bool(_env.HOROVOD_SHARDED_UPDATE)
+    if enabled:
+        mode = _env.get_str(_env.HOROVOD_COMPRESSION).strip().lower()
+        if mode not in ("", "none", "0", "off"):
+            raise ValueError(
+                f"{_env.HOROVOD_SHARDED_UPDATE} and "
+                f"{_env.HOROVOD_COMPRESSION}={mode!r} are mutually "
+                "exclusive: the sharded update path cannot run the "
+                "quantized wire (see docs/sharded_optimizer.md)")
+    return enabled
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=Compression.none,
@@ -678,12 +730,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          gradient_predivide_factor: float = 1.0,
                          sparse_as_dense: bool = False,
                          process_set=None,
-                         sharded_update: bool = False):
+                         sharded_update=None):
     if hasattr(optimizer, "_hvd_base"):
         # re-wrapping would make the grafted step() re-enter itself and
         # register every hook twice
         raise ValueError(
             "optimizer is already wrapped by DistributedOptimizer")
+    if sharded_update is None:
+        sharded_update = _sharded_update_enabled()
     if sharded_update:
         raise NotImplementedError(
             "the ZeRO-1 sharded update is not ported yet (ROADMAP.md queue 1 "

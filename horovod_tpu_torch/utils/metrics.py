@@ -152,12 +152,19 @@ class MetricsRegistry:
         return self._get_or_create(Histogram, name, help_text, labels,
                                    buckets=buckets)
 
-    def counter_value(self, name: str) -> float:
-        """Sum of a counter family across all label sets."""
+    def names(self) -> set:
+        """The names of every registered series."""
+        with self._lock:
+            return {n for n, _ in self._metrics}
+
+    def counter_value(self, name: str, **labels) -> float:
+        """Sum of a counter family across the label sets that carry
+        ``labels``."""
         total = 0.0
         with self._lock:
-            for (n, _), m in self._metrics.items():
-                if n == name and isinstance(m, Counter):
+            for (n, items), m in self._metrics.items():
+                if (n == name and isinstance(m, Counter)
+                        and labels.items() <= dict(items).items()):
                     total += m._value
         return total
 

@@ -89,7 +89,8 @@ def test_no_source_names_jax_or_the_jax_package():
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
                                              "collectives_probe.py",
                                              "flash_probe.py",
-                                             "runtime_probe.py")]
+                                             "runtime_probe.py",
+                                             "wire_probe.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]

@@ -475,6 +475,26 @@ def test_pack_refuses_other_devices_and_unscalable_dtypes():
     assert flat.tolist() == [1, 2, 3]
 
 
+@pytest.mark.parametrize("item", [1, 4])
+def test_tables_split_chunks_and_run_offsets_on(item):
+    """K1's and K2's launch tables (``csrc/tensor_table.cuh``): at most
+    ``MAX_SEGS`` tensors a launch, each tensor's first element (or byte)
+    in the chunk, the offsets running on from one launch to the next."""
+    sizes = [3, 0, 5] * 100
+    ts = [torch.empty(n) for n in sizes]
+    got = list(fused_pack.tables(ts, item))
+    assert [n for _, _, n in got] == [128, 128, 44]
+    starts = np.concatenate([[0], np.cumsum(sizes)]) * item
+    at = 0
+    for ptrs, offs, n in got:
+        assert list(offs) == list(starts[at:at + n + 1])
+        assert list(ptrs) == [t.data_ptr() for t in ts[at:at + n]]
+        at += n
+    with pytest.raises(RuntimeError, match="error 7"):
+        fused_pack.check_launch("pack", 7)
+    fused_pack.check_launch("pack", 0)
+
+
 # --- the launcher -------------------------------------------------------------
 
 LAYOUTS = {"one-host": [("localhost", 2)],
