@@ -49,9 +49,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    cases (bf16, int8 and int4 at blocks 8, 9 (int4: 10), 256 and 1000;
    fp32, bf16 and fp16 chunks; lengths 1, block - 1 and block + 1, a
    chunk of 4.3 million elements, 300 tensors a chunk, misaligned starts;
-   all-zero, saturating and exact-tie blocks; error feedback on and off
-   over two rounds, prescale 1 and 0.7, 1 to 8 ranks, SUM and AVERAGE,
-   postscale 1 and 0.5);
+   at block 256 odd block counts (rows off 16-byte alignment), a block
+   across two tensors, starts 1, 2 and 3 elements in, one LM layer in
+   bf16 and fp16; all-zero, saturating and exact-tie blocks; error
+   feedback on and off over two rounds, prescale 1 and 0.7, 1 to 8 ranks,
+   SUM and AVERAGE, postscale 1 and 0.5), K3's own count of its
+   register-path blocks equal to the wrapper's;
 5. main path: ``hvd.init()`` (NCCL and the background runtime),
    ``broadcast_parameters`` and ``DistributedOptimizer(SGD(lr=1e-3,
    momentum=0.9))`` train the transformer LM at the full width of
@@ -98,17 +101,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    batches stand in for four ranks; the 74 that the runtime sends on the
    wire (the 25 norm scales are small leaves) chunk at 128 MiB and go
    through ``quant_sim_chunk_plan(4, AVERAGE, ...).execute_simulated`` for
-   the bf16, int8 and int4 wires, error feedback over two rounds, every
-   chunk's outputs and residuals bitwise equal to the plain version; K2's,
-   K3's and the reduce-unpack's launches are counted over that run, then
-   each is timed a step by events and device time beside its byte bound
-   and a composite yardstick (``torch.cat(...).to(bfloat16)``,
-   ``gathered.float().sum(0)``); and the world-of-one fallback: one hook
-   step with ``HOROVOD_COMPRESSION=int8`` at a world of one bitwise equal
-   to the uncompressed step, ``hvd_quant_fallback_total{reason=
-   "world_size"}`` counting each of the 99 gradients once;
+   the bf16, int8 and int4 wires, error feedback over two rounds, then
+   int8 and int4 without it, every chunk's outputs and residuals bitwise
+   equal to the plain version; K2's, K3's (with and without error
+   feedback) and the reduce-unpack's launches are counted over that run,
+   then each is timed a step by events and device time beside its byte
+   bound and a composite yardstick (``torch.cat(...).to(bfloat16)``,
+   ``gathered.float().sum(0)``), K3 with its blocks by path (every block
+   that lies in one tensor must take the register path) and the
+   reduce-unpack with its rows' load widths; and the world-of-one
+   fallback: one hook step with ``HOROVOD_COMPRESSION=int8`` at a world of
+   one bitwise equal to the uncompressed step,
+   ``hvd_quant_fallback_total{reason="world_size"}`` counting each of the
+   99 gradients once;
 9. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
-   that comes up through the ``TCPStore`` and the HMAC-signed KV store,
+   that comes up through the ``TCPStore`` (on the port rank 0 bound and
+   published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
    exits 0; the phase fails when the worker fails.
 
@@ -756,6 +764,9 @@ def k1_compaction_phase(device) -> dict:
 # (ranks, AVERAGE, postscale) cycled over the cases
 WIRE_REDUCE = ((1, False, 1.0), (2, True, 0.5), (3, True, 1.0),
                (4, False, 0.5), (8, True, 0.5), (3, False, 0.5))
+# one layer's wire gradients of the full-width LM, in backward order:
+# the FFN's two matrices, then o, v, k, q
+LM_LAYER = [8192 * 2048, 2048 * 8192] + [2048 * 2048] * 4
 
 
 def _wire_specs() -> list:
@@ -814,6 +825,10 @@ def _wire_case(spec, dtype, sizes, mis, special, pre, nrows, average, post,
     ef = spec.bits != 16 and spec.error_feedback
     gathered = torch.empty(nrows * nb, dtype=torch.uint8, device=device)
     res = [None] * nrows
+    # the kernel's own count of its register-path blocks, against the
+    # wrapper's count by the same rule
+    reg_blocks = torch.zeros(1, dtype=torch.int64, device=device)
+    reg0 = qw.quantize_paths["register"]
     for rnd in range(2 if ef else 1):
         for r in range(nrows):
             ts = _wire_tensors(sizes, dtype, device, seed + 97 * r + rnd,
@@ -830,7 +845,8 @@ def _wire_case(spec, dtype, sizes, mis, special, pre, nrows, average, post,
                     res[r] = [None if i % 3 == 1 else part.clone()
                               for i, part in enumerate(torch.split(
                                   res[r], list(sizes)))]
-                qw.quantize_pack(ts, row, spec, pre, res[r], new)
+                qw.quantize_pack(ts, row, spec, pre, res[r], new,
+                                 reg_blocks=reg_blocks)
                 qw.plain_quantize_pack(ts, ref, spec, pre, res[r], new_p)
                 if ef and not _same_bits(new, new_p):
                     raise AssertionError("K3's residual differs")
@@ -844,6 +860,10 @@ def _wire_case(spec, dtype, sizes, mis, special, pre, nrows, average, post,
         qw.plain_reduce_unpack(gathered, outs_p, spec, nrows, average, post)
         if not all(_same_bits(a, b) for a, b in zip(outs, outs_p)):
             raise AssertionError("the reduce-unpack differs")
+    if int(reg_blocks.item()) != qw.quantize_paths["register"] - reg0:
+        raise AssertionError(
+            f"K3 took {int(reg_blocks.item())} blocks on the register path, "
+            f"the wrapper counted {qw.quantize_paths['register'] - reg0}")
 
 
 def wire_check_phase(device) -> int:
@@ -851,14 +871,22 @@ def wire_check_phase(device) -> int:
     every wire and block, chunk dtypes fp32, bf16 and fp16, lengths 1,
     block - 1 and block + 1, the special blocks, 300 tensors a chunk (more
     than a table holds), misaligned starts, a chunk of 4.3 million
-    elements; error feedback on and off, prescale 1 and 0.7, and ranks,
-    op and postscale cycled over ``WIRE_REDUCE``."""
+    elements; at block 256 also odd block counts (rows that start off
+    16-byte alignment), a block across a tensor boundary, starts 1, 2 and
+    3 elements in, and one LM layer's gradients in bf16 and fp16; error
+    feedback on and off, prescale 1 and 0.7, and ranks, op and postscale
+    cycled over ``WIRE_REDUCE``. K3's register-path blocks, counted by the
+    kernel itself, must equal the wrapper's count in every case, and both
+    paths must run."""
     import random
 
     import torch
 
+    from horovod_tpu_torch.ops import quant_wire as qw
+
     rng = random.Random(1)
     n, seen = 0, set()
+    paths0 = dict(qw.quantize_paths)
     for spec in _wire_specs():
         b = spec.block if spec.bits != 16 else 256
         layouts = [([1], 0, False), ([b - 1], 0, False),
@@ -867,9 +895,20 @@ def wire_check_phase(device) -> int:
                    ([3 * b + 5, 7, 2 * b + 1], 1, True),
                    ([rng.randint(0, 70) for _ in range(300)], 0, False)]
         if b == 256:
-            layouts.append(([1_000_003, 5, 777_777, 0, 2_500_001], 3, True))
+            layouts += [
+                ([1_000_003, 5, 777_777, 0, 2_500_001], 3, True),
+                # odd block counts: rows 1-3 start off 16-byte alignment
+                ([3 * b + 1], 0, False), ([2 * b + 1], 0, True),
+                # a block across a tensor boundary
+                ([300, 500, 4 * b], 0, True),
+                # starts 1, 2 and 3 elements past an allocation
+                ([1000, 3 * b + 7, 40], 1, False),
+                ([1000, 3 * b + 7, 40], 2, True),
+                ([1000, 3 * b + 7, 40], 3, False)]
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            for sizes, mis, special in layouts:
+            lm = ([(LM_LAYER, 0, False)] if b == 256
+                  and dtype != torch.float32 else [])
+            for sizes, mis, special in layouts + lm:
                 n += 1
                 ef = spec.bits != 16 and n % 2 == 0
                 case = spec._replace(error_feedback=ef)
@@ -887,12 +926,21 @@ def wire_check_phase(device) -> int:
                         f"{'AVERAGE' if average else 'SUM'}, postscale "
                         f"{post}") from None
     torch.cuda.synchronize()
+    paths = {k: v - paths0[k] for k, v in qw.quantize_paths.items()}
     _log(f"  K2/K3: {n} cases (bf16, int8 and int4 at blocks 8, 9/10, 256, "
          "1000; fp32, bf16, fp16 chunks; lengths 1, block -+ 1; zero, "
-         "saturating and tie blocks; 300 tensors; misaligned; 4.3 million "
-         f"elements; {len(seen)} combinations of error feedback, prescale "
-         "1/0.7, 1-8 ranks, SUM/AVERAGE, postscale 1/0.5): rows, residuals "
-         "and outputs bitwise equal to the plain version")
+         "saturating and tie blocks; 300 tensors; misaligned by 1-3 "
+         "elements; odd block counts (rows off 16-byte alignment); a block "
+         "across tensors; 4.3 million elements; an LM layer's "
+         f"{sum(LM_LAYER)} elements in bf16 and fp16; {len(seen)} "
+         "combinations of error feedback, prescale 1/0.7, 1-8 ranks, "
+         "SUM/AVERAGE, postscale 1/0.5): rows, residuals and outputs "
+         f"bitwise equal to the plain version; K3's blocks by path {paths}, "
+         "the kernel's own count of register blocks equal to the "
+         "wrapper's in every case")
+    if not (paths["register"] and paths["general"]):
+        raise AssertionError(f"a K3 path never ran in the wire check: "
+                             f"{paths}")
     return n
 
 
@@ -1546,7 +1594,8 @@ def compression_path_phase(device, world: int = 4) -> list:
     the bf16, int8 and int4 wires, error feedback carried over two rounds
     (the second cuts the chunks otherwise, as the runtime's timing may,
     and each virtual rank's ``ResidualStore`` hands each tensor its own
-    residual);
+    residual), and int8 and int4 without error feedback
+    (``HOROVOD_QUANT_EF=0``);
     outputs and residuals must equal the plain version's bit for bit.
     Then each kernel is timed per step (all chunks) by events and device
     time beside its bound and a composite yardstick. Returns the kernel
@@ -1604,7 +1653,9 @@ def compression_path_phase(device, world: int = 4) -> list:
         raise AssertionError(f"an LM gradient matched an opt-out: {reasons}")
     wires = [("bf16", comp.make_cast_spec()),
              ("int8", comp.make_quant_spec(8, 256, True)),
-             ("int4", comp.make_quant_spec(4, 256, True))]
+             ("int4", comp.make_quant_spec(4, 256, True)),
+             ("int8_no_ef", comp.make_quant_spec(8, 256, False)),
+             ("int4_no_ef", comp.make_quant_spec(4, 256, False))]
     plans = {}
     _zero_launch_counts()  # just before the path runs
     for label, spec in wires:
@@ -1735,40 +1786,58 @@ def _time_wire(chunks, grads, plans, world) -> list:
     entry("wire_cast_pack", "torch.cat(ts).to(bfloat16)",
           "horovod_tpu/ops/collectives.py:1065", fns, total * (4 + 2))
     del rows16, lib16, flats
-    # K3: the quantize pack, int8 and int4 with error feedback (and int8
-    # without), the residual in and out
+    # K3: the quantize pack, int8 and int4, with error feedback (the
+    # residual in and out) and without; the blocks that lie in one tensor
+    # must all take the register path
+    starts = [[0] for _ in ins]
+    for c, st in zip(ins, starts):
+        for t in c:
+            st.append(st[-1] + t.numel())
+    in_one = sum(max(0, min(st[i + 1], st[-1]) // 256 - -(-st[i] // 256))
+                 for st in starts for i in range(len(st) - 1))
     for bits in (8, 4):
-        spec = comp.make_quant_spec(bits, 256, True)
-        lay = [comp.quant_wire_layout(n, spec) for n in sizes]
+        lay = [comp.quant_wire_layout(n, comp.make_quant_spec(bits, 256,
+                                                              True))
+               for n in sizes]
         rows = [torch.empty(p + s, dtype=torch.uint8, device=dev)
                 for _, _, p, s in lay]
-        # one residual a tensor, as the runtime's store keeps them
-        res = [[torch.zeros(t.numel(), device=dev) for t in c] for c in ins]
-        new = [torch.empty(n, device=dev) for n in sizes]
         wire = sum(p + s for _, _, p, s in lay)
-        extra = {}
-        if bits == 8:
-            spec_nf = spec._replace(error_feedback=False)
-            kfn = (lambda: [qw.quantize_pack(c, r, spec_nf) for c, r in
-                            zip(ins, rows)])
-            extra = {"no_ef_ms": time_ms(kfn, iters=5),
-                     "no_ef_device_ms": device_ms(kfn, iters=3, warmup=1),
-                     "no_ef_bound_ms": (total * 4 + wire) / HBM_BYTES_PER_S
-                     * 1e3}
-            _log(f"    without error feedback: {extra['no_ef_ms']:.4f} ms "
-                 f"by events, {extra['no_ef_device_ms']:.4f} device, bound "
-                 f"{extra['no_ef_bound_ms']:.4f} ms")
-        entry(f"wire_quantize_int{bits}", "",
-              "horovod_tpu/ops/compression.py:299 (in collectives.py:987)",
-              {"kernel": lambda: [qw.quantize_pack(c, r, spec, 1.0, x, y)
-                                  for c, r, x, y in
-                                  zip(ins, rows, res, new)],
-               "plain": lambda: [qw.plain_quantize_pack(c, r, spec, 1.0,
-                                                        x, y)
-                                 for c, r, x, y in
-                                 zip(ins, rows, res, new)]},
-              total * 12 + wire, extra)
-        del rows, res, new
+        for ef in (True, False):
+            spec = comp.make_quant_spec(bits, 256, ef)
+            # one residual a tensor, as the runtime's store keeps them
+            res = ([[torch.zeros(t.numel(), device=dev) for t in c]
+                    for c in ins] if ef else [None] * len(ins))
+            new = ([torch.empty(n, device=dev) for n in sizes] if ef
+                   else [None] * len(ins))
+            reg_blocks = torch.zeros(1, dtype=torch.int64, device=dev)
+            paths0 = dict(qw.quantize_paths)
+            for c, r, x, y in zip(ins, rows, res, new):
+                qw.quantize_pack(c, r, spec, 1.0, x, y, reg_blocks=reg_blocks)
+            paths = {k: v - paths0[k] for k, v in qw.quantize_paths.items()}
+            if (paths["register"] != in_one
+                    or int(reg_blocks.item()) != in_one):
+                raise AssertionError(
+                    f"K3 int{bits}: {paths} blocks by path (the kernel "
+                    f"counted {int(reg_blocks.item())} register blocks), "
+                    f"but {in_one} blocks lie in one tensor")
+            _log(f"  K3 int{bits}{'' if ef else ' without error feedback'}"
+                 f" a step: blocks by path {paths} (every block in one "
+                 "tensor on the register path; the kernel's own count "
+                 "agrees)")
+            entry(f"wire_quantize_int{bits}" + ("" if ef else "_no_ef"), "",
+                  "horovod_tpu/ops/compression.py:299 (in "
+                  "collectives.py:987)",
+                  {"kernel": lambda: [qw.quantize_pack(c, r, spec, 1.0, x, y)
+                                      for c, r, x, y in
+                                      zip(ins, rows, res, new)],
+                   "plain": lambda: [qw.plain_quantize_pack(c, r, spec, 1.0,
+                                                            x, y)
+                                     for c, r, x, y in
+                                     zip(ins, rows, res, new)]},
+                  total * (12 if ef else 4) + wire,
+                  {"block_paths": paths})
+            del res, new
+        del rows
     # the reduce-unpack at `world` rows, each wire, fp32 outputs
     for label in ("bf16", "int8", "int4"):
         spec = plans[label, 0].spec
@@ -1786,6 +1855,11 @@ def _time_wire(chunks, grads, plans, world) -> list:
                     qw.quantize_pack([grads[r][i] for i in chunks[c]],
                                      g[r * nb:(r + 1) * nb],
                                      spec._replace(error_feedback=False))
+        widths = sorted({tuple(qw.row_load_widths(
+            g.data_ptr(), g.numel() // world, world, spec.bits))
+            for g in gath})
+        _log(f"  reduce-unpack {label}: rows' load widths (bytes) "
+             f"{widths}")
         fns = {"kernel": lambda: [qw.reduce_unpack(g, o, spec, world, True)
                                   for g, o in zip(gath, outs)],
                "plain": lambda: [qw.plain_reduce_unpack(g, o, spec, world,
@@ -1800,7 +1874,8 @@ def _time_wire(chunks, grads, plans, world) -> list:
         entry(f"wire_reduce_{label}", src,
               "horovod_tpu/ops/collectives.py:1072" if label == "bf16"
               else "horovod_tpu/ops/collectives.py:996",
-              fns, sum(g.numel() for g in gath) + total * 4)
+              fns, sum(g.numel() for g in gath) + total * 4,
+              {"row_load_widths": [list(w) for w in widths]})
         del gath
     return out
 
@@ -1859,7 +1934,8 @@ from horovod_tpu_torch.runner.http_server import KVStoreClient
 
 hvd.init()
 assert hvd.device() == torch.device("cuda", hvd.local_rank()), hvd.device()
-assert os.environ["MASTER_PORT"] and os.environ["HOROVOD_SECRET_KEY"]
+# rank 0 bound its store's port itself (the launcher sets none)
+assert "MASTER_PORT" not in os.environ and os.environ["HOROVOD_SECRET_KEY"]
 kv = KVStoreClient(os.environ["HOROVOD_GLOO_RENDEZVOUS_ADDR"],
                    int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]))
 kv.put("smoke", f"rank{hvd.rank()}", b"up")
@@ -1883,6 +1959,7 @@ def launcher_phase(root: str):
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
            sys.executable, "-c", LAUNCHED_WORKER]
     env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MASTER_PORT", None)  # rank 0 picks its store's port
     t0 = time.perf_counter()
     # a session of its own, so a timeout ends the launcher and its worker
     p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,

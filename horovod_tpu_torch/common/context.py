@@ -10,7 +10,11 @@ The data plane is ``torch.distributed``: NCCL on the GPU, gloo on the CPU.
   an in-process ``HashStore``: a single-GPU run still goes through a real
   NCCL communicator and needs no free port.
 - Under a launcher the group rendezvouses through a ``TCPStore`` hosted by
-  rank 0 at ``MASTER_ADDR``/``MASTER_PORT``.
+  rank 0 at ``MASTER_ADDR``. Rank 0 opens it on port 0, so the port is the
+  one the OS gave the socket that holds it, and publishes that port through
+  the launcher's KV store (``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT``); the
+  other ranks read it there before they dial. A ``MASTER_PORT`` set by the
+  user wins.
 
 Without CUDA, ``init`` raises unless the caller asks for
 ``device="cpu"``: it never carries on silently on the CPU. ``init`` warns
@@ -60,6 +64,8 @@ from .exceptions import HorovodInternalError
 _KV_KEY = "horovod_tpu_torch/kv"
 
 _STORE_TIMEOUT = datetime.timedelta(seconds=300)
+# where rank 0 publishes its TCPStore's port in the launcher's KV store
+_STORE_PORT_SCOPE, _STORE_PORT_KEY = "horovod_tpu_torch", "tcp_store_port"
 
 
 class ProcessSet:
@@ -117,6 +123,7 @@ class _Context:
         self.config: Optional[env_schema.RuntimeConfig] = None
         self.runtime = None
         self.kv_server = None  # a store rank 0 serves without a launcher
+        self.inits = 0  # completed inits of this process
 
 
 _ctx = _Context()
@@ -143,16 +150,45 @@ def _resolve_device(device, local_rank: int) -> torch.device:
     return device
 
 
+def _launcher_kv():
+    """The launcher's KV store client, or None when no launcher gave its
+    address."""
+    from ..runner.http_server import KVStoreClient
+
+    addr = os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR)
+    port = os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_PORT)
+    if addr and port:
+        return KVStoreClient(addr, int(port))
+    return None
+
+
 def _store(rank: int, size: int):
     if os.environ.get(env_schema.HOROVOD_RANK) is None:
         return dist.HashStore()
-    port = os.environ.get(env_schema.MASTER_PORT)
-    if port is None:
-        raise RuntimeError(
-            f"{env_schema.HOROVOD_RANK} is set but {env_schema.MASTER_PORT} "
-            "is not: a launched worker needs the rendezvous address")
     addr = os.environ.get(env_schema.MASTER_ADDR, "127.0.0.1")
-    return dist.TCPStore(addr, int(port), size, is_master=(rank == 0),
+    port = os.environ.get(env_schema.MASTER_PORT)
+    if port is not None:
+        return dist.TCPStore(addr, int(port), size, is_master=(rank == 0),
+                             timeout=_STORE_TIMEOUT)
+    kv = _launcher_kv()
+    if kv is None:
+        raise RuntimeError(
+            f"{env_schema.HOROVOD_RANK} is set but neither "
+            f"{env_schema.MASTER_PORT} nor the launcher's rendezvous "
+            f"address ({env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR}/_PORT) is: "
+            "a launched worker needs one of them")
+    # one key an init, so a re-init never reads the port of a store gone
+    key = f"{_STORE_PORT_KEY}.{_ctx.inits}"
+    if rank == 0:
+        # the OS picks the port of the socket the store holds: no other
+        # process can take it between the choice and the bind
+        store = dist.TCPStore(addr, 0, size, is_master=True,
+                              timeout=_STORE_TIMEOUT, wait_for_workers=False)
+        kv.put(_STORE_PORT_SCOPE, key, str(store.port).encode())
+        return store
+    port = int(kv.get(_STORE_PORT_SCOPE, key,
+                      timeout=_STORE_TIMEOUT.total_seconds()))
+    return dist.TCPStore(addr, port, size, is_master=False,
                          timeout=_STORE_TIMEOUT)
 
 
@@ -195,6 +231,7 @@ def init(device=None):
         _ctx.config = config
         _start_runtime(store)
         _ctx.initialized = True
+        _ctx.inits += 1
 
 
 def _kv_client(store):
@@ -202,10 +239,9 @@ def _kv_client(store):
     one rank 0 serves when no launcher gave an address."""
     from ..runner.http_server import KVStoreClient, RendezvousServer
 
-    addr = os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR)
-    port = os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_PORT)
-    if addr and port:
-        return KVStoreClient(addr, int(port))
+    kv = _launcher_kv()
+    if kv is not None:
+        return kv
     if _ctx.rank == 0:
         from ..runner.secret import make_secret_key
 

@@ -30,12 +30,19 @@ both JAX plans widen the chunk to fp32 and multiply by the fp32 factor.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel on PyTorch's current stream, or raise. ``kernel_launches`` counts
-the launches by kernel and wire.
+the launches by kernel and wire (K3 without error feedback under its own
+``_no_ef`` names); ``quantize_paths`` counts K3's blocks by the path the
+kernel takes them on (``quantize_block_paths``): ``register`` (a block of
+256 in one tensor, 16-byte aligned, quantized from registers) or
+``general`` (the two-pass walk). The reduce-unpack gives each thread a run
+of ``RUN`` elements; ``row_load_widths`` says how wide each row's loads
+are.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -53,9 +60,14 @@ DTYPES = tuple(_CODES)
 
 # launches, by kernel and wire (read and reset by chip_smoke.py)
 kernel_launches = {"wire_cast_pack": 0, "wire_quantize_int8": 0,
-                   "wire_quantize_int4": 0, "wire_reduce_bf16": 0,
+                   "wire_quantize_int4": 0, "wire_quantize_int8_no_ef": 0,
+                   "wire_quantize_int4_no_ef": 0, "wire_reduce_bf16": 0,
                    "wire_reduce_int8": 0, "wire_reduce_int4": 0}
+# K3's blocks by path, over every launch (read and reset by chip_smoke.py)
+quantize_paths = {"register": 0, "general": 0}
 _WIRE_NAME = {16: "bf16", 8: "int8", 4: "int4"}
+REG_BLOCK = 256  # kRegBlock: the block size K3 quantizes from registers
+RUN = 16         # kRun: the elements a thread of the reduce-unpack takes
 
 _fns: dict = {}
 
@@ -71,7 +83,7 @@ def _kernel(name: str):
         fn.argtypes = {
             "hvd_cast_pack": [I, P, P, I, P, F, I, I, P],
             "hvd_quantize_pack": [I, I, I, P, P, I, P, L, L, L, P, I, F, P,
-                                  P, I, P],
+                                  P, P, I, P],
             "hvd_reduce_unpack": [I, I, I, P, L, L, I, P, P, I, L, L, F, I,
                                   I, P],
         }[name]
@@ -202,6 +214,58 @@ def _table(tensors, idx: list, ptrs=None):
                         + [starts[idx[-1]] + tensors[idx[-1]].numel()])
 
 
+def access_width(addr: int, nbytes: int) -> int:
+    """The bytes of each load or store the kernels make to move ``nbytes``
+    (a multiple of 4) at ``addr``: as wide as the address's alignment
+    allows, at most 16 (``load_bytes`` / ``store_bytes``)."""
+    if nbytes % 16 == 0 and addr % 16 == 0:
+        return 16
+    if nbytes % 8 == 0 and addr % 8 == 0:
+        return 8
+    for w in (4, 2):
+        if addr % w == 0:
+            return w
+    return 1
+
+
+def row_load_widths(addr: int, row_bytes_: int, nrows: int,
+                    bits: int) -> list:
+    """The reduce-unpack's load width in each row of ``gathered`` at
+    ``addr``: a run's ``RUN * bits / 8`` bytes start at a multiple of that
+    count in its row, so the row's start decides."""
+    return [access_width(addr + r * row_bytes_, RUN * bits // 8)
+            for r in range(nrows)]
+
+
+def quantize_block_paths(starts: list, idx: list, ptrs: list, res_ptrs,
+                         item: int, block: int, total: int, b0: int, b1: int,
+                         ef: bool, res_out: int) -> tuple:
+    """(register, general): how many of the blocks [b0, b1) of one K3
+    launch over the tensors ``idx`` of a chunk (tensor i spans elements
+    ``starts[i]`` to ``starts[i + 1]``) take each path, by the kernel's
+    rule (``register_path``): a block of ``REG_BLOCK`` elements that lies
+    in one tensor and before the padding at ``total``, whose source
+    (``ptrs``, elements of ``item`` bytes) and, with error feedback,
+    residual (``res_ptrs``, 0 or None for zeros) and new residual
+    (``res_out``) are 16-byte aligned at the block's first element."""
+    reg = 0
+    if block == REG_BLOCK:
+        for k, i in enumerate(idx):
+            s, e = starts[i], min(starts[i + 1], total)
+            lo = max(-(-s // block), b0)
+            hi = min(e // block, b1)
+            if hi <= lo:
+                continue
+            j = lo * block - s  # the first full block's offset in the tensor
+            ok = (ptrs[k] + j * item) % 16 == 0
+            if ef:
+                r = res_ptrs[k] if res_ptrs is not None else 0
+                ok = ok and res_out % 16 == 0 and (
+                    not r or (r + j * 4) % 16 == 0)
+            reg += (hi - lo) if ok else 0
+    return reg, (b1 - b0) - reg
+
+
 # --- K2: the cast pack -----------------------------------------------------
 
 def plain_cast_pack(tensors, row: torch.Tensor, pre: float = 1.0):
@@ -282,11 +346,15 @@ def plain_quantize_pack(tensors, row: torch.Tensor, spec: comp.QuantSpec,
 
 def quantize_pack(tensors, row: torch.Tensor, spec: comp.QuantSpec,
                   pre: float = 1.0, residual=None,
-                  new_residual: Optional[torch.Tensor] = None):
+                  new_residual: Optional[torch.Tensor] = None,
+                  reg_blocks: Optional[torch.Tensor] = None):
     """The chunk's tensors, prescaled and folded with ``residual`` (one
     fp32 tensor or None a tensor, a flat fp32 tensor of the chunk, or
     None), into a quantized wire row; with error feedback the error lands
-    in ``new_residual`` (a flat buffer of its own)."""
+    in ``new_residual`` (a flat buffer of its own). ``reg_blocks``, a
+    one-element int64 tensor on the row's device, receives the kernel's
+    own count of its register-path blocks (a check of
+    ``quantize_block_paths``; the plain version leaves it alone)."""
     tensors = list(tensors)
     total = _check_inputs(tensors, row.device, "quantize_pack")
     padded, nblocks, payload, scales = comp.quant_wire_layout(total, spec)
@@ -313,21 +381,38 @@ def quantize_pack(tensors, row: torch.Tensor, spec: comp.QuantSpec,
     if row.device.type != "cuda":
         raise ValueError(f"quantize_pack runs on CUDA or the CPU, not "
                          f"{row.device}")
+    if reg_blocks is not None and (reg_blocks.dtype != torch.int64
+                                   or reg_blocks.numel() != 1
+                                   or reg_blocks.device != row.device):
+        raise ValueError("reg_blocks is one int64 element on the row's "
+                         "device")
     mode = int(pre != 1.0) | (2 if ef else 0)
     fn, dev, block = _kernel("hvd_quantize_pack"), row.device, spec.block
-    name = "wire_quantize_" + _WIRE_NAME[spec.bits]
+    name = "wire_quantize_" + _WIRE_NAME[spec.bits] + ("" if ef else "_no_ef")
     base = row.data_ptr()
-    for e0, e1, idx in _launch_ranges([t.numel() for t in tensors], block,
-                                      padded):
+    sizes = [t.numel() for t in tensors]
+    starts = [0, *itertools.accumulate(sizes)]
+    res_out = new_residual.data_ptr() if ef else 0
+    item = tensors[0].element_size()
+    for e0, e1, idx in _launch_ranges(sizes, block, padded):
         ptrs, offs = _table(tensors, idx)
-        rptrs = (None if res is None else (ctypes.c_ulonglong * len(idx))(
-            *[0 if res[i] is None else res[i].data_ptr() for i in idx]))
+        rlist = (None if res is None else
+                 [0 if res[i] is None else res[i].data_ptr() for i in idx])
+        rptrs = (None if rlist is None
+                 else (ctypes.c_ulonglong * len(idx))(*rlist))
+        b0, b1 = e0 // block, -(-e1 // block)
         check_launch("quantize_pack", fn(
             _CODES[tensors[0].dtype], spec.bits, block, ptrs, offs,
-            len(idx), rptrs, e0 // block, -(-e1 // block), total,
-            new_residual.data_ptr() if ef else None, mode, _f32(pre),
-            base, base + payload, dev.index, current_stream(dev)))
+            len(idx), rptrs, b0, b1, total, res_out or None, mode,
+            _f32(pre), base, base + payload,
+            None if reg_blocks is None else reg_blocks.data_ptr(),
+            dev.index, current_stream(dev)))
         kernel_launches[name] += 1
+        reg, gen = quantize_block_paths(
+            starts, idx, list(ptrs), rlist, item, block, total, b0, b1, ef,
+            res_out)
+        quantize_paths["register"] += reg
+        quantize_paths["general"] += gen
 
 
 # --- K2/K3: the reduce-unpack -----------------------------------------------
@@ -374,7 +459,7 @@ def reduce_unpack(gathered: torch.Tensor, outputs, spec: comp.QuantSpec,
                if spec.bits != 16 else 0)
     fn, dev = _kernel("hvd_reduce_unpack"), gathered.device
     name = "wire_reduce_" + _WIRE_NAME[spec.bits]
-    for e0, e1, idx in _launch_ranges([o.numel() for o in outputs], 1,
+    for e0, e1, idx in _launch_ranges([o.numel() for o in outputs], RUN,
                                       total):
         ptrs, offs = _table(outputs, idx)
         check_launch("reduce_unpack", fn(

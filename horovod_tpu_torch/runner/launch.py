@@ -8,10 +8,13 @@
 The launcher mints the job's HMAC secret, starts the rendezvous KV store
 (``runner/http_server.py``) that carries negotiation, and starts one worker
 per slot with the slot's ``HOROVOD_*`` environment. Beside the JAX
-package's variables, each slot gets ``MASTER_ADDR``/``MASTER_PORT``, where
-rank 0 hosts the ``torch.distributed`` ``TCPStore``; the JAX package's
-``HOROVOD_TPU_*`` variables are not set. One process drives one GPU: a
-worker takes ``cuda:<HOROVOD_LOCAL_RANK>`` (``common/context.py``). The
+package's variables, each slot gets ``MASTER_ADDR``, the host where rank 0
+serves the ``torch.distributed`` ``TCPStore``. Its port is not chosen here:
+rank 0 binds port 0 and publishes the port it got through the KV store
+(``common/context.py``), so no other process can take it in between. A
+``MASTER_PORT`` the user sets reaches every slot and wins. The JAX
+package's ``HOROVOD_TPU_*`` variables are not set. One process drives one
+GPU: a worker takes ``cuda:<HOROVOD_LOCAL_RANK>`` (``common/context.py``). The
 first worker to fail ends the job, and its exit code is the launcher's.
 Elastic launches, config files and the JAX package's runtime knobs that the
 port does not read are left out.
@@ -23,7 +26,6 @@ import argparse
 import os
 import shlex
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -40,17 +42,12 @@ _IMPORT_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("", 0))
-        return s.getsockname()[1]
-
-
 def slot_env(slot: SlotInfo, rendezvous_addr: str, rendezvous_port: int,
              coordinator: str, extra_env: Optional[dict] = None) -> dict:
     """One slot's environment. ``coordinator`` is ``addr:port`` of rank 0's
-    ``TCPStore``. Workers can import the port even when the launcher runs
-    from a source checkout: its import root leads ``PYTHONPATH``."""
+    ``TCPStore``, or ``addr:`` when rank 0 picks the port itself. Workers
+    can import the port even when the launcher runs from a source checkout:
+    its import root leads ``PYTHONPATH``."""
     e = dict(os.environ)
     pythonpath = e.get("PYTHONPATH", "")
     if _IMPORT_ROOT not in pythonpath.split(os.pathsep):
@@ -68,8 +65,9 @@ def slot_env(slot: SlotInfo, rendezvous_addr: str, rendezvous_port: int,
         env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR: rendezvous_addr,
         env_schema.HOROVOD_GLOO_RENDEZVOUS_PORT: str(rendezvous_port),
         env_schema.MASTER_ADDR: master_addr,
-        env_schema.MASTER_PORT: master_port,
     })
+    if master_port:
+        e[env_schema.MASTER_PORT] = master_port
     if extra_env:
         e.update(extra_env)
     return e
@@ -154,10 +152,12 @@ def launch_slots(command: list[str], slots: list[SlotInfo], *,
             remote, iface_override=network_interface or os.environ.get(
                 env_schema.HOROVOD_GLOO_IFACE))
     # rank 0 serves the TCPStore, so workers dial rank 0's host, which is
-    # not the launcher's when the launcher holds no rank-0 slot
+    # not the launcher's when the launcher holds no rank-0 slot; rank 0
+    # picks the port unless the user set one
     store_host = (addr if is_local_host(slots[0].hostname)
                   else slots[0].hostname)
-    coordinator = f"{store_host}:{_free_port()}"
+    coordinator = (f"{store_host}:"
+                   f"{os.environ.get(env_schema.MASTER_PORT, '')}")
 
     procs: list[subprocess.Popen] = []
     threads = []

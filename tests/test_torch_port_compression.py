@@ -33,6 +33,7 @@ The 2-process jobs through both packages' ``hvdrun`` are in
 Mirrors ``tests/test_quantized.py``.
 """
 
+import itertools
 import os
 import subprocess
 import sys
@@ -411,6 +412,352 @@ def test_wire_entries_refuse_other_devices():
     with pytest.raises(ValueError, match="must not share memory"):
         qw.quantize_pack([torch.ones(8)], torch.empty(10, dtype=torch.uint8),
                          spec, 1.0, r, r)
+
+
+# --- the redesigned kernels' host-side rules, and their arithmetic ----------
+#
+# The kernels run only on the card; these hold the rules the wrappers and
+# chip_smoke.py apply around them, and the kernels' arithmetic emulated in
+# numpy step by step, against the plain versions.
+
+MAGIC = np.float32(12582912.0)  # 1.5 * 2^23, csrc/quant_wire.cu kMagic
+
+
+def test_reduce_launches_cut_at_runs():
+    """The reduce-unpack's launches cut the chunk at multiples of ``RUN``
+    (a run is one thread's), each table within ``MAX_SEGS`` tensors."""
+    rs = np.random.RandomState(5)
+    sizes = [int(n) for n in rs.randint(0, 70, 300)]
+    total = sum(sizes)
+    ranges = qw._launch_ranges(sizes, qw.RUN, total)
+    assert len(ranges) > 1 and ranges[0][0] == 0 and ranges[-1][1] == total
+    starts = np.cumsum([0] + sizes)
+    for (a, b, idx), (c, _, _) in zip(ranges, ranges[1:]):
+        assert b == c and b % qw.RUN == 0 and len(idx) <= qw.MAX_SEGS
+    for a, b, idx in ranges:
+        # every element of the range lies in a tensor of its table
+        assert starts[idx[0]] <= a and starts[idx[-1] + 1] >= b
+
+
+@pytest.mark.parametrize("addr,nbytes,width", [
+    (0, 32, 16), (16, 16, 16), (8, 16, 8), (8, 8, 8), (0, 8, 8),
+    (4, 16, 4), (12, 8, 4), (6, 16, 2), (2, 8, 2), (1, 16, 1), (7, 8, 1),
+    (0, 4, 4), (2, 4, 2), (3, 64, 1), (32, 64, 16), (40, 64, 8)])
+def test_access_width_follows_alignment(addr, nbytes, width):
+    assert qw.access_width(addr, nbytes) == width
+
+
+@pytest.mark.parametrize("bits,nblocks,widths", [
+    (8, 3, [16, 2, 4, 2]),     # rows of 774 bytes: 774 % 16 = 6
+    (8, 4, [16, 8, 16, 8]),    # 1032 bytes
+    (4, 3, [8, 2, 4, 2]),      # 390 bytes; a run is 8 bytes
+    (16, 0, [16, 2, 4, 2])])   # bf16 rows of 2 * 513 elements
+def test_row_load_widths_of_rows_that_start_misaligned(bits, nblocks,
+                                                       widths):
+    if bits == 16:
+        nb = qw.row_bytes(513, pcomp.make_cast_spec())
+    else:
+        spec = pcomp.make_quant_spec(bits, 256, True)
+        nb = qw.row_bytes(nblocks * 256, spec)
+    assert qw.row_load_widths(1 << 20, nb, 4, bits) == widths
+
+
+def _block_paths_walk(sizes, idx, ptrs, res_ptrs, item, block, total, b0,
+                      b1, ef, res_out):
+    """The kernel's rule block by block (``register_path`` after
+    ``find_seg`` over the launch's table, the tensors ``idx``)."""
+    starts = np.cumsum([0] + list(sizes))
+    reg = 0
+    for b in range(b0, b1):
+        base = b * block
+        k = max([k for k, i in enumerate(idx) if starts[i] <= base],
+                default=0)
+        seg = idx[k]
+        if block != qw.REG_BLOCK or base + block > min(total,
+                                                       starts[seg + 1]):
+            continue
+        j = base - starts[seg]
+        if (ptrs[k] + j * item) % 16:
+            continue
+        if ef:
+            r = res_ptrs[k] if res_ptrs else 0
+            if res_out % 16 or (r and (r + j * 4) % 16):
+                continue
+        reg += 1
+    return reg, (b1 - b0) - reg
+
+
+@pytest.mark.parametrize("sizes,mis,item,ef,res_mis,out_mis,want", [
+    ([769], 0, 4, False, 0, 0, (3, 1)),      # the padding block: general
+    ([300, 500], 0, 4, False, 0, 0, (2, 2)),  # block 1 straddles
+    ([1000, 3000], 1, 4, False, 0, 0, (0, 16)),  # a start 1 element in
+    ([1000, 3000], 4, 4, False, 0, 0, (14, 2)),  # 4 elements: 16 bytes
+    ([1000, 3000], 2, 2, False, 0, 0, (0, 16)),  # bf16, 4 bytes in
+    ([1000, 3000], 8, 2, False, 0, 0, (14, 2)),  # bf16, 16 bytes in
+    ([512, 256], 0, 4, True, 0, 0, (3, 0)),
+    ([512, 256], 0, 4, True, 1, 0, (1, 2)),   # tensor 0's residual
+    ([512, 256], 0, 4, True, 0, 1, (0, 3)),   # the new residual
+    ([512, 256], 0, 8, True, 0, 0, (3, 0))])  # fp64
+def test_quantize_block_paths_count_by_the_kernel_rule(
+        sizes, mis, item, ef, res_mis, out_mis, want):
+    """Tensors allocated 256-byte aligned and started ``mis`` elements in;
+    residuals of tensor 0 ``res_mis`` elements in, the new residual
+    ``out_mis``."""
+    total = sum(sizes)
+    nblocks = -(-total // 256)
+    ptrs = [(i + 1) * (1 << 20) + mis * item for i in range(len(sizes))]
+    res = [(i + 9) * (1 << 20) + (res_mis * 4 if i == 0 else 0)
+           for i in range(len(sizes))]
+    out = (1 << 30) + out_mis * 4
+    idx = list(range(len(sizes)))
+    starts = [0, *itertools.accumulate(sizes)]
+    got = qw.quantize_block_paths(starts, idx, ptrs, res, item, 256, total,
+                                  0, nblocks, ef, out)
+    assert got == want
+    assert got == _block_paths_walk(sizes, idx, ptrs, res, item, 256, total,
+                                    0, nblocks, ef, out)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_quantize_block_paths_match_a_walk_of_every_block(seed):
+    """Random chunks (empty tensors, residuals missing, misaligned
+    starts) cut into the wrapper's launches: the arithmetic count equals
+    the kernel's rule applied block by block, launch by launch."""
+    rs = np.random.RandomState(seed)
+    sizes = [int(rs.choice([0, 3, 256, 300, 512, 1000, 4096]))
+             for _ in range(rs.randint(1, 200))]
+    total = sum(sizes)
+    if total == 0:
+        sizes, total = [256], 256
+    item = int(rs.choice([2, 4, 8]))
+    ef = bool(seed % 2)
+    ptrs = [(i + 1) * (1 << 16) + int(rs.choice([0, 0, 0, 1, 2])) * item
+            for i in range(len(sizes))]
+    res = [0 if rs.rand() < 0.3 else (i + 1) * (1 << 24)
+           + 4 * int(rs.choice([0, 0, 1])) for i in range(len(sizes))]
+    out = 1 << 40
+    padded = -(-total // 256) * 256
+    starts = [0, *itertools.accumulate(sizes)]
+    reg = gen = 0
+    for e0, e1, idx in qw._launch_ranges(sizes, 256, padded):
+        b0, b1 = e0 // 256, -(-e1 // 256)
+        got = qw.quantize_block_paths(
+            starts, idx, [ptrs[i] for i in idx], [res[i] for i in idx], item,
+            256, total, b0, b1, ef, out)
+        want = _block_paths_walk(
+            sizes, idx, [ptrs[i] for i in idx], [res[i] for i in idx], item,
+            256, total, b0, b1, ef, out)
+        assert got == want
+        reg, gen = reg + got[0], gen + got[1]
+    assert reg + gen == padded // 256
+
+
+def _emulate_reduce_unpack(gathered, sizes, spec, nrows, factor):
+    """csrc/quant_wire.cu reduce_unpack_kernel over one launch of the
+    whole chunk, in numpy: runs of ``RUN`` elements from element 0; a run
+    in range (and blocks of at least a run) takes reduce_run's arithmetic
+    (the run's block by a shift or a division, the scale split where the
+    block size is not a multiple of ``RUN``, an int8/int4 value's offset
+    byte placed in 1.5 * 2^23's mantissa by ``__byte_perm``, the int4
+    nibbles split into even and odd bytes first, acc + q * scale as one
+    fused multiply-add, which q * scale's exactness makes one fp32 add),
+    the others ``deq`` element by element. Returns (the fp32 results, runs
+    taken whole)."""
+    total = sum(sizes)
+    bits, block = spec.bits, spec.block
+    rows = gathered.reshape(nrows, -1)
+    payload = 0 if bits == 16 else pcomp.quant_wire_layout(total, spec)[2]
+
+    def scale(r, b):
+        lo, hi = rows[r, payload + 2 * b], rows[r, payload + 2 * b + 1]
+        return np.uint32((int(hi) << 8 | int(lo)) << 16).view(np.float32)
+
+    def deq(r, e):  # the general path's element
+        if bits == 16:
+            v = int(rows[r, 2 * e]) | int(rows[r, 2 * e + 1]) << 8
+            return np.uint32(v << 16).view(np.float32)
+        if bits == 8:
+            q = int(np.uint8(rows[r, e]).view(np.int8))
+        else:
+            byte = int(rows[r, e >> 1])
+            q = ((((byte >> 4) if e & 1 else byte) & 0xF) ^ 8) - 8
+        return np.float32(q) * scale(r, e // block)
+
+    def byte_perm(x, y, sel):  # __byte_perm without the sign modes
+        src = [(x >> (8 * k)) & 0xFF for k in range(4)] + \
+              [(y >> (8 * k)) & 0xFF for k in range(4)]
+        return sum(src[(sel >> (4 * k)) & 7] << (8 * k) for k in range(4))
+
+    def run_q(r, a):  # run_bytes, run_offset_value, less the offset
+        nb = qw.RUN * bits // 8
+        raw = rows[r, a * bits // 8:a * bits // 8 + nb]
+        w = [int(raw[4 * k]) | int(raw[4 * k + 1]) << 8
+             | int(raw[4 * k + 2]) << 16 | int(raw[4 * k + 3]) << 24
+             for k in range(nb // 4)]
+        if bits == 8:
+            u = [x ^ 0x80808080 for x in w]
+            word = [u[i // 4] for i in range(qw.RUN)]
+            byte = [i % 4 for i in range(qw.RUN)]
+            off = MAGIC + np.float32(128)
+        else:
+            u = []
+            for x in w:
+                x ^= 0x88888888
+                u += [x & 0x0F0F0F0F, (x >> 4) & 0x0F0F0F0F]
+            word = [u[2 * (i // 8) + (i & 1)] for i in range(qw.RUN)]
+            byte = [(i % 8) // 2 for i in range(qw.RUN)]
+            off = MAGIC + np.float32(8)
+        return [np.uint32(byte_perm(word[i], 0x4B400000, 0x7640 | byte[i]))
+                .view(np.float32) - off for i in range(qw.RUN)]
+
+    out = np.zeros(total, np.float32)
+    whole = 0
+    for a in range(0, total, qw.RUN):
+        b = min(total, a + qw.RUN)
+        if b - a == qw.RUN and (bits == 16 or block >= qw.RUN):
+            whole += 1
+            if bits != 16:
+                b0 = (a >> (block.bit_length() - 1) if not block & (block - 1)
+                      else a // block)
+                split = (qw.RUN if block % qw.RUN == 0
+                         else min((b0 + 1) * block - a, qw.RUN))
+            acc = np.zeros(qw.RUN, np.float32)
+            for r in range(nrows):
+                qs = None if bits == 16 else run_q(r, a)
+                for i in range(qw.RUN):
+                    if bits == 16:
+                        x = deq(r, a + i)
+                        acc[i] = x if r == 0 else acc[i] + x
+                        continue
+                    sc = scale(r, b0 if i < split else b0 + 1)
+                    assert sc <= 2.0 ** 120  # else the kernel takes deq
+                    p = qs[i] * sc  # exact
+                    acc[i] = p if r == 0 else acc[i] + p
+            out[a:b] = acc
+        else:
+            for e in range(a, b):
+                acc = deq(0, e)
+                for r in range(1, nrows):
+                    acc = acc + deq(r, e)
+                out[e] = acc
+    if factor is not None:
+        out = out * np.float32(factor)
+    return out, whole
+
+
+@pytest.mark.parametrize("wire,block", [(16, 256), (8, 256), (4, 256),
+                                        (8, 1000), (8, 9), (4, 10),
+                                        (8, 16), (4, 16)])
+def test_reduce_run_arithmetic_matches_the_plain_version(wire, block):
+    """The reduce-unpack's run arithmetic, emulated, against
+    ``plain_reduce_unpack`` bit for bit, at 3 ranks, AVERAGE with a
+    postscale, over tensors whose boundaries cut runs and blocks."""
+    spec = (pcomp.make_cast_spec() if wire == 16
+            else pcomp.make_quant_spec(wire, block, False))
+    sizes = [3 * 256 + 5, 7, 2 * 256 + 1, 40]
+    total, nrows = sum(sizes), 3
+    rs = np.random.RandomState(wire + block)
+    nb = qw.row_bytes(total, spec)
+    gathered = torch.empty(nrows * nb, dtype=torch.uint8)
+    for r in range(nrows):
+        ts = [torch.from_numpy(rs.randn(n).astype(np.float32))
+              for n in sizes]
+        if wire == 16:
+            qw.plain_cast_pack(ts, gathered[r * nb:(r + 1) * nb])
+        else:
+            qw.plain_quantize_pack(ts, gathered[r * nb:(r + 1) * nb], spec)
+    f = qw.reduce_factor(True, nrows, 0.5)
+    outs = [torch.empty(n) for n in sizes]
+    qw.plain_reduce_unpack(gathered, outs, spec, nrows, True, 0.5)
+    got, whole = _emulate_reduce_unpack(gathered.numpy(), sizes, spec,
+                                        nrows, f)
+    assert _bits(got).tolist() == _bits(torch.cat(outs).numpy()).tolist()
+    assert whole == (0 if block < qw.RUN else total // qw.RUN)
+
+
+def _stage_slot(k_vecs, lane, k):
+    """csrc/quant_wire.cu stage_slot."""
+    return lane * k_vecs + (k ^ ((lane // (8 // k_vecs)) & (k_vecs - 1)))
+
+
+@pytest.mark.parametrize("k_vecs", [2, 4, 8])
+def test_staged_stores_permute_pieces_without_bank_conflicts(k_vecs):
+    """The reduce-unpack's staging area for a warp's stores (16-byte pieces
+    a run: 2 for bf16/fp16 outputs, 4 for fp32, 8 for fp64): a
+    permutation of its slots; each quarter-warp's 8 writes of piece k, and
+    its 8 reads of consecutive pieces, meet 8 different bank groups (a
+    16-byte slot's group is its index mod 8); and read slot
+    ``k * 32 + lane`` returns the piece lane ``c // k_vecs`` wrote as its
+    ``c % k_vecs``."""
+    n = 32 * k_vecs
+    written = {_stage_slot(k_vecs, lane, k): (lane, k)
+               for lane in range(32) for k in range(k_vecs)}
+    assert sorted(written) == list(range(n))
+    for k in range(k_vecs):
+        for q in range(4):
+            lanes = range(8 * q, 8 * q + 8)
+            assert len({_stage_slot(k_vecs, ln, k) % 8 for ln in lanes}) == 8
+            reads = [_stage_slot(k_vecs, c // k_vecs, c % k_vecs)
+                     for c in (k * 32 + ln for ln in lanes)]
+            assert len({r % 8 for r in reads}) == 8
+            for ln, r in zip(lanes, reads):
+                c = k * 32 + ln
+                assert written[r] == (c // k_vecs, c % k_vecs)
+
+
+@pytest.mark.parametrize("ef", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_register_quantize_arithmetic_matches_the_plain_version(bits, ef):
+    """K3's register path emulated on blocks of 256 (lane l holds elements
+    8l .. 8l + 7; q's bits from q + 1.5 * 2^23; int4 nibbles packed within
+    the lane, low first; the residual from the integer's value) against
+    ``plain_quantize_pack``: payload, scales and residual bit for bit,
+    with the special blocks (zeros, saturation, exact ties, -0)."""
+    spec = pcomp.make_quant_spec(bits, 256, ef)
+    qmax = np.float32(spec.qmax)
+    rs = np.random.RandomState(bits)
+    x = rs.randn(4 * 256).astype(np.float32)
+    x[:256] = 0
+    x[256:512:3], x[257:512:3] = 5.0, -5.0
+    k = np.arange(256) % int(qmax)
+    x[512:768] = (k + 0.5) * 0.5 * np.where(k % 2 == 0, 1.0, -1.0)
+    x[512] = qmax * 0.5
+    x[768:784] = -0.0
+    res = (rs.randn(x.size).astype(np.float32) * 0.01) if ef else None
+    row = torch.empty(qw.row_bytes(x.size, spec), dtype=torch.uint8)
+    new = torch.empty(x.size) if ef else None
+    qw.plain_quantize_pack([torch.from_numpy(x.copy())], row, spec, 1.0,
+                           None if res is None else [torch.from_numpy(res)],
+                           new)
+    xs = x + res if ef else x
+    pay = np.zeros(x.size * bits // 8, np.uint8)
+    scales = np.zeros(2 * (x.size // 256), np.uint8)
+    nres = np.zeros(x.size, np.float32)
+    inv = np.float32(1.0) / qmax
+    for b in range(x.size // 256):
+        blk = xs[256 * b:256 * (b + 1)]
+        amax = np.float32(np.abs(blk).max())
+        sc = amax * inv if amax > 0 else np.float32(1.0)
+        sbits = int(_bits(np.array([sc], ml_dtypes.bfloat16))[0])
+        eff = np.uint32(sbits << 16).view(np.float32)
+        scales[2 * b], scales[2 * b + 1] = sbits & 0xFF, sbits >> 8
+        for lane in range(32):
+            w = 0
+            for i in range(8):
+                xi = blk[8 * lane + i]
+                q = np.clip(np.rint(xi / eff), -qmax, qmax).astype(np.float32)
+                m = q + MAGIC
+                qb = int(_bits(np.array([m], np.float32))[0])
+                nres[256 * b + 8 * lane + i] = xi - (m - MAGIC) * eff
+                w |= (qb & (0xFF if bits == 8 else 0xF)) << (bits * i)
+            nbytes = bits  # 8 values of `bits` bits
+            for k2 in range(nbytes):
+                pay[256 * b * bits // 8 + nbytes * lane + k2] = \
+                    (w >> (8 * k2)) & 0xFF
+    got = np.concatenate([pay, scales])
+    assert got.tolist() == row.numpy().tolist()
+    if ef:
+        assert _bits(nres).tolist() == _bits(new.numpy()).tolist()
 
 
 # --- residuals ----------------------------------------------------------------
