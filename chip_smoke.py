@@ -7,9 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a`` (the two flash-attention sources, ``fused_pack.cu`` and
-   ``quant_wire.cu``), one ``nvcc`` each, started together, and print each build's seconds and
-   ``ptxas`` report (registers, spills); count the tensor-core
+   ``sm_90a`` (the two flash-attention sources, ``fused_pack.cu``,
+   ``quant_wire.cu`` and ``xent.cu``), one ``nvcc`` each, started
+   together, and print each build's seconds and ``ptxas`` report
+   (registers, spills); count the tensor-core
    instructions (``HGMMA``) in both flash kernels' SASS (``cuobjdump``),
    by opcode, and fail on none;
 3. flash phase: the flash-attention forward, through ``attention_stats``
@@ -114,7 +115,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one bitwise equal to the uncompressed step,
    ``hvd_quant_fallback_total{reason="world_size"}`` counting each of the
    99 gradients once;
-9. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+9. the long-context path: the sp phase runs the simulated rings of
+   ``parallel.sp`` (every rank of a ring in one process, each rank's rounds
+   through the flash kernel) at the full-width LM's attention shape (b = 1,
+   seq 8192, 16 heads of 128, bf16) for n = 2 and 4 in the blocked and
+   striped layouts, and Ulysses at n = 4 (its core the kernel at seq
+   8192): outputs against an fp32 reference and the kernel's
+   full-sequence output under the bf16 bound, dq, dk and dv against the
+   full sequence's ``scan_stats`` gradients, the kernel's launches by mask
+   (diagonal, full, strict) checked; the K5 phase holds the chunked
+   cross-entropy's two kernels (``xent.cu``) against their plain version on
+   one chunk at N = 8192, V = 32768, d = 2048, chunk 8192, fp32, and times
+   them beside their byte bound, the plain version and ``torch.logsumexp``;
+   then the full-width LM at ``max_seq`` 8192, batch 1, ``remat=True`` and
+   ``xent_chunk=8192`` trains 4 steps through ``DistributedOptimizer``,
+   then 4 without remat, then 4 without remat and with the dense loss:
+   launches checked, step ms, tokens/s, MFU and peak memory of each, the
+   losses bitwise equal with and without remat and the dense loss's within
+   a stated band, peak memory lower with remat and lower again with the
+   chunked loss;
+10. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -122,7 +142,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
-K2's and K3's on the compression path, the others' on the main path; ``launches_by_path`` gives every path's
+K2's and K3's on the compression path, K5's on the long-context path, the
+others' on the main path; ``launches_by_path`` gives every path's
 count), errors, times, bounds and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -149,6 +170,17 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor cores
 
 def _log(msg: str):
     print(msg, flush=True)
+
+
+def _phase(title: str):
+    """A phase's heading, after dropping what earlier phases left for the
+    garbage collector, with the memory still allocated on the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"{title} (allocated at the start: "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
 
 
 def card_line() -> str:
@@ -257,7 +289,7 @@ def share_of(bound_ms: float, dev_ms: float, ev_ms: float) -> tuple:
 # --- phase 2: build ---------------------------------------------------------
 
 SOURCES = ("flash_attention_sm90", "flash_attention_tf32", "fused_pack",
-           "quant_wire")
+           "quant_wire", "xent")
 
 
 def _tensor_core_ops(lib: str) -> dict:
@@ -1056,11 +1088,20 @@ def train(cfg, batch: int, steps: int, device, trace: bool = True,
 # kernel-name patterns of the step's device work, first match wins
 _CATEGORIES = (("flash forward kernel", r"flash_fwd"),
                ("fused pack/unpack (K1)", r"fused_pack_kernel"),
+               ("chunked cross-entropy (K5)", r"xent_(fwd|bwd)_chunk"),
                ("fp32 GEMM", r"f32f32|sgemm"),
                ("other GEMM (bf16)", r"gemm|nvjet|xmma|cutlass"),
                ("NCCL (one-rank kernels included)", r"nccl|onerank"),
                ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
                ("elementwise, reduce, copy", r""))
+
+
+def _annotation(name: str) -> bool:
+    """A user annotation that the profiler lists on the device beside the
+    kernels it spans (``nccl:<op>``, ``Optimizer.step#SGD.step``):
+    counted, their time would count twice, and its span would cover gaps.
+    (Kernel names may hold a ``#`` too, in a lambda's ``{lambda()#1}``.)"""
+    return name.startswith(("nccl:", "Optimizer.", "ProfilerStep"))
 
 
 def profile_step(step) -> dict:
@@ -1077,12 +1118,14 @@ def profile_step(step) -> dict:
         step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    events = [e for e in prof.key_averages()
+              if e.device_type == cuda and not _annotation(e.key)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     # the union of the kernels' intervals over all streams (overlapping
     # streams counted once), and the longest gaps in it
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == cuda)
+                   for e in prof.events()
+                   if e.device_type == cuda and not _annotation(e.name))
     union, gaps = 0.0, []
     s0, e0, n0 = spans[0]
     for s1, e1, n1 in spans[1:]:
@@ -1310,13 +1353,17 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
 # --- phase 8: the collectives path ---------------------------------------
 
 def _launch_counts() -> dict:
+    """Every kernel's launches by name, and the flash kernel's by mask."""
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.ops import quant_wire as qw
+    from horovod_tpu_torch.ops import xent
 
     counts = dict(fa.kernel_launches)
     counts.update(fp.kernel_launches)
     counts.update(qw.kernel_launches)
+    counts.update(xent.kernel_launches)
+    counts.update(fa.mask_launches)
     return counts
 
 
@@ -1324,9 +1371,11 @@ def _zero_launch_counts():
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.ops import quant_wire as qw
+    from horovod_tpu_torch.ops import xent
 
     for counts in (fa.kernel_launches, fp.kernel_launches,
-                   qw.kernel_launches):
+                   qw.kernel_launches, xent.kernel_launches,
+                   fa.mask_launches):
         for name in counts:
             counts[name] = 0
 
@@ -1924,7 +1973,311 @@ def fallback_phase(device) -> None:
     torch.cuda.empty_cache()
 
 
-# --- phase 9: the launcher ------------------------------------------------
+# --- phase 9: the long-context path: sequence parallelism, K5, remat -------
+
+SP_SHAPE = (1, 8192, 16, 128)  # b, seq, heads, head dim of the LM at 8192
+SP_GRAD_TOL = 1e-2
+
+
+def _sp_reference(q, k, v, co):
+    """Full-sequence references in the kernel layout: the fp32 output and
+    P|V| (``scan_stats`` on fp32 copies, for the bf16 bound), and the
+    gradients of sum(o * co) through ``scan_stats`` on the bf16 inputs."""
+    import torch
+
+    from horovod_tpu_torch.ops.flash_attention import scan_stats
+    from horovod_tpu_torch.parallel.sp import _to_flat
+
+    qf, kf, vf, cf = (_to_flat(x) for x in (q, k, v, co))
+    with torch.no_grad():
+        o32 = scan_stats(qf.float(), kf.float(), vf.float(), True)[0]
+        o_abs = scan_stats(qf.float(), kf.float(), vf.float().abs(),
+                           True)[0]
+    ins = [x.detach().requires_grad_() for x in (qf, kf, vf)]
+    o = scan_stats(*ins, True)[0]
+    grads = torch.autograd.grad((o.float() * cf.float()).sum(), ins)
+    return o32, o_abs, grads
+
+
+def _unflat(x, shape):
+    b, s, h, d = shape
+    return x.reshape(b, h, s, d).transpose(1, 2)
+
+
+def sp_phase(device) -> dict:
+    """The simulated rings (n = 2, 4, blocked and striped) and Ulysses (n =
+    4) at the full-width LM's attention shape, b = 1, seq 8192, 16 heads
+    of 128, bf16, each rank's rounds through the flash kernel. Outputs are
+    held against an fp32 reference under the kernel's bound (check_flash's,
+    with P|V| once more for the ring's rounding of each round's o) and
+    against the kernel's full-sequence output under the sum of both bounds;
+    dq, dk and dv against the full sequence's ``scan_stats`` gradients,
+    within ``SP_GRAD_TOL`` of their norm (bf16 gradients: the ring also
+    rounds each round's cotangent to bf16 and sums a block's n rounds in
+    bf16, a few units of 2^-9 each). Prints the kernel's launches by mask
+    for each and checks them. Returns the launches summed over the runs."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import (ring_attention, sp,
+                                            stripe_tokens, unstripe_tokens)
+
+    g = torch.Generator(device=device).manual_seed(9)
+    q, k, v, co = (torch.randn(SP_SHAPE, generator=g, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    t0 = time.perf_counter()
+    o32, o_abs, ref_grads = _sp_reference(q, k, v, co)
+    o32, o_abs = _unflat(o32, SP_SHAPE), _unflat(o_abs, SP_SHAPE)
+    ref_grads = [_unflat(x, SP_SHAPE) for x in ref_grads]
+    with torch.no_grad():
+        full = ring_attention(q, k, v).float()  # the kernel at seq 8192
+    b_kernel = 1.01 * U_BF16 * (o32.abs() + o_abs) + 1e-5
+    b_ring = 1.01 * U_BF16 * (o32.abs() + 2 * o_abs) + 1e-5
+    share = ((full - o32).abs() / b_kernel).max().item()
+    _log(f"  references at b=1 s=8192 h=16 d=128 bf16: "
+         f"{time.perf_counter() - t0:.1f} s; the kernel's full-sequence "
+         f"output at {share:.3g} of its bound")
+    if share > 1.0:
+        raise AssertionError("the kernel's full-sequence output leaves its "
+                             "bound")
+    total = {"diagonal": 0, "full": 0, "strict": 0}
+    runs = [("ring", 2), ("striped", 2), ("ring", 4), ("striped", 4),
+            ("ulysses", 4)]
+    for layout, n in runs:
+        striped = layout == "striped"
+        ins = [x.detach().requires_grad_() for x in (q, k, v)]
+        g_in = [stripe_tokens(x, n) for x in ins] if striped else ins
+        c = stripe_tokens(co, n) if striped else co
+        for key in fa.mask_launches:
+            fa.mask_launches[key] = 0
+        t0 = time.perf_counter()
+        if layout == "ulysses":
+            out = sp._simulated_ulysses(*g_in, n)
+        else:
+            out = sp._simulated_ring(*g_in, n, striped=striped)
+        grads = torch.autograd.grad((out.float() * c.float()).sum(), ins)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        masks = dict(fa.mask_launches)
+        if striped:
+            out = unstripe_tokens(out, n)
+        out = out.detach().float()
+        bound = b_kernel if layout == "ulysses" else b_ring
+        s_ref = ((out - o32).abs() / bound).max().item()
+        s_full = ((out - full).abs() / (bound + b_kernel)).max().item()
+        g_err = [((a.float() - r.float()).norm() / r.float().norm()).item()
+                 for a, r in zip(grads, ref_grads)]
+        want = ({"diagonal": n, "full": 0, "strict": 0} if layout == "ulysses"
+                else {"diagonal": n * (n + 1) // 2, "full": 0,
+                      "strict": n * (n - 1) // 2} if striped
+                else {"diagonal": n, "full": n * (n - 1) // 2, "strict": 0})
+        _log(f"  {layout} n={n}: {secs:.2f} s forward and backward; output "
+             f"at {s_ref:.3g} of its bound against fp32, {s_full:.3g} of "
+             f"the summed bound against the kernel's full sequence (max "
+             f"|d| {(out - full).abs().max().item():.3g}); dq, dk, dv "
+             f"relative to the full sequence's {[f'{e:.3g}' for e in g_err]}"
+             f" (tol {SP_GRAD_TOL}); kernel launches by mask {masks}")
+        if masks != want:
+            raise AssertionError(f"{layout} n={n} launched {masks}, "
+                                 f"expected {want}")
+        if not (s_ref <= 1.0 and s_full <= 1.0
+                and max(g_err) <= SP_GRAD_TOL):
+            raise AssertionError(f"{layout} n={n} disagrees with the full "
+                                 "sequence")
+        for key in total:
+            total[key] += masks[key]
+        del out, grads, ins, g_in
+    del q, k, v, co, o32, o_abs, full, ref_grads, b_kernel, b_ring
+    torch.cuda.empty_cache()
+    return total
+
+
+XENT_SHAPE = (8192, 32768, 2048, 8192)  # N tokens, V, d, chunk
+
+
+def xent_phase(device) -> list:
+    """K5 against its plain version on one chunk of the long-context
+    path's loss (N = 8192 tokens, chunk 8192 of V = 32768, d = 2048,
+    fp32), the running state taken from the chunk before it: m and tgt
+    bit for bit (a max and a pick), l within 1e-5 relative (a sum of 8192
+    terms in another order), dlogits within 2^-20 of ct/N (exp to a few
+    ulps). Each kernel timed by events and device time beside its byte
+    bound, its plain version and the library call (``torch.logsumexp``
+    over the chunk for the forward; none for the backward, whose
+    composite is the plain version). Returns the two kernel entries."""
+    import torch
+
+    from horovod_tpu_torch.ops import xent
+
+    N, V, d, C = XENT_SHAPE
+    g = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((N, d), generator=g, device=device)
+    w = torch.randn((C, d), generator=g, device=device) * 0.02
+    targets = torch.randint(0, V, (N,), generator=g, device=device)
+    logits = x @ w.T  # chunk 1 of V // C, classes [C, 2C)
+    base = C
+    state0 = [torch.full((N,), xent.NEG_INF, device=device),
+              torch.zeros(N, device=device),
+              torch.full((N,), xent.NEG_INF, device=device)]
+    xent.fwd_chunk_plain(logits.roll(1, dims=1), targets, 0, *state0)
+    state_k = [t.clone() for t in state0]
+    state_p = [t.clone() for t in state0]
+    xent.xent_fwd_chunk(logits, targets, base, *state_k)
+    xent.fwd_chunk_plain(logits, targets, base, *state_p)
+    m_ok = torch.equal(state_k[0], state_p[0])
+    t_ok = torch.equal(state_k[2], state_p[2])
+    l_rel = ((state_k[1] - state_p[1]).abs() / state_p[1]).max().item()
+    l_abs = (state_k[1] - state_p[1]).abs().max().item()
+    lse = state_p[0] + torch.log(state_p[1])
+    scale = torch.full((1,), 0.7 / N, device=device)
+    dk, dp = logits.clone(), logits.clone()
+    xent.xent_bwd_chunk(dk, targets, base, lse, scale)
+    xent.bwd_chunk_plain(dp, targets, base, lse, scale)
+    d_err = (dk - dp).abs().max().item()
+    d_tol = 2.0 ** -20 * scale.item()
+    in_chunk = ((targets >= base) & (targets < base + C)).sum().item()
+    _log(f"  K5 at N={N} C={C} (chunk 1 of {V // C}, {in_chunk} targets "
+         f"in it): forward m {'bitwise' if m_ok else 'DIFFERS'}, tgt "
+         f"{'bitwise' if t_ok else 'DIFFERS'}, l max rel {l_rel:.3g} (tol "
+         f"1e-05); backward max |d| {d_err:.3g} (tol {d_tol:.3g})")
+    if not (m_ok and t_ok and l_rel <= 1e-5 and d_err <= d_tol):
+        raise AssertionError("K5 disagrees with its plain version")
+    entries = []
+    nbytes = {"xent_fwd_chunk": N * C * 4 + N * 8 + 3 * N * 4 * 2,
+              "xent_bwd_chunk": 2 * N * C * 4 + N * 8 + N * 4 + 4}
+    errs = {"xent_fwd_chunk": l_abs, "xent_bwd_chunk": d_err}
+    fns = {
+        "xent_fwd_chunk": (
+            lambda: xent.xent_fwd_chunk(logits, targets, base, *state_k),
+            lambda: xent.fwd_chunk_plain(logits, targets, base, *state_p),
+            lambda: torch.logsumexp(logits, dim=-1)),
+        "xent_bwd_chunk": (
+            lambda: xent.xent_bwd_chunk(dk, targets, base, lse, scale),
+            lambda: xent.bwd_chunk_plain(dp, targets, base, lse, scale),
+            None)}
+    for name, (kern, plain, lib) in fns.items():
+        timed = {"kernel": kern} if lib is None else {"kernel": kern,
+                                                      "library": lib}
+        ev = in_turns(timed, lambda fn: time_ms(fn, iters=50))
+        dev = in_turns(timed, lambda fn: device_ms(fn, iters=50))
+        plain_ms = time_ms(plain, iters=10)
+        bound_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        sh, sh_by = share_of(bound_ms, dev["kernel"], ev["kernel"])
+        _log(f"  {name}: {ev['kernel']:.4f} ms by events, "
+             f"{dev['kernel']:.4f} device; bound {bound_ms:.4f} ms (bytes); "
+             f"share {sh:.3f} ({sh_by}); plain {plain_ms:.4f} ms; "
+             + (f"torch.logsumexp {ev['library']:.4f} ms, "
+                f"{dev['library']:.4f} device" if lib else
+                f"library none (the composite, the plain version, "
+                f"{plain_ms:.4f} ms)"))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/xent.cu",
+            "replaces": ("horovod_tpu/ops/xent.py:65" if "fwd" in name
+                         else "horovod_tpu/ops/xent.py:106"),
+            "launches": None, "max_abs_err": errs[name],
+            "ms": ev["kernel"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": ev.get("library"),
+            "device_ms": dev["kernel"],
+            "library_device_ms": dev.get("library"), "share": sh,
+            "share_by": sh_by})
+    del x, w, logits, dk, dp
+    torch.cuda.empty_cache()
+    return entries
+
+
+def long_context_config(remat: bool, xent_chunk):
+    import dataclasses
+
+    return dataclasses.replace(full_width_config(12), max_seq=8192,
+                               remat=remat, xent_chunk=xent_chunk)
+
+
+# the first step's loss, chunked against dense: the same forward, the loss
+# summed over 32768 classes in another order (about 1e-6 of it)
+FIRST_LOSS_TOL = 1e-5
+# later steps, chunked against dense: the two losses' dx differ in a few
+# in 10^4 of their bf16 elements by one unit in the last place, which the
+# bf16 backward spreads into differences of about 1% of the front layers'
+# gradients (PERF.md, "the loss band"): the trajectories part at bf16's
+# noise floor, some 1e-5 of the loss within 4 steps (a few % of its fall)
+LATER_LOSS_TOL = 1e-4
+
+
+def long_context_phase(device) -> dict:
+    """The full-width LM at seq 8192, batch 1, bf16, ``remat=True`` and
+    ``xent_chunk=8192`` (``benchmarks/bench_transformer.py:128``'s row at
+    8192), 4 steps through ``DistributedOptimizer`` at a ring of one; then
+    the same without remat, and without remat with the dense loss. Checks
+    each run's launches (the flash kernel once a layer and step, twice
+    under remat; K5 once a chunk and step in each direction, never with
+    the dense loss) and finite, falling losses; remat changes no bit of
+    any loss (the recompute runs the same kernels on the same inputs); the
+    dense loss's first step within ``FIRST_LOSS_TOL`` and its later steps
+    within ``LATER_LOSS_TOL`` relative of the chunked run's; peak memory
+    falls with remat and again with the chunked loss. Returns the first
+    run's launches."""
+    import torch
+
+    steps, runs = 4, {}
+    for label, remat, chunk in (("remat, chunked loss", True, 8192),
+                                ("no remat, chunked loss", False, 8192),
+                                ("no remat, dense loss", False, None)):
+        cfg = long_context_config(remat, chunk)
+        res = train(cfg, 1, steps, device, trace=remat)
+        steady = statistics.median(res["step_s"][1:])
+        tok = cfg.max_seq
+        mfu = (tok / steady * 3 * fwd_flops_per_token(cfg, cfg.max_seq)
+               / PEAK_FLOPS["bfloat16"])
+        runs[label] = res
+        la = res["launches"]
+        _log(f"  {label}: losses {res['losses']}; step ms "
+             f"{[round(x * 1e3, 1) for x in res['step_s']]}, median "
+             f"{steady * 1e3:.1f} ms, {tok / steady:.0f} tokens/s, MFU "
+             f"{mfu:.4f}; max_memory_allocated "
+             f"{res['peak_bytes'] / 2**30:.2f} GiB; flash "
+             f"{la['flash_attention_fwd']}, K5 {la['xent_fwd_chunk']} + "
+             f"{la['xent_bwd_chunk']}; per step {res['per_step'][-1]}")
+        if res["profile"] is not None:
+            prof = res["profile"]
+            idle = max(0.0, 1.0 - prof["union_ms"] / prof["wall_ms"])
+            _log(f"  traced step: wall {prof['wall_ms']:.1f} ms, "
+                 f"{prof['union_ms']:.1f} ms busy on any stream, idle share "
+                 f"{idle:.4f}; device ms by category: "
+                 + ", ".join(f"{n_} {ms:.3f}"
+                             for n_, ms in prof["categories"].items()))
+            for name, calls, ms in prof["top"][:8]:
+                _log(f"    {ms:9.3f}  {calls:5d}  {name}")
+        n_chunks = 32768 // chunk if chunk else 0
+        want = {"flash_attention_fwd": (2 if remat else 1) * 12 * steps,
+                "xent_fwd_chunk": n_chunks * steps,
+                "xent_bwd_chunk": n_chunks * steps}
+        if {k_: la[k_] for k_ in want} != want:
+            raise AssertionError(f"{label}: launches {la}, expected {want}")
+        ls = res["losses"]
+        if not (all(math.isfinite(x) for x in ls) and ls[-1] < ls[0]):
+            raise AssertionError(f"{label}: losses {ls}")
+    lc, plain, dense = runs.values()
+    if lc["losses"] != plain["losses"]:
+        raise AssertionError(f"remat changed the losses: {lc['losses']} "
+                             f"against {plain['losses']}")
+    gaps = [abs(x - y) / abs(y) for x, y in zip(lc["losses"],
+                                                dense["losses"])]
+    peaks = [r["peak_bytes"] / 2**30 for r in (lc, plain, dense)]
+    _log(f"  remat: losses bitwise equal to the run without it; the dense "
+         f"loss's gaps, relative: {[f'{x:.3g}' for x in gaps]} (tol "
+         f"{FIRST_LOSS_TOL} first, {LATER_LOSS_TOL} later); peak "
+         f"{[round(p, 2) for p in peaks]} GiB")
+    if gaps[0] > FIRST_LOSS_TOL or max(gaps[1:]) > LATER_LOSS_TOL:
+        raise AssertionError("the chunked loss left the dense loss's band")
+    if not peaks[0] < peaks[1] < peaks[2]:
+        raise AssertionError("remat and the chunked loss did not each lower "
+                             "peak memory")
+    torch.cuda.empty_cache()
+    return lc["launches"]
+
+
+# --- phase 10: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -2003,38 +2356,56 @@ def main() -> int:
     _log(f"[flash] on {device} ({torch.distributed.get_backend()})")
     kernels = kernel_phase(device)
 
-    _log("[K1]")
+    _phase("[K1]")
     k1_check_phase(device)
     kernels += k1_time_phase(device, full_width_config(12))
     kernels[-2].update(k1_compaction_phase(device))  # the pack's entry
-    _log("[K2/K3] the compressed wire against its plain version")
+    _phase("[K2/K3] the compressed wire against its plain version")
     t_wire = time.perf_counter()
     wire_check_phase(device)
     _log(f"  wire phase: {time.perf_counter() - t_wire:.1f} s")
 
-    _log("[main path] 12 layers at full width, 5 steps, through the runtime")
+    _phase("[main path] 12 layers at full width, 5 steps, through the runtime")
     launches = main_path_phase(device)
-    _log("[fp32 path] the same LM in fp32, 3 steps, through the runtime")
+    _phase("[fp32 path] the same LM in fp32, 3 steps, through the runtime")
     fp32_launches = fp32_path_phase(device)
 
-    _log("[slice vs plain]")
+    _phase("[slice vs plain]")
     slice_vs_plain_phase(device)
-    _log("[collectives path] allgather, alltoall, reducescatter, sparse, "
+    _phase("[collectives path] allgather, alltoall, reducescatter, sparse, "
          "a process set, join, objects, on the full-width LM's tensors")
     t_coll = time.perf_counter()
     coll_launches, readings = collectives_path_phase(device)
     _log(f"  collectives path: {time.perf_counter() - t_coll:.1f} s")
-    _log("[compression path] the full-width LM's gradients at 4 virtual "
+    _phase("[compression path] the full-width LM's gradients at 4 virtual "
          "ranks through the bf16, int8 and int4 wires")
     t_comp = time.perf_counter()
     wire_entries = compression_path_phase(device)
     _log(f"  compression path: {time.perf_counter() - t_comp:.1f} s")
-    _log("[world-of-one fallback] HOROVOD_COMPRESSION=int8 at one rank")
+    _phase("[world-of-one fallback] HOROVOD_COMPRESSION=int8 at one rank")
     fallback_phase(device)
+    _phase("[sp] the simulated rings (n = 2, 4, blocked and striped) and "
+         "Ulysses (n = 4) at seq 8192 through the flash kernel")
+    t_sp = time.perf_counter()
+    _zero_launch_counts()  # just before the path runs
+    sp_phase(device)
+    sp_launches = _launch_counts()
+    _log(f"  sp phase: {time.perf_counter() - t_sp:.1f} s")
+    _phase("[K5] the chunked cross-entropy's two kernels against their plain "
+         "version")
+    t_k5 = time.perf_counter()
+    k5_entries = xent_phase(device)
+    _log(f"  K5 phase: {time.perf_counter() - t_k5:.1f} s")
+    _phase("[long-context path] 12 layers at full width, seq 8192, batch 1, "
+         "remat and the chunked loss, 4 steps through the runtime; then "
+         "without remat, then also with the dense loss")
+    t_lc = time.perf_counter()
+    lc_launches = long_context_phase(device)
+    _log(f"  long-context path: {time.perf_counter() - t_lc:.1f} s")
     hvd.shutdown()
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
-    # the others' on the main path
+    # K5's on the long-context path, the others' on the main path
     for entry in wire_entries:
         entry["launches_by_path"] = {"compression": entry["launches"]}
     for entry in kernels:
@@ -2044,11 +2415,16 @@ def main() -> int:
         entry["launches_by_path"] = {
             "main": launches[entry["name"]],
             "fp32": fp32_launches[entry["name"]],
-            "collectives": coll_launches[entry["name"]]}
+            "collectives": coll_launches[entry["name"]],
+            "sp": sp_launches[entry["name"]],
+            "long_context": lc_launches[entry["name"]]}
+    for entry in k5_entries:  # K5's path is the long-context one
+        entry["launches"] = lc_launches[entry["name"]]
+        entry["launches_by_path"] = {"long_context": entry["launches"]}
 
-    kernels += wire_entries
+    kernels += wire_entries + k5_entries
 
-    _log("[launcher]")
+    _phase("[launcher]")
     launcher_phase(root)
 
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -354,6 +354,14 @@ def process_set_by_name(name: str) -> Optional[ProcessSet]:
     return _require_init().process_sets.get(name)
 
 
+def is_runtime_group(group) -> bool:
+    """Whether ``group`` is a process set's ``runtime_group``: the
+    background runtime's communicator, which only its cycle thread may
+    use."""
+    return group is not None and any(
+        ps.runtime_group is group for ps in _ctx.process_sets.values())
+
+
 def runtime():
     """The background runtime ``init`` started."""
     return _require_init().runtime

@@ -12,19 +12,26 @@ pytree maps one to one onto ``state_dict`` keys (``params_from_jax``):
 Parameters are fp32 and cast to ``cfg.dtype`` at use; RMSNorm runs in fp32
 and the logits are ``x.float() @ embed.T`` in fp32, as in the JAX model.
 The ``attn_fn(q, k, v)`` hook (q/k/v ``[b, s, h, hd]``) lets
-``parallel.sp.ring_attention`` replace the plain ``causal_attention``.
-The matrix products of the model are plain ``torch.einsum``, as XLA
-computed them outside any kernel.
+``parallel.sp`` (ring, striped ring, Ulysses) replace the plain
+``causal_attention``; under sequence parallelism the caller passes each
+rank's global ``positions``. ``cfg.remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``, as ``jax.checkpoint(_block)``), and
+``cfg.xent_chunk`` makes ``lm_loss`` stream the classifier over vocabulary
+chunks (``ops/xent.py``, K5) instead of materializing fp32 logits
+``[tokens, vocab]``. The matrix products of the model are plain
+``torch.einsum``, as XLA computed them outside any kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..common.context import default_device
 
@@ -38,6 +45,13 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq: int = 2048
     dtype: torch.dtype = torch.bfloat16
+    # recompute each block in the backward pass: activation memory drops
+    # from O(layers) to O(1) blocks for about a third more FLOPs
+    remat: bool = False
+    # lm_loss streams the classifier over vocab chunks of this size
+    # (ops/xent.py) instead of materializing fp32 logits [tokens, vocab].
+    # None = dense.
+    xent_chunk: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -103,16 +117,29 @@ class TransformerLM(nn.Module):
                 if not name.endswith(".scale"):
                     prm.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, tokens, attn_fn=None, positions=None):
-        """tokens [b, s] → fp32 logits [b, s, V]."""
+    def forward(self, tokens, attn_fn=None, positions=None,
+                return_hidden: bool = False):
+        """tokens [b, s] → fp32 logits [b, s, V], or with
+        ``return_hidden=True`` the final hidden states [b, s, d] in
+        ``cfg.dtype`` (for the chunked loss). ``positions`` [s]: the
+        tokens' global position ids (a rank's shard under sequence
+        parallelism); by default 0..s-1."""
         dtype = self.cfg.dtype
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self.embed[tokens].to(dtype) + self.pos[positions].to(dtype)[None]
         attn_fn = attn_fn or causal_attention
         for blk in self.blocks:
-            x = blk(x, dtype, attn_fn)
+            if self.cfg.remat and torch.is_grad_enabled():
+                # the whole block again in the backward, exchanges included,
+                # on every rank alike: no early stop partway through it
+                x = checkpoint(blk, x, dtype, attn_fn, use_reentrant=False,
+                               early_stop=False)
+            else:
+                x = blk(x, dtype, attn_fn)
         x = _rmsnorm(x, self.ln_f.scale)
+        if return_hidden:
+            return x
         return x.float() @ self.embed.T
 
 
@@ -134,7 +161,18 @@ def causal_attention(q, k, v):
 
 
 def lm_loss(model: TransformerLM, tokens, **kw):
-    """Next-token cross-entropy, mean over tokens (dense path)."""
+    """Next-token cross-entropy, mean over tokens. With
+    ``cfg.xent_chunk`` the classifier streams over vocabulary chunks
+    (``ops.xent.chunked_softmax_xent``, K5) and the fp32 logits
+    [tokens, vocab] never exist."""
+    chunk = model.cfg.xent_chunk
+    if chunk:
+        from ..ops.xent import chunked_softmax_xent
+
+        h = model(tokens[:, :-1], return_hidden=True, **kw)
+        b, s, d = h.shape
+        return chunked_softmax_xent(h.reshape(b * s, d), model.embed,
+                                    tokens[:, 1:].reshape(-1), chunk)
     logits = model(tokens[:, :-1], **kw)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tokens[:, 1:].reshape(-1))

@@ -46,9 +46,11 @@ KERNELS = {
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-# kernel launches made by _kernel_fwd, by kernel name (read and reset by
-# chip_smoke.py)
+# kernel launches made by _kernel_fwd, by kernel name, and by mask: causal
+# with offset 0 (a ring's diagonal), none (a full block), causal with offset
+# 1 (the striped ring's strict triangle) (read and reset by chip_smoke.py)
 kernel_launches = {name: 0 for name, _, _ in KERNELS.values()}
+mask_launches = {"diagonal": 0, "full": 0, "strict": 0}
 
 _fns: dict = {}
 
@@ -117,6 +119,8 @@ def _kernel_fwd(q, k, v, causal: bool, causal_offset: int):
                            f"{err} (a cudaError_t, or 10000 + the CUresult "
                            "of a failed tensor-map encode)")
     kernel_launches[KERNELS[q.dtype][0]] += 1
+    mask_launches[("strict" if causal_offset else "diagonal") if causal
+                  else "full"] += 1
     return o, m, l
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import weakref
 
 import torch
 
@@ -596,11 +597,15 @@ class _DistributedMixin:
         self._should_sync = True
         self._hook_handles = []
         self._names = _build_param_names(self, named_parameters, "allreduce")
+        hook = _weak_hook(self)
         for p in self._names:
             if p.requires_grad:
                 self._passes[p] = 0
                 self._hook_handles.append(
-                    p.register_post_accumulate_grad_hook(self._hook))
+                    p.register_post_accumulate_grad_hook(hook))
+        # the hooks go with the optimizer: a model kept for a new one
+        # reduces once a step
+        weakref.finalize(self, _remove_hooks, self._hook_handles)
 
     # fired when a parameter's gradient is fully accumulated; with
     # backward_passes_per_step > 1 the accumulated sum is reduced unscaled
@@ -674,6 +679,27 @@ class _DistributedMixin:
         if self._should_sync:
             self.synchronize()
         return self._hvd_base.step(self, closure)
+
+
+def _weak_hook(optimizer):
+    """The post-accumulate hook of ``optimizer``, holding it weakly. A
+    parameter keeps its hooks in a table the garbage collector cannot see
+    through, so a bound method there would keep the optimizer, its state,
+    the parameters and their gradients alive after the caller drops them
+    (the model's whole footprint a wrapped optimizer, for good)."""
+    ref = weakref.ref(optimizer)
+
+    def hook(p):
+        opt = ref()
+        if opt is not None:
+            opt._hook(p)
+
+    return hook
+
+
+def _remove_hooks(handles):
+    for h in handles:
+        h.remove()
 
 
 def _build_param_names(optimizer, named_parameters, noname_prefix):

@@ -247,12 +247,14 @@ _WORKER = textwrap.dedent("""
                        op=hvd.Sum)
     assert xi.dtype == torch.int32 and xi.tolist() == [3, 6]
     assert hvd.broadcast(torch.tensor([float(r)]), 1).tolist() == [1.0]
-    q = torch.zeros(1, 4, 2, 8)
-    try:
-        ring_attention(q, q, q, group=dist.group.WORLD)
-        raise AssertionError("a ring of two must raise")
-    except NotImplementedError:
-        pass
+    # a ring of two over the world: each rank holds half of one sequence
+    g = torch.Generator().manual_seed(5)
+    full = [torch.randn(1, 8, 2, 8, generator=g) for _ in range(3)]
+    mine = [x[:, 4 * r:4 * (r + 1)] for x in full]
+    torch.testing.assert_close(
+        ring_attention(*mine, group=dist.group.WORLD),
+        PT.causal_attention(*full)[:, 4 * r:4 * (r + 1)],
+        rtol=1e-5, atol=1e-6)
     hvd.barrier()
     hvd.shutdown()
     print("RANK_OK", r)

@@ -14,7 +14,10 @@ import torch
 
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import flash_attention as fa
-from horovod_tpu_torch.parallel import ring_attention
+from horovod_tpu_torch.ops import xent
+from horovod_tpu_torch.parallel import (ring_attention,
+                                        striped_ring_attention,
+                                        ulysses_attention)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "horovod_tpu_torch")
@@ -90,6 +93,7 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "collectives_probe.py",
                                              "flash_probe.py",
                                              "runtime_probe.py",
+                                             "sp_probe.py",
                                              "wire_probe.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
@@ -118,6 +122,68 @@ def test_ring_attention_off_cpu_takes_the_kernel_or_raises(s, match):
     q = torch.empty((1, s, 2, 64), device="meta")
     with pytest.raises(ValueError, match=match):
         ring_attention(q, q, q, block_q=64, block_k=64)
+
+
+_LONG_CONTEXT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["horovod_tpu"] = None
+    import torch
+    from horovod_tpu_torch.models import transformer as PT
+    from horovod_tpu_torch.parallel import sp
+
+    cfg = PT.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                               n_layers=2, d_ff=64, max_seq=16,
+                               dtype=torch.float32, remat=True, xent_chunk=16)
+    model = PT.TransformerLM(cfg, device="cpu")
+    tokens = torch.randint(0, 64, (1, 17),
+                           generator=torch.Generator().manual_seed(0))
+    for attn in (lambda q, k, v: sp._simulated_ring(q, k, v, 4, True),
+                 lambda q, k, v: sp._simulated_ulysses(q, k, v, 2)):
+        loss = PT.lm_loss(model, tokens, attn_fn=attn)
+        loss.backward()
+        assert torch.isfinite(loss) and model.embed.grad is not None
+    for name in ("ops.xent", "parallel.sp"):
+        assert "horovod_tpu_torch." + name in sys.modules, name
+    assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
+                   for n, m in sys.modules.items() if m is not None)
+    print("LONG_CONTEXT_OK")
+""")
+
+
+def test_long_context_modules_run_without_jax():
+    """The sequence-parallel module, the chunked loss and remat import and
+    train without JAX or the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _LONG_CONTEXT], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0 and "LONG_CONTEXT_OK" in out.stdout, (
+        out.stdout + out.stderr)
+
+
+@pytest.mark.parametrize("fn", [striped_ring_attention, ulysses_attention])
+def test_sequence_parallel_attention_off_cpu_takes_the_kernel_or_raises(fn):
+    """Off the CPU the striped ring and Ulysses' default core take the
+    kernel's dispatch: a meta tensor raises, never runs a plain path."""
+    q = torch.empty((1, 64, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        fn(q, q, q)
+
+
+def test_k5_raises_without_nvcc(monkeypatch, tmp_path):
+    """K5 builds at first use on the card; without nvcc it raises, and a
+    tensor on neither the CPU nor CUDA is refused before any build."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(xent, "_fns", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        xent._kernel("hvd_xent_fwd_chunk")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("xent")
+    x = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        xent.chunked_softmax_xent(x, x, torch.zeros(2, dtype=torch.int64,
+                                                    device="meta"), 4)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -159,3 +159,41 @@ def test_bf16_compute_stays_close_to_fp32(setup):
     l32 = PT.lm_loss(model, t, attn_fn=ring_attention).item()
     l16 = PT.lm_loss(bf, t, attn_fn=ring_attention).item()
     assert abs(l32 - l16) < 2e-2, (l32, l16)
+
+
+def test_distributed_optimizer_is_freed_with_its_model(port):
+    """Dropping a ``DistributedOptimizer`` and its model frees both, with
+    their gradients and optimizer state: the gradient hooks hold the
+    optimizer weakly (a bound method in each parameter's hook table kept
+    everything alive after ``gc.collect()``, a model's whole footprint a
+    wrapped optimizer). A model kept for a new optimizer carries only the
+    new one's hooks, so its gradients are reduced once a step."""
+    import gc
+    import weakref
+
+    def step(model, opt):
+        opt.zero_grad()
+        PT.lm_loss(model, torch.randint(0, 64, (2, 17))).backward()
+        opt.step()
+
+    def wrapped(model):
+        return hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+            named_parameters=model.named_parameters())
+
+    cfg = PT.TransformerConfig(**CFG, dtype=torch.float32)
+    model = PT.TransformerLM(cfg, device="cpu")
+    opt = wrapped(model)
+    step(model, opt)
+    refs = weakref.ref(model.embed), weakref.ref(opt)
+    del model, opt
+    gc.collect()
+    assert refs[0]() is None and refs[1]() is None
+
+    model = PT.TransformerLM(cfg, device="cpu")
+    step(model, wrapped(model))
+    gc.collect()
+    opt = wrapped(model)
+    assert all(len(p._post_accumulate_grad_hooks) == 1
+               for p in model.parameters())
+    step(model, opt)
