@@ -273,9 +273,10 @@ def in_turns(fns: dict, timer, rounds: int = 2) -> dict:
 def share_of(bound_ms: float, dev_ms: float, ev_ms: float) -> tuple:
     """(the bound's share of a kernel's time, which time it was read
     from): its device ms, or its event ms where the device reading is
-    under the bound by more than 5 % (the profiler dropped records; no
-    kernel beats its bound). Raises if the event ms is under it too."""
-    if bound_ms / dev_ms <= 1.05:
+    none or under the bound by more than 5 % (the profiler dropped
+    records; no kernel beats its bound). Raises if the event ms is under
+    it too."""
+    if dev_ms > 0 and bound_ms / dev_ms <= 1.05:
         return bound_ms / dev_ms, "device"
     if bound_ms / ev_ms > 1.05:
         raise AssertionError(f"a time under its bound: {ev_ms:.4f} ms by "
@@ -431,7 +432,39 @@ def kernel_phase(device) -> list:
                                (torch.float32, "flash_attention_fwd_fp32",
                                 10)):
         kernels.append(time_flash(name, B, s, d, dtype, iters, device))
+    kernels[0]["long_context_shape"] = time_flash_long_context(device)
     return kernels
+
+
+def time_flash_long_context(device, B: int = 16, s: int = 8192,
+                            d: int = 128) -> dict:
+    """The bf16 kernel at the long-context path's shape (B = heads = 16,
+    s = 8192, causal) in turns with ``scaled_dot_product_attention`` on
+    the same inputs, by events and device time, beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(B, s, d, torch.bfloat16, 11, device)
+    q4, k4, v4 = q[None], k[None], v[None]
+    fns = {"kernel": lambda: fa.attention_stats(q, k, v, True),
+           "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True)}
+    ev = in_turns(fns, lambda fn: time_ms(fn, iters=20))
+    dev = in_turns(fns, lambda fn: device_ms(fn, iters=20))
+    bound_ms, bound_by = flash_bound(B, s, s, d, "bfloat16", True)
+    _log(f"  flash_attention_fwd at the long-context shape (B = {B}, s = "
+         f"{s}, d = {d}, bf16, causal): kernel {ev['kernel']:.4f} ms a "
+         f"call, {dev['kernel']:.4f} device ({bound_ms / dev['kernel']:.3f}"
+         f" of its bound {bound_ms:.4f} ms, {bound_by}); sdpa "
+         f"{ev['sdpa']:.4f} ms, {dev['sdpa']:.4f} device")
+    del q, k, v, q4, k4, v4
+    torch.cuda.empty_cache()
+    return {"B": B, "s": s, "d": d, "ms": ev["kernel"],
+            "device_ms": dev["kernel"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": ev["sdpa"],
+            "library_device_ms": dev["sdpa"]}
 
 
 def time_flash(name, B, s, d, dtype, iters, device) -> dict:
@@ -2277,7 +2310,310 @@ def long_context_phase(device) -> dict:
     return lc["launches"]
 
 
-# --- phase 10: the launcher ------------------------------------------------
+# --- phase 10: the zero-1 path ----------------------------------------------
+
+def _sgd(params):
+    import torch
+
+    return torch.optim.SGD(params, lr=1e-3, momentum=0.9)
+
+
+def _zero_counts() -> dict:
+    """The counters a sharded step moves."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import fused_pack as fp
+    from horovod_tpu_torch.utils import metrics
+
+    reg = metrics.get_registry()
+    out = {f"wire {ph}": reg.counter_value(
+        "hvd_sharded_update_wire_bytes_total", phase=ph)
+        for ph in ("reduce_scatter", "allgather", "allreduce", "broadcast")}
+    out.update({"sharded plan hits": reg.counter_value(
+        "hvd_sharded_plan_hits_total"), "sharded plan misses":
+        reg.counter_value("hvd_sharded_plan_misses_total"),
+        "K1 launches": sum(fp.kernel_launches.values()),
+        "dist calls": C.dist_calls})
+    return out
+
+
+def _zero_arm(arm: str, cfg, batch: int, steps: int, device,
+              ref=None) -> tuple:
+    """``steps`` steps of one arm of the zero-1 path from the weights and
+    tokens of seed 0: ``plain`` (``DistributedOptimizer``), ``whole_leaf``
+    (``sharded_update=True``) or ``engine`` (``ShardedUpdateEngine`` over
+    the set of one: NCCL's reduce-scatter and allgather on a communicator
+    of one). With ``ref`` (the plain arm's parameters after each step)
+    each step's parameters must equal them bit for bit; without, they are
+    kept, in buffers taken before the first step (so the steps' own
+    allocations stay as they would be). Peak memory is the arm's own: the
+    most allocated during a step above what was allocated before the arm
+    was built, less the kept parameters. Returns (readings, kept
+    parameters)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.opt.sharded import (ShardedUpdateEngine,
+                                               optimizer_state_bytes)
+    from horovod_tpu_torch.parallel import ring_attention
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = TransformerLM(cfg, device=device, seed=0)
+    tokens = tokens_for(cfg, batch, 0, device)
+    params = list(model.parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    engine = opt = None
+    if arm == "engine":
+        engine = ShardedUpdateEngine(_sgd,
+                                     process_set=hvd.global_process_set())
+        engine.init(params)
+    else:
+        opt = hvd.DistributedOptimizer(
+            _sgd(params), named_parameters=model.named_parameters(),
+            sharded_update=arm == "whole_leaf")
+        want = "ShardedDistributedSGD" if arm == "whole_leaf" \
+            else "DistributedSGD"
+        if type(opt).__name__ != want:
+            raise AssertionError(f"{arm}: {type(opt).__name__}")
+
+    def step():
+        if engine is not None:
+            for p in params:
+                p.grad = None
+            loss = lm_loss(model, tokens, attn_fn=ring_attention)
+            loss.backward()
+            engine.step(params)
+        else:
+            opt.zero_grad()
+            loss = lm_loss(model, tokens, attn_fn=ring_attention)
+            loss.backward()
+            opt.step()
+        return loss.item()  # waits for the step's device work
+
+    losses, step_s, per_step = [], [], []
+    kept = ([[torch.empty_like(p) for p in params] for _ in range(steps)]
+            if ref is None else [])
+    held = sum(t.numel() * t.element_size() for ts in kept for t in ts)
+    peak = 0
+    for i in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = _zero_counts()
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_s.append(time.perf_counter() - t0)
+        c1 = _zero_counts()
+        per_step.append({k: c1[k] - c0[k] for k in c0})
+        peak = max(peak, torch.cuda.max_memory_allocated() - base - held)
+        if ref is None:
+            for t, p in zip(kept[i], params):
+                t.copy_(p.detach())
+        elif not all(_same_bits(a, b) for a, b in zip(params, ref[i])):
+            raise AssertionError(f"zero-1 path, {arm}: parameters differ "
+                                 f"from the plain wrapper's after step {i}")
+    state = optimizer_state_bytes(engine.optimizer if engine is not None
+                                  else opt)
+    digest = engine.layout.digest[:12] if engine is not None else None
+    del model, params, opt, engine
+    gc.collect()  # the hook optimizers sit in reference cycles
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [x * 1e3 for x in step_s],
+            "median_step_ms": statistics.median(step_s[1:]) * 1e3,
+            "peak_bytes": peak, "state_bytes": state, "digest": digest,
+            "per_step": per_step[-1]}, kept
+
+
+def _zero_simulated(cfg, batch: int, device, world: int = 4,
+                    steps: int = 3) -> tuple:
+    """``world`` simulated ranks on the card: the LM's gradients from
+    ``world`` seeded batches, the layout at that world, each rank's K1
+    pack, the simulated reduce in rank order, ``world`` shard steps and
+    K1's pack of the shards and unpack into the parameters; each step's
+    parameters bitwise equal to a replicated SGD step over the same
+    reduce (``sim_reduce`` a leaf). Returns (readings, the gradients, the
+    layout)."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.opt import sharded as S
+    from horovod_tpu_torch.parallel import ring_attention
+
+    model = TransformerLM(cfg, device=device, seed=0)
+    params = list(model.parameters())
+    grads = []
+    for r in range(world):
+        lm_loss(model, tokens_for(cfg, batch, 100 + r, device),
+                attn_fn=ring_attention).backward()
+        grads.append([p.grad for p in params])
+        for p in params:
+            p.grad = None
+    sim = [p.detach().clone() for p in params]
+    rep = [p.detach().clone() for p in params]
+    del model, params
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engines = S.make_simulated_engines(_sgd, world)
+    for e in engines:
+        e.init(sim)
+    rep_opt = _sgd(rep)
+    c0 = _zero_counts()
+    step_s = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.simulated_step(engines, sim, grads)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        for j, p in enumerate(rep):
+            p.grad = C.sim_reduce([g[j] for g in grads],
+                                  C.ReduceOp.AVERAGE)
+        rep_opt.step()
+        for p in rep:
+            p.grad = None
+        if not all(_same_bits(a, b) for a, b in zip(sim, rep)):
+            raise AssertionError(f"zero-1 path, {world} simulated ranks: "
+                                 f"parameters differ from the replicated "
+                                 f"update's after step {i}")
+    c1 = _zero_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    per = {k: (c1[k] - c0[k]) / steps for k in c0}
+    for k in per:
+        if k.startswith("wire "):
+            per[k] /= world  # the counters sum the world's engines
+    layout = engines[0].layout
+    rd = {"step_ms": [x * 1e3 for x in step_s],
+          "median_step_ms": statistics.median(step_s) * 1e3,
+          "peak_bytes": peak,
+          "state_bytes": S.optimizer_state_bytes(engines[0].optimizer),
+          "replicated_state_bytes": S.optimizer_state_bytes(rep_opt),
+          "digest": layout.digest[:12], "per_step": per,
+          "shard_fraction": layout.shard_fraction}
+    del engines, rep_opt, sim, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rd, grads, layout
+
+
+def _time_zero_layout(grads, layout) -> dict:
+    """K1 over the shard layout at world 4: the pack of one rank's 74
+    gradients into the padded group (the zero pad included) and the
+    unpack of the gathered flat into 74 parameters; each held bitwise
+    against its plain version first, then timed by events and device
+    time in turns with the library's ``torch.cat`` plus the pad's fill
+    (pack) and ``split`` + ``copy_`` (unpack), beside its byte bound."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    (g,) = layout.groups
+    padded = layout.group_padded(g)
+    leaves = [grads[0][i] for i in g.indices]
+    pack = C.sharded_pack_plan(None, layout.world_size, g.sizes, g.shapes,
+                               g.torch_dtype, g.shard_elems, layout.digest)
+    flat = torch.empty(padded, dtype=g.torch_dtype, device=leaves[0].device)
+    ref = torch.zeros_like(flat)
+    pack.execute(leaves, flat)
+    fp.plain_pack(leaves, ref)
+    outs = [torch.empty_like(t) for t in leaves]
+    fp.unpack(flat, outs)
+    if not (_same_bits(flat, ref)
+            and all(_same_bits(a, b) for a, b in zip(outs, leaves))):
+        raise AssertionError("K1 over the shard layout differs from its "
+                             "plain version")
+    del ref
+
+    def lib_pack():
+        torch.cat([t.view(-1) for t in leaves], out=flat[:g.total])
+        flat[g.total:].zero_()
+
+    def lib_unpack():
+        for t, part in zip(outs, torch.split(flat[:g.total], list(g.sizes))):
+            t.view(-1).copy_(part)
+
+    item = flat.element_size()
+    out = {}
+    for name, kfn, pfn, lfn, nbytes in (
+            ("pack", lambda: pack.execute(leaves, flat),
+             lambda: fp.plain_pack(leaves, flat), lib_pack,
+             (g.total + padded) * item),
+            ("unpack", lambda: fp.unpack(flat, outs),
+             lambda: fp.plain_unpack(flat, outs), lib_unpack,
+             2 * g.total * item)):
+        fns = {"kernel": kfn, "library": lfn}
+        ev = in_turns(fns, lambda fn: time_ms(fn, iters=10))
+        dev = in_turns(fns, lambda fn: device_ms(fn, iters=5, warmup=1))
+        plain = time_ms(pfn, iters=3)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        share, by = share_of(bound, dev["kernel"], ev["kernel"])
+        _log(f"  K1 {name} over the shard layout ({len(leaves)} tensors, "
+             f"{g.total} elements, padded {padded}): {ev['kernel']:.4f} ms "
+             f"by events, {dev['kernel']:.4f} device ({share:.3f} of its "
+             f"bound {bound:.4f} ms, read from {by}); library "
+             f"{ev['library']:.4f} ms ({dev['library']:.4f} device); plain "
+             f"{plain:.4f} ms")
+        # a device time of 0 is the profiler's dropped records: none read
+        out[name] = {"ms": ev["kernel"], "device_ms": dev["kernel"] or None,
+                     "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": ev["library"],
+                     "library_device_ms": dev["library"] or None,
+                     "share": share,
+                     "share_by": by, "tensors": len(leaves),
+                     "padded": padded}
+    del flat, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero1_phase(device) -> tuple:
+    """The zero-1 path at full width, one GPU (module docstring): the
+    plain wrapper, then the whole-leaf front end and the engine at a world
+    of one, each bitwise the plain wrapper after every step; then four
+    simulated ranks, bitwise a replicated update. Returns the path's
+    kernel launches and K1's readings over the shard layout."""
+    import torch
+
+    cfg = full_width_config(12)
+    batch, steps = 8, 3
+    _zero_launch_counts()  # just before the path runs
+    plain, ref = _zero_arm("plain", cfg, batch, steps, device)
+    arms = {"plain": plain}
+    arms["whole_leaf"], _ = _zero_arm("whole_leaf", cfg, batch, steps,
+                                      device, ref)
+    arms["engine"], _ = _zero_arm("engine", cfg, batch, steps, device, ref)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim, grads, layout = _zero_simulated(cfg, batch, device)
+    launches = _launch_counts()
+    for name, rd in list(arms.items()) + [("4 simulated ranks", sim)]:
+        _log(f"  {name}: step ms {[round(x, 1) for x in rd['step_ms']]}, "
+             f"median {rd['median_step_ms']:.1f}; peak "
+             f"{rd['peak_bytes'] / 2**30:.2f} GiB; optimizer state "
+             f"{rd['state_bytes'] / 1e9:.4f} GB a rank; layout digest "
+             f"{rd['digest']}; a step: {rd['per_step']}"
+             + (f"; losses {rd['losses']}" if "losses" in rd else ""))
+    _log(f"  whole-leaf and engine (a world of one): parameters bitwise "
+         f"the plain wrapper's after each of {steps} steps; 4 simulated "
+         f"ranks: bitwise the replicated update's (its state "
+         f"{sim['replicated_state_bytes'] / 1e9:.4f} GB); launches "
+         f"{launches}")
+    for k in ("fused_pack", "fused_unpack", "flash_attention_fwd"):
+        if not launches[k]:
+            raise AssertionError(f"{k} never launched on the zero-1 path: "
+                                 f"{launches}")
+    timed = _time_zero_layout(grads, layout)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timed, {**arms, "simulated": sim}
+
+
+# --- phase 11: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -2402,6 +2738,12 @@ def main() -> int:
     t_lc = time.perf_counter()
     lc_launches = long_context_phase(device)
     _log(f"  long-context path: {time.perf_counter() - t_lc:.1f} s")
+    _phase("[zero-1 path] 12 layers at full width, 3 steps each: the plain "
+           "wrapper, the whole-leaf front end, the engine at a world of "
+           "one; then 4 simulated ranks")
+    t_z = time.perf_counter()
+    zero_launches, zero_timed, zero_arms = zero1_phase(device)
+    _log(f"  zero-1 path: {time.perf_counter() - t_z:.1f} s")
     hvd.shutdown()
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
@@ -2417,7 +2759,10 @@ def main() -> int:
             "fp32": fp32_launches[entry["name"]],
             "collectives": coll_launches[entry["name"]],
             "sp": sp_launches[entry["name"]],
-            "long_context": lc_launches[entry["name"]]}
+            "long_context": lc_launches[entry["name"]],
+            "zero1": zero_launches[entry["name"]]}
+        if entry["name"] in ("fused_pack", "fused_unpack"):
+            entry["zero1_layout"] = zero_timed[entry["name"][6:]]
     for entry in k5_entries:  # K5's path is the long-context one
         entry["launches"] = lc_launches[entry["name"]]
         entry["launches_by_path"] = {"long_context": entry["launches"]}
@@ -2429,6 +2774,7 @@ def main() -> int:
 
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"collectives": readings}))
+    print(json.dumps({"zero1": zero_arms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

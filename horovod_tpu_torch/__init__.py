@@ -20,6 +20,7 @@ from .ops.collectives import (  # noqa: F401
     ReduceOp,
     Sum,
 )
+from .opt import ShardedUpdateEngine, plan_shard_layout  # noqa: F401
 from .torch import (  # noqa: F401  (the Horovod surface)
     Compression,
     DistributedOptimizer,

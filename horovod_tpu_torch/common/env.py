@@ -60,8 +60,11 @@ HOROVOD_QUANT_BLOCK = "HOROVOD_QUANT_BLOCK"
 HOROVOD_QUANT_EF = "HOROVOD_QUANT_EF"
 HOROVOD_QUANT_OPTOUT = "HOROVOD_QUANT_OPTOUT"
 HOROVOD_QUANT_MIN_ELEMS = "HOROVOD_QUANT_MIN_ELEMS"
-# the ZeRO-1 sharded update, which excludes the compressed wire
+# the ZeRO-1 sharded update (opt/sharded.py), which excludes the
+# compressed wire, and its replicate threshold in elements: a leaf under it
+# stays on the allreduce path (JAX common/env.py:101-102)
 HOROVOD_SHARDED_UPDATE = "HOROVOD_SHARDED_UPDATE"
+HOROVOD_SHARDED_MIN_ELEMS = "HOROVOD_SHARDED_MIN_ELEMS"
 
 # knobs of the JAX package that the port reads only to warn that it does
 # not implement them (JAX common/env.py:25, :47-48, :139, :163)

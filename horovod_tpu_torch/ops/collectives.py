@@ -43,6 +43,17 @@
   same bit for bit.
 - ``_eager_reducescatter`` (:1767-1779): an allreduce, then this rank's
   slice, which keeps the JAX result at every size.
+- The ZeRO-1 shard plans (:1170-1300), for ``opt/sharded.py``:
+  ``sharded_pack_plan`` (K1 packs a dtype group's leaves into one flat
+  buffer of ``world * shard_elems``, a zero pad after them),
+  ``sharded_reduce_scatter_plan`` (one ``reduce_scatter`` in place on
+  that buffer, where the JAX plan allreduces and slices: only (n-1)/n of
+  it crosses the wire) and ``sharded_allgather_plan`` (one
+  ``all_gather`` in place into the same buffer, then K1's unpack into the
+  leaves), cached in the fused plans' LRU under keys with the layout's
+  digest and counted by ``hvd_sharded_plan_hits_total`` and
+  ``_misses_total``. ``sim_reduce`` is the JAX reduce as XLA computes it,
+  for a simulated world.
 
 One deliberate departure, which changes no result: at a world of one the
 JAX package skips the exchange (the fused plan's pack and unpack,
@@ -104,9 +115,12 @@ _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MIN: dist.ReduceOp.MIN,
 # runtime reads the difference across each op it dispatches)
 dist_calls = 0
 
-# torch names the one-tensor allgather all_gather_single from 2.13 on
+# torch names the one-tensor allgather all_gather_single, and the
+# one-tensor reduce-scatter reduce_scatter_single, from 2.13 on
 _all_gather = (getattr(dist, "all_gather_single", None)
                or dist.all_gather_into_tensor)
+_reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
 
 
 def _count_call():
@@ -402,9 +416,10 @@ def invalidate_fused_plans() -> int:
     return n
 
 
-def _insert_plan(key: tuple, build):
-    """The cached plan of ``key``, built by ``build`` on a miss."""
-    hits, misses = _plan_metrics()
+def _insert_plan(key: tuple, build, counters=_plan_metrics):
+    """The cached plan of ``key``, built by ``build`` on a miss; a hit or
+    a miss counts on ``counters()``."""
+    hits, misses = counters()
     plan = _PLANS.get(key)
     if plan is not None:
         _PLANS.move_to_end(key)
@@ -597,6 +612,265 @@ def quant_sim_chunk_plan(world: int, op, prescale_factor: float,
     return _insert_plan(key, lambda: _wire_plan(
         None, int(world), op, prescale_factor, postscale_factor, sizes,
         shapes, dtype, quant))
+
+
+# ===========================================================================
+# Sharded-update plans (ZeRO-1, opt/sharded.py): pack → reduce-scatter →
+# sharded step → allgather → unpack
+# ===========================================================================
+#
+# One plan of each kind per dtype group, in the fused plans' LRU (so
+# invalidate_fused_plans() and the capacity drop them alike) under keys
+# that hold the set, its size, the elastic generation and the layout's
+# digest: a rebuilt layout misses onto fresh plans. ``ps=None`` is the
+# simulated world (one process driving N virtual ranks). The flat buffer of
+# a group is ``world * shard_elems`` long, its leaves back to back and a
+# zero pad after them: the reduce-scatter runs in place, leaving this
+# rank's reduced shard at its place in the flat, and the allgather lands
+# in the same flat, so a step holds one padded buffer a group.
+
+_sharded_metric_handles = None
+
+
+def _sharded_metrics():
+    """(hits, misses) of the sharded plans, resolved at their first
+    lookup, so a job that never shards registers no series."""
+    global _sharded_metric_handles
+    if _sharded_metric_handles is None:
+        reg = metrics_mod.get_registry()
+        _sharded_metric_handles = (
+            reg.counter("hvd_sharded_plan_hits_total",
+                        "sharded-update plan cache hits"),
+            reg.counter("hvd_sharded_plan_misses_total",
+                        "sharded-update plans built (cache misses)"))
+    return _sharded_metric_handles
+
+
+def _sharded_ps_name(ps: Optional[ProcessSet]) -> str:
+    return "simulated" if ps is None else ps.name
+
+
+def _as_flat_input(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    t = t.detach()
+    return (t if t.dtype == dtype else t.to(dtype)).contiguous()
+
+
+def _f32(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def sim_reduce(rows, op, prescale_factor: float = 1.0,
+               postscale_factor: float = 1.0) -> torch.Tensor:
+    """The JAX package's ``_allreduce_body`` (:570-597) over ``rows``, one
+    tensor a rank in rank order, as XLA computes it for fp32: ``rows[0] *
+    pre``, then each later row added in one FMA, ``row * pre + acc`` (XLA
+    contracts the prescale into the sum); then AVERAGE times
+    ``fp32(fp32(1/n) * fp32(post))`` and SUM times ``post``. The FMA is
+    taken in fp64, exact for the product. Other float dtypes are computed
+    in fp32 and rounded once at the end."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"the simulated reduce runs SUM and AVERAGE, not "
+                         f"{op!r}")
+    dtype = rows[0].dtype
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    pre = float(prescale_factor)
+    acc = rows[0].to(work) * pre if pre != 1.0 else rows[0].to(work)
+    for row in rows[1:]:
+        if pre == 1.0:
+            acc = acc + row.to(work)
+        elif work == torch.float32:
+            acc = (row.double() * _f32(pre) + acc.double()).float()
+        else:
+            acc = acc + row * pre
+    if op == ReduceOp.AVERAGE:
+        n = len(rows)
+        acc = acc * (_f32(_f32(1.0 / n) * _f32(postscale_factor))
+                     if work == torch.float32
+                     else postscale_factor / n)
+    elif postscale_factor != 1.0:
+        acc = acc * float(postscale_factor)
+    return acc if acc.dtype == dtype else acc.to(dtype)
+
+
+class ShardedPackPlan:
+    """A group's leaves into its padded flat buffer, and this rank's shard
+    of them (JAX ``sharded_pack_plan``, :1220-1242), in K1's pack."""
+
+    __slots__ = ("sizes", "dtype", "shard_elems", "total", "padded",
+                 "offsets")
+
+    def __init__(self, world: int, sizes: tuple, dtype: torch.dtype,
+                 shard_elems: int):
+        self.sizes = sizes
+        self.dtype = dtype
+        self.shard_elems = shard_elems
+        self.total = sum(sizes)
+        self.padded = world * shard_elems
+        self.offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+
+    def execute(self, leaves, flat: Optional[torch.Tensor] = None,
+                factor: float = 1.0) -> torch.Tensor:
+        """``flat[world * shard_elems]``: the leaves, cast to the group's
+        dtype, back to back, each times ``factor``, then zeros."""
+        if flat is None:
+            flat = torch.empty(self.padded, dtype=self.dtype,
+                               device=leaves[0].device)
+        fused_pack.pack([_as_flat_input(t, self.dtype) for t in leaves],
+                        flat, factor)
+        if self.padded > self.total:
+            flat[self.total:].zero_()
+        return flat
+
+    def pack_shard(self, leaves, rank: int, out: torch.Tensor):
+        """Write elements ``[rank * shard_elems, (rank + 1) *
+        shard_elems)`` of the leaves' concatenation into ``out``, zeros
+        past their end: one K1 pack over the slices of the leaves that the
+        shard covers."""
+        lo = rank * self.shard_elems
+        hi = lo + self.shard_elems
+        parts = []
+        for t, off, n in zip(leaves, self.offsets, self.sizes):
+            a, b = max(lo, off), min(hi, off + n)
+            if a < b:
+                parts.append(_as_flat_input(t, self.dtype).view(-1)
+                             [a - off:b - off])
+        fused_pack.pack(parts, out)
+        used = sum(p.numel() for p in parts)
+        if used < self.shard_elems:
+            out[used:].zero_()
+        return out
+
+
+class ShardedReduceScatterPlan:
+    """A group's flat buffer reduced across the set, this rank's shard kept
+    (JAX ``sharded_reduce_scatter_plan``, :1245-1270, which reduces and
+    slices): one ``reduce_scatter`` in place, so only (n-1)/n of the
+    buffer crosses the wire. AVERAGE and the postscale follow
+    ``FusedChunkPlan``: the backend's AVG where it has one, else SUM and
+    one factor ``post / n`` applied by K1 to the shard in place; the
+    prescale rides the pack (``pack_factor``). A simulated plan (``group``
+    None) reduces the ranks' flats by ``sim_reduce``, which applies both
+    factors, so its pack runs at 1."""
+
+    __slots__ = ("group", "rank", "op", "shard_elems", "pre", "post",
+                 "dist_op", "pack_factor", "unpack_factor")
+
+    def __init__(self, group, world: int, rank: int, op, shard_elems: int,
+                 pre: float, post: float):
+        self.group = group
+        self.rank = rank
+        self.op = ReduceOp(op)
+        self.shard_elems = shard_elems
+        self.pre = pre
+        self.post = post
+        self.dist_op = dist.ReduceOp.SUM
+        self.pack_factor, self.unpack_factor = 1.0, 1.0
+        if group is None:
+            return
+        self.pack_factor = pre
+        if self.op == ReduceOp.AVERAGE and _has_avg(group):
+            self.dist_op, self.unpack_factor = dist.ReduceOp.AVG, post
+        elif self.op == ReduceOp.AVERAGE:
+            self.unpack_factor = post / world
+        else:
+            self.unpack_factor = post
+
+    def execute(self, flat: torch.Tensor) -> torch.Tensor:
+        """Reduce-scatter ``flat`` (packed at ``pack_factor``) in place;
+        returns this rank's reduced shard, a view of ``flat``."""
+        lo = self.rank * self.shard_elems
+        shard = flat[lo:lo + self.shard_elems]
+        _count_call()
+        _reduce_scatter(shard, flat, self.dist_op, group=self.group)
+        if self.unpack_factor != 1.0:
+            fused_pack.unpack(shard, [shard], self.unpack_factor)
+        return shard
+
+    def simulate(self, flats) -> torch.Tensor:
+        """This rank's reduced shard of every simulated rank's flat."""
+        lo = self.rank * self.shard_elems
+        return sim_reduce([f[lo:lo + self.shard_elems] for f in flats],
+                          self.op, self.pre, self.post)
+
+
+class ShardedAllgatherPlan:
+    """The updated shards back into the full leaves (JAX
+    ``sharded_allgather_plan``, :1273-1300): K1 packs this rank's shard
+    into its place in the flat, one ``all_gather`` in place fills the
+    other ranks' places, and K1 unpacks the flat into the leaves."""
+
+    __slots__ = ("group", "dtype", "shard_elems", "padded")
+
+    def __init__(self, group, world: int, dtype: torch.dtype,
+                 shard_elems: int):
+        self.group = group
+        self.dtype = dtype
+        self.shard_elems = shard_elems
+        self.padded = world * shard_elems
+
+    def execute(self, flat: torch.Tensor, rank: int, shard: torch.Tensor,
+                outputs):
+        """``flat`` is the group's buffer (the reduce-scatter's), reused;
+        ``outputs`` the leaves, written in place."""
+        lo = rank * self.shard_elems
+        mine = flat[lo:lo + self.shard_elems]
+        fused_pack.pack([shard.detach()], mine)
+        _count_call()
+        _all_gather(flat, mine, group=self.group)
+        fused_pack.unpack(flat, [o.detach() for o in outputs])
+
+    def simulate(self, shards, outputs):
+        """Every simulated rank's shard, in rank order, packed by K1 into
+        one flat (the gather), then unpacked into ``outputs``."""
+        flat = torch.empty(self.padded, dtype=self.dtype,
+                           device=shards[0].device)
+        fused_pack.pack([s.detach() for s in shards], flat)
+        fused_pack.unpack(flat, [o.detach() for o in outputs])
+
+
+def _dims(sizes, shapes) -> tuple:
+    return (tuple(int(s) for s in sizes),
+            tuple(tuple(int(d) for d in s) for s in shapes))
+
+
+def sharded_pack_plan(ps: Optional[ProcessSet], world: int, sizes, shapes,
+                      dtype: torch.dtype, shard_elems: int, digest: str):
+    """The cached pack plan of one dtype group (``ps`` None: simulated)."""
+    sizes, shapes = _dims(sizes, shapes)
+    key = ("fused_plan", "sharded_pack", _sharded_ps_name(ps), int(world),
+           _plan_epoch(), sizes, shapes, str(dtype), int(shard_elems),
+           digest)
+    return _insert_plan(key, lambda: ShardedPackPlan(
+        int(world), sizes, dtype, int(shard_elems)), _sharded_metrics)
+
+
+def sharded_reduce_scatter_plan(ps: Optional[ProcessSet], world: int,
+                                rank: int, op, shard_elems: int,
+                                dtype: torch.dtype, digest: str,
+                                prescale_factor: float = 1.0,
+                                postscale_factor: float = 1.0):
+    """The cached reduce-scatter plan of one dtype group and rank."""
+    key = ("fused_plan", "sharded_rs", _sharded_ps_name(ps), int(world),
+           _plan_epoch(), int(rank), int(op), int(shard_elems), str(dtype),
+           float(prescale_factor), float(postscale_factor), digest)
+    return _insert_plan(key, lambda: ShardedReduceScatterPlan(
+        None if ps is None else ps.group, int(world), int(rank), op,
+        int(shard_elems), float(prescale_factor),
+        float(postscale_factor)), _sharded_metrics)
+
+
+def sharded_allgather_plan(ps: Optional[ProcessSet], world: int, sizes,
+                           shapes, dtype: torch.dtype, shard_elems: int,
+                           digest: str):
+    """The cached allgather-and-unpack plan of one dtype group."""
+    sizes, shapes = _dims(sizes, shapes)
+    key = ("fused_plan", "sharded_ag", _sharded_ps_name(ps), int(world),
+           _plan_epoch(), sizes, shapes, str(dtype), int(shard_elems),
+           digest)
+    return _insert_plan(key, lambda: ShardedAllgatherPlan(
+        None if ps is None else ps.group, int(world), dtype,
+        int(shard_elems)), _sharded_metrics)
 
 
 def _ps(process_set: Optional[ProcessSet]) -> ProcessSet:

@@ -22,10 +22,17 @@ Every op takes ``process_set=`` (``add_process_set``, which every rank
 calls, members or not). ``Compression.int8``/``int4`` are markers: the
 allreduces and ``DistributedOptimizer`` carry them to the runtime as the
 entry's wire (``quant``), and their ``compress``/``decompress`` are the
-identity; a tensor that autograd tracks keeps the plain wire. Not
-ported, and raising ``NotImplementedError``: the ZeRO-1 sharded update
-(ROADMAP.md queue 1 item 12, also when ``sharded_update=None`` reads
-``HOROVOD_SHARDED_UPDATE``) and Adasum (item 13).
+identity; a tensor that autograd tracks keeps the plain wire.
+
+``DistributedOptimizer(..., sharded_update=True)`` (or
+``HOROVOD_SHARDED_UPDATE=1`` when ``sharded_update=None``) is ZeRO-1 with
+whole-leaf owners, as the JAX package's torch shim does it
+(``_ShardedMixin``): each leaf of at least ``min_shard_elems`` elements
+(``HOROVOD_SHARDED_MIN_ELEMS``) is stepped by one owning rank and
+broadcast from it, so each rank holds optimizer state for its own leaves
+and the small ones. The slice-level engine is ``opt.ShardedUpdateEngine``.
+Not ported, and raising ``NotImplementedError``: Adasum (ROADMAP.md queue
+1 item 13).
 """
 from __future__ import annotations
 
@@ -58,6 +65,9 @@ from ..common.exceptions import HorovodInternalError  # noqa: F401
 from ..ops import collectives as _coll
 from ..ops import compression as _comp
 from ..ops.queue import TensorEntry
+from ..opt.sharded import _resolve_min_shard_elems, sharded_update_enabled
+from ..parallel.sharding_policy import assign_owners
+from ..utils import metrics as _metrics
 from ..ops.collectives import (  # noqa: F401
     Adasum,
     Average,
@@ -730,20 +740,95 @@ def _build_param_names(optimizer, named_parameters, noname_prefix):
     return names
 
 
-def _sharded_update_enabled() -> bool:
-    """``HOROVOD_SHARDED_UPDATE``, read when ``sharded_update=None``; with
-    the compressed wire also set it raises, as the JAX package's
-    ``sharded_update_enabled`` (``opt/sharded.py:80-99``) does."""
-    enabled = _env.get_bool(_env.HOROVOD_SHARDED_UPDATE)
-    if enabled:
-        mode = _env.get_str(_env.HOROVOD_COMPRESSION).strip().lower()
-        if mode not in ("", "none", "0", "off"):
-            raise ValueError(
-                f"{_env.HOROVOD_SHARDED_UPDATE} and "
-                f"{_env.HOROVOD_COMPRESSION}={mode!r} are mutually "
-                "exclusive: the sharded update path cannot run the "
-                "quantized wire (see docs/sharded_optimizer.md)")
-    return enabled
+class _ShardedMixin:
+    """ZeRO-1 for the torch front end, overlaid on ``_DistributedMixin``
+    (the JAX package's torch shim, ``horovod_tpu/torch/__init__.py``
+    :721-832): gradients hook-allreduce exactly as in the plain wrapper,
+    but each parameter's optimizer step runs on one owning rank, which
+    then broadcasts the updated parameter. A torch optimizer cannot slice
+    one tensor's step across ranks, so ownership is whole-leaf
+    (``parallel/sharding_policy.assign_owners``: largest first to the
+    least-loaded rank; leaves under the replicate threshold step on every
+    rank, with no broadcast). torch makes a parameter's state at its first
+    step, so a rank only ever holds state for the parameters it owns and
+    the replicated ones: about 1/n of the optimizer state, with no surgery
+    on the state dict.
+
+    Caveats (``docs/sharded_optimizer.md``, "torch mode"):
+    ``state_dict()`` holds only this rank's share of the optimizer state,
+    so gather before a checkpoint or save one per rank. After an elastic
+    resize every rank rebuilds the same owner table from the new world,
+    and a parameter that changed owner starts with fresh state (its
+    momentum restarts). The owner broadcasts 1x the owned leaves' bytes
+    on top of the gradients' allreduce."""
+
+    def _hvd_sharded_setup(self, min_shard_elems):
+        self._sharded_min_elems = _resolve_min_shard_elems(min_shard_elems)
+        reg = _metrics.get_registry()
+        wire = "hvd_sharded_update_wire_bytes_total"
+        wire_help = ("sharded-update wire bytes by phase (ring accounting: "
+                     "(N-1)/N of the buffer per RS or AG pass)")
+        self._m_bcast = reg.counter(wire, wire_help, phase="broadcast")
+        self._m_frac = reg.gauge(
+            "hvd_sharded_update_shard_fraction",
+            "fraction of elements on the sharded path (rest replicate)")
+        self._sharded_gen = None
+        self._hvd_build_owners()
+
+    def _hvd_build_owners(self):
+        ps = self._process_set or global_process_set()
+        ws = max(ps.size, 1)
+        # param_groups order is the leaf order, the same on every rank
+        params = [p for g in self.param_groups for p in g["params"]]
+        sizes = [p.numel() for p in params]
+        owner_list = assign_owners(sizes, ws,
+                                   min_shard_elems=self._sharded_min_elems)
+        self._sharded_world = ws
+        self._sharded_rank = ps.rank
+        # one process a GPU: an owner is a rank of the set, the broadcast's
+        # root as it is
+        self._owners = dict(zip(params, owner_list))
+        self._sharded_gen = _env.get_int(_env.HOROVOD_ELASTIC_GEN, 0)
+        owned = sum(s for s, o in zip(sizes, owner_list) if o is not None)
+        self._m_frac.set(owned / max(sum(sizes), 1))
+
+    def step(self, closure=None):
+        if self._should_sync:
+            self.synchronize()
+        if self._sharded_gen != _env.get_int(_env.HOROVOD_ELASTIC_GEN, 0):
+            # elastic resize: every rank rebuilds the same owner table
+            # from the new world without communicating
+            self._hvd_build_owners()
+        stashed = []
+        for group in self.param_groups:
+            stashed.append(group["params"])
+            group["params"] = [
+                p for p in group["params"]
+                if self._owners.get(p, None) in (None, self._sharded_rank)]
+        try:
+            loss = self._hvd_base.step(self, closure)
+        finally:
+            for params, group in zip(stashed, self.param_groups):
+                group["params"] = params
+        self._hvd_broadcast_owned()
+        return loss
+
+    def _hvd_broadcast_owned(self):
+        if self._sharded_world <= 1:
+            return
+        handles = []
+        nbytes = 0
+        for p, owner in self._owners.items():
+            if owner is None:
+                continue
+            handles.append(broadcast_async_(
+                p.data, owner, f"sharded.{self._names[p]}",
+                process_set=self._process_set))
+            nbytes += p.numel() * p.element_size()
+        for h in handles:
+            synchronize(h)
+        w = self._sharded_world
+        self._m_bcast.inc(int(nbytes * (w - 1) / w))
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
@@ -756,30 +841,40 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          gradient_predivide_factor: float = 1.0,
                          sparse_as_dense: bool = False,
                          process_set=None,
-                         sharded_update=None):
+                         sharded_update=None,
+                         min_shard_elems=None):
     if hasattr(optimizer, "_hvd_base"):
         # re-wrapping would make the grafted step() re-enter itself and
         # register every hook twice
         raise ValueError(
             "optimizer is already wrapped by DistributedOptimizer")
     if sharded_update is None:
-        sharded_update = _sharded_update_enabled()
-    if sharded_update:
-        raise NotImplementedError(
-            "the ZeRO-1 sharded update is not ported yet (ROADMAP.md queue 1 "
-            "item 12)")
+        sharded_update = sharded_update_enabled()
     if op == Adasum:
+        if sharded_update and size() > 1:
+            # Adasum combines models (a local step a parameter, then the
+            # deltas' reduction): there is no shared step to shard
+            raise ValueError("sharded_update is not supported with op=Adasum")
         raise NotImplementedError(
             "the Adasum optimizer is not ported yet (ROADMAP.md queue 1 "
             "item 13)")
     base = optimizer.__class__
     body = {k: v for k, v in _DistributedMixin.__dict__.items()
             if not k.startswith("__")}
+    prefix = "Distributed"
+    if sharded_update:
+        # overlay: the hooks and synchronize stay, step() becomes the
+        # owners' step and their broadcast
+        body.update({k: v for k, v in _ShardedMixin.__dict__.items()
+                     if not k.startswith("__")})
+        prefix = "ShardedDistributed"
     body["_hvd_base"] = base
-    optimizer.__class__ = type("Distributed" + base.__name__, (base,), body)
+    optimizer.__class__ = type(prefix + base.__name__, (base,), body)
     optimizer._hvd_setup(
         list(named_parameters) if named_parameters is not None else None,
         compression, op, backward_passes_per_step,
         prescale_factor, postscale_factor, gradient_predivide_factor,
         sparse_as_dense, process_set)
+    if sharded_update:
+        optimizer._hvd_sharded_setup(min_shard_elems)
     return optimizer

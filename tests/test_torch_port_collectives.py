@@ -105,10 +105,12 @@ def test_zero_element_allreduce_still_scales(dtype):
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         hvd.allreduce(torch.ones(2), op=hvd.Adasum)
+    # the sharded update (item 12) is ported: it builds the whole-leaf
+    # ZeRO-1 wrapper
     p = torch.nn.Parameter(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
-                                 sharded_update=True)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
+                                   sharded_update=True)
+    assert type(opt).__name__ == "ShardedDistributedSGD"
 
 
 def test_async_inplace_grouped_and_broadcast():

@@ -1054,12 +1054,15 @@ def _opt():
     return torch.optim.SGD([torch.nn.Parameter(torch.zeros(3))], lr=0.1)
 
 
-def test_sharded_update_none_reads_its_knob(monkeypatch):
+def test_sharded_update_none_reads_its_knob(port, monkeypatch):
     monkeypatch.setenv("HOROVOD_SHARDED_UPDATE", "1")
-    with pytest.raises(NotImplementedError, match="sharded update"):
-        hvd.DistributedOptimizer(_opt())
-    with pytest.raises(NotImplementedError, match="sharded update"):
-        hvd.DistributedOptimizer(_opt(), sharded_update=None)
+    assert type(hvd.DistributedOptimizer(_opt())).__name__ \
+        == "ShardedDistributedSGD"
+    assert type(hvd.DistributedOptimizer(
+        _opt(), sharded_update=None)).__name__ == "ShardedDistributedSGD"
+    monkeypatch.delenv("HOROVOD_SHARDED_UPDATE")
+    assert type(hvd.DistributedOptimizer(_opt())).__name__ \
+        == "DistributedSGD"
 
 
 def test_sharded_update_and_the_wire_exclude_each_other(monkeypatch):

@@ -66,7 +66,8 @@ _ISOLATED = textwrap.dedent("""
     for name in ("runner.launch", "runner.http_server", "runner.hosts",
                  "runner.network", "runner.secret", "ops.queue",
                  "ops.controller", "ops.fused_pack", "ops.wire", "_native",
-                 "utils.metrics", "utils.lockcheck", "utils.retry"):
+                 "utils.metrics", "utils.lockcheck", "utils.retry",
+                 "opt.sharded", "parallel.sharding_policy"):
         assert "horovod_tpu_torch." + name in sys.modules, name
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
@@ -94,7 +95,8 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "flash_probe.py",
                                              "runtime_probe.py",
                                              "sp_probe.py",
-                                             "wire_probe.py")]
+                                             "wire_probe.py",
+                                             "zero_probe.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
