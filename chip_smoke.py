@@ -133,8 +133,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches checked, step ms, tokens/s, MFU and peak memory of each, the
    losses bitwise equal with and without remat and the dense loss's within
    a stated band, peak memory lower with remat and lower again with the
-   chunked loss;
-10. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+   chunked loss; then the zero-1 path (the plain wrapper, the whole-leaf
+   front end and ``ShardedUpdateEngine`` at a world of one, bitwise the
+   plain wrapper after every step; four simulated ranks bitwise a
+   replicated update; K1 timed over the shard layout);
+10. the resnet path: ResNet-50 (``models/resnet.py``) at 224², batch 64,
+   bf16 compute over fp32 weights, ``channels_last`` activations, through
+   ``resnet_probe``'s arms on one synthetic batch: ``hooks``
+   (``broadcast_parameters`` of the state_dict, parameters and BN buffers,
+   and ``DistributedOptimizer(SGD(0.05, momentum=0.9))``: 161 gradients
+   a step through the runtime and K1) for 5 steps and ``bare`` (no
+   runtime) for 3, one step of each in every round; losses finite and
+   falling, the arms' first losses equal, K1 launched; img/s, MFU (8.18
+   GFLOP an image forward, ``bench.py:92-94``), peak memory, the hooks'
+   cost a step over bare and the runtime's counters a step; one traced
+   hook step by category (convolutions and batch norm counted before the
+   GEMMs). K1's check phase also holds ResNet-50's 161 fp32 gradient
+   shapes bitwise, misaligned by 0, 1 and 3 elements;
+11. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -144,7 +160,8 @@ The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
 K2's and K3's on the compression path, K5's on the long-context path, the
 others' on the main path; ``launches_by_path`` gives every path's
-count), errors, times, bounds and shares; the last line is
+count, the resnet path's included), errors, times, bounds and shares; the
+last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
 prints no result.
@@ -596,13 +613,37 @@ def k1_check_phase(device) -> float:
                     raise AssertionError(
                         f"K1 differs from its plain version: {dtype}, "
                         f"prescale {pre}, unpack factor {post}, {label}")
+    # ResNet-50's 161 gradients in the order the backward makes them
+    # ready, fp32, from aligned and misaligned starts, at factors 1 and
+    # AVERAGE over 4 ranks with the divide in the unpack
+    sizes = resnet50_grad_sizes()
+    for pre, post in ((1.0, 1.0), (1.0, 0.25)):
+        for mis in (0, 1, 3):
+            n += 1
+            if not _k1_case(torch.float32, sizes, pre, post, device, n,
+                            mis):
+                raise AssertionError(
+                    "K1 differs from its plain version on ResNet-50's "
+                    f"gradients: prescale {pre}, unpack factor {post}, "
+                    f"misaligned by {mis}")
     torch.cuda.synchronize()
     _log(f"  K1: {n} cases (fp32, bf16, fp16, fp64; ragged lengths with 0 "
          "and 1 element; unaligned starts; 300 tensors a chunk; 4.3 million "
          "elements a chunk; factors "
-         f"{sorted({f for c in K1_FACTORS for f in c})}): pack and unpack "
-         "bitwise equal to the plain version")
+         f"{sorted({f for c in K1_FACTORS for f in c})}; ResNet-50's "
+         f"{len(sizes)} fp32 gradients, {sum(sizes)} elements, misaligned by "
+         "0, 1 and 3): pack and unpack bitwise equal to the plain version")
     return 0.0
+
+
+def resnet50_grad_sizes() -> list:
+    """The element counts of ResNet-50's parameters, in the order the
+    backward makes their gradients ready (the reverse of
+    ``named_parameters``)."""
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    model = ResNet50(device="meta")
+    return [p.numel() for p in reversed(list(model.parameters()))]
 
 
 def lm_param_shapes(cfg) -> list:
@@ -1120,8 +1161,20 @@ def train(cfg, batch: int, steps: int, device, trace: bool = True,
 
 # kernel-name patterns of the step's device work, first match wins
 _CATEGORIES = (("flash forward kernel", r"flash_fwd"),
-               ("fused pack/unpack (K1)", r"fused_pack_kernel"),
+               # K1 and K2 are one template over the tensor table, K1 with
+               # fused_pack.cu's ops, K2 with quant_wire.cu's CastOp
+               ("fused pack/unpack (K1)",
+                r"table_copy_kernel<(Copy|F32|F64|BF16|F16)Op"),
+               ("wire kernels (K2, K3, reduce-unpack)",
+                r"table_copy_kernel<CastOp|quantize_pack_kernel|"
+                r"reduce_unpack_kernel"),
                ("chunked cross-entropy (K5)", r"xent_(fwd|bwd)_chunk"),
+               # cuDNN's and torch's batch-norm kernels, then cuDNN's
+               # convolutions (their Hopper kernels carry xmma in their
+               # names, as cuBLAS's do) and its layout transposes
+               ("batch norm", r"batch_norm|bn_fw|bn_bw|batchnorm"),
+               ("convolution", r"conv|fprop|dgrad|wgrad|nchwToNhwc|"
+                r"nhwcToNchw"),
                ("fp32 GEMM", r"f32f32|sgemm"),
                ("other GEMM (bf16)", r"gemm|nvjet|xmma|cutlass"),
                ("NCCL (one-rank kernels included)", r"nccl|onerank"),
@@ -1182,6 +1235,20 @@ def profile_step(step) -> dict:
                     for e in top]}
 
 
+def _log_profile(prof: dict):
+    idle = max(0.0, 1.0 - prof["union_ms"] / prof["wall_ms"])
+    _log(f"  traced step: wall {prof['wall_ms']:.1f} ms, device kernels "
+         f"{prof['device_ms']:.1f} ms summed over streams, "
+         f"{prof['union_ms']:.1f} ms busy on any stream; idle share "
+         f"{idle:.4f}; longest gaps (ms, after, before): {prof['gaps']}")
+    _log("  top kernels (calls, ms):")
+    for name, calls, ms in prof["top"]:
+        _log(f"    {ms:9.3f}  {calls:5d}  {name}")
+    _log("  device ms by category:")
+    for name, ms in prof["categories"].items():
+        _log(f"    {ms:9.3f}  {name}")
+
+
 def main_path_phase(device) -> dict:
     import torch
 
@@ -1214,18 +1281,7 @@ def main_path_phase(device) -> dict:
          f"FLOPs utilization {mfu:.4f} of 989 TFLOP/s; "
          f"max_memory_allocated {res['peak_bytes'] / 2**30:.2f} GiB; "
          f"launches {res['launches']}")
-    prof = res["profile"]
-    idle = max(0.0, 1.0 - prof["union_ms"] / prof["wall_ms"])
-    _log(f"  traced step: wall {prof['wall_ms']:.1f} ms, device kernels "
-         f"{prof['device_ms']:.1f} ms summed over streams, "
-         f"{prof['union_ms']:.1f} ms busy on any stream; idle share "
-         f"{idle:.4f}; longest gaps (ms, after, before): {prof['gaps']}")
-    _log("  top kernels (calls, ms):")
-    for name, calls, ms in prof["top"]:
-        _log(f"    {ms:9.3f}  {calls:5d}  {name}")
-    _log("  device ms by category:")
-    for name, ms in prof["categories"].items():
-        _log(f"    {ms:9.3f}  {name}")
+    _log_profile(res["profile"])
 
     # every gradient enqueued at once: the chunks are known in advance
     grp = train(cfg, batch, grouped_steps, device, trace=False,
@@ -2613,7 +2669,70 @@ def zero1_phase(device) -> tuple:
     return launches, timed, {**arms, "simulated": sim}
 
 
-# --- phase 11: the launcher ------------------------------------------------
+# --- phase 11: the resnet path ---------------------------------------------
+
+RESNET_BATCH, RESNET_IMAGE = 64, 224  # the reference's 64 a GPU at 224^2
+RESNET_STEPS = {"hooks": 5, "bare": 3}
+
+
+def resnet_path_phase(device) -> tuple:
+    """ResNet-50 at 224^2, batch 64, bf16 compute over fp32 weights,
+    channels_last activations, through ``resnet_probe``'s arms on one
+    batch: ``hooks`` (``broadcast_parameters`` of the state_dict and
+    ``DistributedOptimizer(SGD(0.05, momentum=0.9))``) for 5 steps and
+    ``bare`` (no runtime) for 3, one step of each in every round. Losses
+    finite and falling, the arms' first losses equal, K1 launched; img/s,
+    MFU, peak memory and the runtime's counters a step; one traced hook
+    step. Returns the path's launches and its readings."""
+    import torch
+
+    import resnet_probe as rp
+
+    images, labels = rp.synthetic_batch(0, 1, RESNET_BATCH, RESNET_IMAGE,
+                                        rp.CONFIGS["50"][2], 0, device)
+    _zero_launch_counts()  # just before the path runs
+    arms = {name: rp.Arm(name, "50", device, 0, images, labels)
+            for name in RESNET_STEPS}
+    rd = rp.run_in_turns(arms, RESNET_STEPS, compare_ranks=False)
+    launches = _launch_counts()
+    for name, r in rd.items():
+        r.update(rp.summarize(r, RESNET_BATCH, "50", RESNET_IMAGE, True))
+        losses = r["losses"]
+        _log(f"  {name}: losses {losses}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: loss did not fall: {losses}")
+        _log(f"  {name}: step ms {[round(x * 1e3, 2) for x in r['step_s']]}"
+             f"; median after the first {r['median_step_ms']:.2f} ms, "
+             f"{r['img_s_per_rank']:.1f} img/s, MFU {r['mfu']:.4f} of 989 "
+             f"TFLOP/s; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+        for i, c in enumerate(r["per_step"]):
+            _log(f"  {name} step {i}: " + ", ".join(
+                f"{k} {v}" for k, v in c.items()))
+    if rd["hooks"]["losses"][0] != rd["bare"]["losses"][0]:
+        raise AssertionError("the arms' first losses differ")
+    gap = rd["hooks"]["median_step_ms"] - rd["bare"]["median_step_ms"]
+    _log(f"  hooks - bare: {gap:.2f} ms a step; launches {launches}")
+    if not (launches["fused_pack"] and launches["fused_unpack"]):
+        raise AssertionError(f"K1 never launched on the resnet path: "
+                             f"{launches}")
+    prof = profile_step(arms["hooks"].step)
+    _log_profile(prof)
+    for arm in arms.values():
+        arm.close()
+    del arms, images, labels
+    torch.cuda.empty_cache()
+    readings = {name: {k: r[k] for k in (
+        "losses", "median_step_ms", "img_s_per_rank", "mfu", "peak_bytes",
+        "per_step")} for name, r in rd.items()}
+    readings["hooks_minus_bare_ms"] = gap
+    readings["traced_step"] = {k: prof[k] for k in (
+        "wall_ms", "device_ms", "union_ms", "categories")}
+    return launches, readings
+
+
+# --- phase 12: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -2744,6 +2863,11 @@ def main() -> int:
     t_z = time.perf_counter()
     zero_launches, zero_timed, zero_arms = zero1_phase(device)
     _log(f"  zero-1 path: {time.perf_counter() - t_z:.1f} s")
+    _phase("[resnet path] ResNet-50 at 224^2, batch 64, bf16, channels_last: "
+           "5 hook steps and 3 bare ones in turns")
+    t_r = time.perf_counter()
+    resnet_launches, resnet_readings = resnet_path_phase(device)
+    _log(f"  resnet path: {time.perf_counter() - t_r:.1f} s")
     hvd.shutdown()
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
@@ -2760,7 +2884,8 @@ def main() -> int:
             "collectives": coll_launches[entry["name"]],
             "sp": sp_launches[entry["name"]],
             "long_context": lc_launches[entry["name"]],
-            "zero1": zero_launches[entry["name"]]}
+            "zero1": zero_launches[entry["name"]],
+            "resnet": resnet_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
     for entry in k5_entries:  # K5's path is the long-context one
@@ -2775,6 +2900,7 @@ def main() -> int:
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"collectives": readings}))
     print(json.dumps({"zero1": zero_arms}))
+    print(json.dumps({"resnet": resnet_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -31,14 +31,17 @@ _ISOLATED = textwrap.dedent("""
     import horovod_tpu_torch as hvd
     for m in pkgutil.walk_packages(hvd.__path__, "horovod_tpu_torch."):
         importlib.import_module(m.name)
+    from horovod_tpu_torch.models import resnet as PR
     from horovod_tpu_torch.models import transformer as PT
     from horovod_tpu_torch.parallel import ring_attention
+    import resnet_probe
 
     cfg = PT.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
                                n_layers=2, d_ff=64, max_seq=16,
                                dtype=torch.float32)
     if not torch.cuda.is_available():
-        for entry in (hvd.init, lambda: PT.TransformerLM(cfg)):
+        for entry in (hvd.init, lambda: PT.TransformerLM(cfg),
+                      lambda: PR.ResNet50()):
             try:
                 entry()
                 raise AssertionError("an entry point without CUDA must raise")
@@ -59,6 +62,12 @@ _ISOLATED = textwrap.dedent("""
     loss.backward()
     opt.step()
     assert torch.isfinite(loss) and not torch.equal(before, model.embed)
+    resnet = resnet_probe.build("tiny", torch.device("cpu"), 0)
+    assert resnet_probe.CONFIGS["tiny"][0] == [1, 1, 1, 1]
+    assert all(p.device == hvd.device() for p in PR.ResNet(
+        [1, 1, 1, 1], num_filters=8, num_classes=10).parameters())
+    images = torch.randn(2, 3, 32, 32)
+    assert resnet(images).shape == (2, 10)
     # the gradients went through the runtime's fused chunks
     from horovod_tpu_torch.common import context
     rt = context.runtime()
@@ -76,12 +85,45 @@ _ISOLATED = textwrap.dedent("""
 """)
 
 
-def test_port_imports_and_trains_without_jax():
-    out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO,
-                         capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, OMP_NUM_THREADS="1"))
-    assert out.returncode == 0 and "ISOLATED_OK" in out.stdout, (
-        out.stdout + out.stderr)
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The scripts this file runs in subprocesses, all started at once (each
+    spends most of its time importing torch): name -> (exit code, stdout,
+    stderr). chip_smoke.py runs from a directory that holds it alone, and,
+    without a card, from the repository."""
+    alone = tmp_path_factory.mktemp("alone")
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    no_path = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    specs = {"isolated": ([sys.executable, "-c", _ISOLATED], REPO, env),
+             "long_context": ([sys.executable, "-c", _LONG_CONTEXT], REPO,
+                              env),
+             "smoke_alone": ([sys.executable, str(alone / "chip_smoke.py")],
+                             alone, no_path)}
+    if not torch.cuda.is_available():
+        specs["smoke_in_repo"] = ([sys.executable,
+                                   os.path.join(REPO, "chip_smoke.py")],
+                                  alone, no_path)
+    procs = {name: subprocess.Popen(cmd, cwd=str(cwd), env=e, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for name, (cmd, cwd, e) in specs.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=120)
+            out[name] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def test_port_imports_and_trains_without_jax(runs):
+    rc, stdout, stderr = runs["isolated"]
+    assert rc == 0 and "ISOLATED_OK" in stdout, stdout + stderr
 
 
 _FORBIDDEN = re.compile(
@@ -95,6 +137,7 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "flash_probe.py",
                                              "runtime_probe.py",
                                              "sp_probe.py",
+                                             "resnet_probe.py",
                                              "wire_probe.py",
                                              "zero_probe.py")]
     for root, _, names in os.walk(PKG):
@@ -153,14 +196,11 @@ _LONG_CONTEXT = textwrap.dedent("""
 """)
 
 
-def test_long_context_modules_run_without_jax():
+def test_long_context_modules_run_without_jax(runs):
     """The sequence-parallel module, the chunked loss and remat import and
     train without JAX or the JAX package."""
-    out = subprocess.run([sys.executable, "-c", _LONG_CONTEXT], cwd=REPO,
-                         capture_output=True, text=True, timeout=120,
-                         env=dict(os.environ, OMP_NUM_THREADS="1"))
-    assert out.returncode == 0 and "LONG_CONTEXT_OK" in out.stdout, (
-        out.stdout + out.stderr)
+    rc, stdout, stderr = runs["long_context"]
+    assert rc == 0 and "LONG_CONTEXT_OK" in stdout, stdout + stderr
 
 
 @pytest.mark.parametrize("fn", [striped_ring_attention, ulysses_attention])
@@ -219,21 +259,15 @@ def test_kernel_library_name_follows_source_and_flags(tmp_path, monkeypatch):
     assert a == _build._lib_path(name, "/x/nvcc")
 
 
-def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+def test_chip_smoke_fails_without_cuda_or_repo(runs):
     """Without a card, or alone in a directory, chip_smoke.py exits
     non-zero and prints no result line."""
-    runs = [[sys.executable, os.path.join(REPO, "chip_smoke.py")]]
-    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
-    alone = [sys.executable, str(tmp_path / "chip_smoke.py")]
-    if torch.cuda.is_available():
-        runs = []
-    runs.append(alone)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    for cmd in runs:
-        out = subprocess.run(cmd, cwd=str(tmp_path), capture_output=True,
-                             text=True, timeout=120, env=env)
-        assert out.returncode != 0, out.stdout
-        assert '"ok"' not in out.stdout, out.stdout
+    smoke = [name for name in runs if name.startswith("smoke")]
+    assert "smoke_alone" in smoke
+    for name in smoke:
+        rc, stdout, _ = runs[name]
+        assert rc != 0, stdout
+        assert '"ok"' not in stdout, stdout
 
 
 def test_probe_ablations_patch_text_in_the_sources(monkeypatch):
