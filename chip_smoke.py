@@ -150,7 +150,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    hook step by category (convolutions and batch norm counted before the
    GEMMs). K1's check phase also holds ResNet-50's 161 fp32 gradient
    shapes bitwise, misaligned by 0, 1 and 3 elements;
-11. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+11. the megaplan path: ResNet-50 as in the resnet path, 8 steps of
+   ``loss.backward()``, ``hvd.grouped_allreduce_`` of every gradient
+   under one name and ``opt.step()``, without ``HOROVOD_MEGAPLAN`` and
+   with it at ``HOROVOD_MEGAPLAN_STABLE_ROUNDS=3``, in the order without,
+   with, with, without, each run after a fresh ``hvd.init`` and with cuDNN
+   deterministic: the losses and the parameters of every run bitwise the
+   first's, one capture and a replay
+   (``_native.chain_dispatch``: K1 pack, NCCL, K1 unpack under the stream
+   contract) in each of the last 5 steps; step ms, counters a step (K1
+   launches, chunks, cycles) and host ms a working cycle
+   (``hvd_cycle_seconds``) of each arm; then the megaplan's counters
+   after one ``DistributedOptimizer`` hook step under the megaplan;
+12. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -160,8 +172,8 @@ The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
 K2's and K3's on the compression path, K5's on the long-context path, the
 others' on the main path; ``launches_by_path`` gives every path's
-count, the resnet path's included), errors, times, bounds and shares; the
-last line is
+count, the resnet and megaplan paths' included), errors, times, bounds
+and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
 prints no result.
@@ -2732,7 +2744,156 @@ def resnet_path_phase(device) -> tuple:
     return launches, readings
 
 
-# --- phase 12: the launcher ------------------------------------------------
+# --- phase 12: the megaplan path ------------------------------------------
+
+MEGAPLAN_STEPS, MEGAPLAN_STABLE = 8, 3
+
+
+def _megaplan_arm(arm: str, device, images, labels) -> dict:
+    """``MEGAPLAN_STEPS`` grouped steps of ResNet-50 (seed 0) after a fresh
+    ``hvd.init``, the megaplan on or off: ``loss.backward()``, one
+    ``grouped_allreduce_`` of every gradient, ``opt.step()``. Returns the
+    losses, step seconds, counters a step, host seconds a working cycle,
+    the megaplan's report and the final parameters."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    import resnet_probe as rp
+    from horovod_tpu_torch.common import context
+
+    os.environ.pop("HOROVOD_MEGAPLAN", None)
+    if arm == "megaplan":
+        os.environ["HOROVOD_MEGAPLAN"] = "1"
+        os.environ["HOROVOD_MEGAPLAN_STABLE_ROUNDS"] = str(MEGAPLAN_STABLE)
+    hvd.init()
+    rt = context.runtime()
+    model = rp.build("50", device, 0)
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=rp.LR, momentum=rp.MOMENTUM)
+    out = {"losses": [], "step_s": [], "per_step": []}
+    cyc0 = (rt._m_cycle.sum, rt._m_cycle.count)
+    for _ in range(MEGAPLAN_STEPS):
+        c0 = _runtime_counts()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = F.cross_entropy(model(images), labels)
+        loss.backward()
+        hvd.grouped_allreduce_([p.grad for p in params],
+                               name="resnet.grads")
+        opt.step()
+        out["losses"].append(loss.item())  # waits for the device work
+        out["step_s"].append(time.perf_counter() - t0)
+        c1 = _runtime_counts()
+        out["per_step"].append({k: c1[k] - c0[k] for k in c0})
+    cycles = rt._m_cycle.count - cyc0[1]
+    out["host_ms_a_cycle"] = (rt._m_cycle.sum - cyc0[0]) * 1e3 / cycles
+    out["report"] = hvd.megaplan_report()
+    out["params"] = torch.cat([p.detach().reshape(-1) for p in params])
+    del model, params, opt
+    hvd.shutdown()
+    return out
+
+
+def _megaplan_hook_step(device, images, labels) -> dict:
+    """One ``DistributedOptimizer`` hook step under ``HOROVOD_MEGAPLAN=1``:
+    the megaplan's counters and the runtime's after it."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    import resnet_probe as rp
+
+    os.environ["HOROVOD_MEGAPLAN"] = "1"
+    hvd.init()
+    arm = rp.Arm("hooks", "50", device, 0, images, labels)
+    c0 = _runtime_counts()
+    arm.opt.zero_grad()
+    F.cross_entropy(arm.model(images), labels).backward()
+    arm.opt.step()
+    c1 = _runtime_counts()
+    out = {"report": hvd.megaplan_report(),
+           "step": {k: c1[k] - c0[k] for k in c0}}
+    arm.close()
+    hvd.shutdown()
+    return out
+
+
+def megaplan_path_phase(device) -> tuple:
+    """ResNet-50 at its published widths, 64 images at 224^2, bf16 over
+    fp32 weights, seed 0: ``MEGAPLAN_STEPS`` grouped steps without the
+    megaplan (``negotiated``) and as many with ``HOROVOD_MEGAPLAN=1`` at
+    ``HOROVOD_MEGAPLAN_STABLE_ROUNDS=3`` (``megaplan``), each run after a
+    fresh ``init``, in the order negotiated, megaplan, megaplan,
+    negotiated (cuDNN deterministic, so the runs may be compared bit for
+    bit). Fails unless every run's losses and parameters are bitwise the
+    first's, each megaplan run captured once and replayed every step after
+    the third, and K1 launched as often in every run. Then one hook step
+    under the megaplan. Returns the path's launches and its readings."""
+    import torch
+
+    import resnet_probe as rp
+
+    images, labels = rp.synthetic_batch(0, 1, RESNET_BATCH, RESNET_IMAGE,
+                                        rp.CONFIGS["50"][2], 0, device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _zero_launch_counts()  # just before the path runs
+        arms = {f"{arm}_{i}": _megaplan_arm(arm, device, images, labels)
+                for arm, i in (("negotiated", 1), ("megaplan", 1),
+                               ("megaplan", 2), ("negotiated", 2))}
+        launches = _launch_counts()
+        hook = _megaplan_hook_step(device, images, labels)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.environ.pop("HOROVOD_MEGAPLAN", None)
+        os.environ.pop("HOROVOD_MEGAPLAN_STABLE_ROUNDS", None)
+    for arm, r in arms.items():
+        later = r["step_s"][MEGAPLAN_STABLE:]
+        r["median_step_ms"] = statistics.median(later) * 1e3
+        _log(f"  {arm}: losses {r['losses']}")
+        _log(f"  {arm}: step ms {[round(x * 1e3, 2) for x in r['step_s']]}"
+             f"; median of the steps after the {MEGAPLAN_STABLE}rd "
+             f"{r['median_step_ms']:.2f} ms; host ms a working cycle "
+             f"{r['host_ms_a_cycle']:.3f}")
+        for i, c in enumerate(r["per_step"]):
+            _log(f"  {arm} step {i}: " + ", ".join(
+                f"{k} {v}" for k, v in c.items()))
+    _log(f"  megaplan report: {arms['megaplan_1']['report']}")
+    _log(f"  one hook step under HOROVOD_MEGAPLAN=1: {hook['report']}; "
+         + ", ".join(f"{k} {v}" for k, v in hook["step"].items()))
+    first = arms["negotiated_1"]
+    for arm, r in arms.items():
+        if r["losses"] != first["losses"] or not torch.equal(
+                r["params"].view(torch.int32),
+                first["params"].view(torch.int32)):
+            raise AssertionError(f"{arm} differs from negotiated_1")
+        rep = r["report"]
+        if arm.startswith("megaplan") and (
+                rep["captures"] != 1
+                or rep["replays"] != MEGAPLAN_STEPS - MEGAPLAN_STABLE):
+            raise AssertionError(f"{arm}: the megaplan did not capture once "
+                                 f"and replay every later step: {rep}")
+    k1 = {sum(c["K1 launches"] for c in r["per_step"])
+          for r in arms.values()}
+    if len(k1) != 1 or not (launches["fused_pack"]
+                            and launches["fused_unpack"]):
+        raise AssertionError(f"K1 launches differ between the runs or are "
+                             f"missing: {k1}, {launches}")
+    _log(f"  losses and parameters bitwise equal across the runs; "
+         f"launches {launches}")
+    readings = {arm: {k: r[k] for k in ("losses", "median_step_ms",
+                                        "host_ms_a_cycle", "per_step",
+                                        "report")}
+                for arm, r in arms.items()}
+    readings["hook_step"] = hook
+    del arms, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+# --- phase 13: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -2869,6 +3030,13 @@ def main() -> int:
     resnet_launches, resnet_readings = resnet_path_phase(device)
     _log(f"  resnet path: {time.perf_counter() - t_r:.1f} s")
     hvd.shutdown()
+    _phase("[megaplan path] ResNet-50 at 224^2, batch 64, bf16: 8 grouped "
+           "steps negotiated and 8 under HOROVOD_MEGAPLAN=1, in the order "
+           "N M M N, each run after a fresh init; one hook step under the "
+           "megaplan")
+    t_m = time.perf_counter()
+    mp_launches, mp_readings = megaplan_path_phase(device)
+    _log(f"  megaplan path: {time.perf_counter() - t_m:.1f} s")
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
@@ -2885,7 +3053,8 @@ def main() -> int:
             "sp": sp_launches[entry["name"]],
             "long_context": lc_launches[entry["name"]],
             "zero1": zero_launches[entry["name"]],
-            "resnet": resnet_launches[entry["name"]]}
+            "resnet": resnet_launches[entry["name"]],
+            "megaplan": mp_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
     for entry in k5_entries:  # K5's path is the long-context one
@@ -2901,6 +3070,7 @@ def main() -> int:
     print(json.dumps({"collectives": readings}))
     print(json.dumps({"zero1": zero_arms}))
     print(json.dumps({"resnet": resnet_readings}))
+    print(json.dumps({"megaplan": mp_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -56,6 +56,7 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     join,
     local_rank,
     local_size,
+    megaplan_report,
     poll,
     rank,
     reducescatter,

@@ -229,6 +229,11 @@ def init(device=None):
         _ctx.local_rank, _ctx.local_size = local_rank, local_size
         _ctx.cross_rank, _ctx.cross_size = cross_rank, cross_size
         _ctx.config = config
+        # the runtime resolves the megaplan's manager once, when it is
+        # built (horovod_tpu/common/context.py:294-299)
+        from ..ops import megaplan as megaplan_mod
+
+        megaplan_mod.init_manager(rank=rank)
         _start_runtime(store)
         _ctx.initialized = True
         _ctx.inits += 1
@@ -278,6 +283,9 @@ def shutdown():
         if _ctx.runtime is not None:
             _ctx.runtime.stop()
             _ctx.runtime = None
+        from ..ops import megaplan as megaplan_mod
+
+        megaplan_mod.reset_manager()
         if _ctx.kv_server is not None:
             _ctx.kv_server.stop()
             _ctx.kv_server = None

@@ -65,14 +65,23 @@ HOROVOD_QUANT_MIN_ELEMS = "HOROVOD_QUANT_MIN_ELEMS"
 # stays on the allreduce path (JAX common/env.py:101-102)
 HOROVOD_SHARDED_UPDATE = "HOROVOD_SHARDED_UPDATE"
 HOROVOD_SHARDED_MIN_ELEMS = "HOROVOD_SHARDED_MIN_ELEMS"
+# the control plane at scale (ops/controller.py, ops/wire.py): the
+# hierarchical negotiation over wire v2, the ranks a leader's group, and
+# how long a member waits on its leader before it submits flat (JAX
+# common/env.py:139-141)
+HOROVOD_HIER_NEGOTIATION = "HOROVOD_HIER_NEGOTIATION"
+HOROVOD_HIER_GROUP_SIZE = "HOROVOD_HIER_GROUP_SIZE"
+HOROVOD_HIER_FALLBACK_S = "HOROVOD_HIER_FALLBACK_S"
+# whole-step megaplan capture and replay (ops/megaplan.py), and the
+# identical working cycles before a capture (JAX common/env.py:163-164)
+HOROVOD_MEGAPLAN = "HOROVOD_MEGAPLAN"
+HOROVOD_MEGAPLAN_STABLE_ROUNDS = "HOROVOD_MEGAPLAN_STABLE_ROUNDS"
 
 # knobs of the JAX package that the port reads only to warn that it does
-# not implement them (JAX common/env.py:25, :47-48, :139, :163)
+# not implement them (JAX common/env.py:25, :47-48)
 UNIMPLEMENTED_KNOBS = (
     "HOROVOD_HIERARCHICAL_ALLREDUCE",
     "HOROVOD_HIERARCHICAL_ALLGATHER",
-    "HOROVOD_HIER_NEGOTIATION",
-    "HOROVOD_MEGAPLAN",
     "HOROVOD_AUTOTUNE",
 )
 
@@ -127,7 +136,11 @@ class RuntimeConfig:
       worker waits for a negotiation response;
     - the compressed wire: ``compression`` (``HOROVOD_COMPRESSION``, ""
       keeps the wire uncompressed), the absmax block, error feedback, the
-      opt-out patterns and the small-leaf threshold.
+      opt-out patterns and the small-leaf threshold;
+    - the control plane: ``hier_negotiation`` (the v2 wire through
+      per-group leaders of ``hier_group_size`` ranks, a member falling
+      back flat after ``hier_fallback_s``), and ``megaplan`` (capture
+      after ``megaplan_stable_rounds`` identical working cycles).
     """
 
     fusion_threshold_bytes: int = 128 * 1024 * 1024
@@ -140,6 +153,11 @@ class RuntimeConfig:
     quant_error_feedback: bool = True
     quant_optout: str = ""
     quant_min_elems: int = 4096
+    hier_negotiation: bool = False
+    hier_group_size: int = 8
+    hier_fallback_s: float = 5.0
+    megaplan: bool = False
+    megaplan_stable_rounds: int = 5
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -160,4 +178,12 @@ class RuntimeConfig:
         c.quant_optout = get_str(HOROVOD_QUANT_OPTOUT)
         c.quant_min_elems = get_int(HOROVOD_QUANT_MIN_ELEMS,
                                     c.quant_min_elems)
+        c.hier_negotiation = get_bool(HOROVOD_HIER_NEGOTIATION)
+        c.hier_group_size = get_int(HOROVOD_HIER_GROUP_SIZE,
+                                    c.hier_group_size)
+        c.hier_fallback_s = get_float(HOROVOD_HIER_FALLBACK_S,
+                                      c.hier_fallback_s)
+        c.megaplan = get_bool(HOROVOD_MEGAPLAN)
+        c.megaplan_stable_rounds = get_int(HOROVOD_MEGAPLAN_STABLE_ROUNDS,
+                                           c.megaplan_stable_rounds)
         return c

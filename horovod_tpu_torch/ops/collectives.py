@@ -85,6 +85,7 @@ from ..common.context import ProcessSet
 from ..utils import metrics as metrics_mod
 from . import compression as comp
 from . import fused_pack, quant_wire
+from . import megaplan as megaplan_mod
 
 
 class ReduceOp(IntEnum):
@@ -410,9 +411,12 @@ def _plan_metrics():
 
 
 def invalidate_fused_plans() -> int:
-    """Drop every cached plan (chunk boundaries moved); returns how many."""
+    """Drop every cached plan (chunk boundaries moved); returns how many.
+    A captured megaplan holds the dropped plans, so it goes the same way
+    (``horovod_tpu/ops/collectives.py:466-471``)."""
     n = len(_PLANS)
     _PLANS.clear()
+    megaplan_mod.invalidate_megaplan("plan_cache")
     return n
 
 

@@ -73,9 +73,26 @@ itself (the reference's ready events and finalizers, SURVEY.md N16):
   negotiation with it.
 
 On the CPU (gloo) the cycle thread runs each collective to its end, and no
-event is involved. Left out, as ROADMAP.md queue 1 lists them: the
-megaplan replay, autotuning (``set_compression_spec``), and the tracing,
-timeline, flight-recorder, anatomy and perf-ledger hooks.
+event is involved.
+
+The megaplan (``HOROVOD_MEGAPLAN``, ``ops/megaplan.py``; the JAX cycle's
+:655-697 and :773-957): after the same batch signature repeated on
+``HOROVOD_MEGAPLAN_STABLE_ROUNDS`` working cycles, with every entry in a
+``FusedChunkPlan``, nothing pending, no join and, at more than one rank,
+the coordinator's lease, the cycle records its chunk chain
+(``_mp_capture``: dropped by a single op, a chunk with no plan or one that
+failed, and a quantized group, whose residuals change every step), and
+later cycles with that signature replay it (``_megaplan_cycle``): one
+lease round (the 1-byte marker) instead of a negotiation, and
+``_native.chain_dispatch`` instead of grouping and plan lookups, under the
+same stream contract (ready events waited on a chunk, done events, entries
+finished with them). A miss falls back to the negotiated path; a lease
+the coordinator withdrew in the lease round's own response is handled as
+that round's negotiated response, because the round was consumed.
+
+Left out, as ROADMAP.md queue 1 lists them: autotuning
+(``set_compression_spec``), and the tracing, timeline, flight-recorder,
+anatomy and perf-ledger hooks.
 """
 
 from __future__ import annotations
@@ -93,9 +110,11 @@ from ..common import context as ctx_mod
 from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
+from .. import _native
 from . import collectives as C
 from . import compression as comp
 from . import fused_pack
+from . import megaplan as megaplan_mod
 from .controller import dtype_name
 
 LOG = logging.getLogger("horovod_tpu_torch")
@@ -234,8 +253,6 @@ class BackgroundRuntime:
 
     def __init__(self, process_set, config, device: torch.device, group,
                  kv_client=None):
-        from .._native import FusionBuffer
-
         self.process_set = process_set
         self.group = group
         self.device = torch.device(device)
@@ -243,8 +260,8 @@ class BackgroundRuntime:
         self.fusion_threshold = config.fusion_threshold_bytes
         self.queue = TensorQueue()
         self.handles = HandleManager()
-        self.fusion_buffer = FusionBuffer(config.fusion_threshold_bytes,
-                                          self.device)
+        self.fusion_buffer = _native.FusionBuffer(
+            config.fusion_threshold_bytes, self.device)
         self.comm_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
         self._pending: dict[str, TensorEntry] = {}  # by negotiation key
@@ -293,6 +310,11 @@ class BackgroundRuntime:
         self._quant_optout = comp.quant_optout_patterns(config.quant_optout)
         self._quant_min_elems = config.quant_min_elems
         self._quant_noted: set = set()
+        # the megaplan's manager, resolved once: None (the flag off) costs
+        # the cycle one is-None check
+        self._mp = megaplan_mod.get_manager()
+        # the chunk chain being recorded this cycle, or None
+        self._mp_capture: Optional[list] = None
 
     def _maybe_controller(self, config, kv_client):
         """Negotiation over the rendezvous store, whenever the set has more
@@ -308,7 +330,10 @@ class BackgroundRuntime:
                             size=self.process_set.size,
                             poll_timeout=config.response_timeout_s,
                             stall_warning_s=config.stall_warning_time_s,
-                            stall_shutdown_s=config.stall_shutdown_time_s)
+                            stall_shutdown_s=config.stall_shutdown_time_s,
+                            hier=config.hier_negotiation,
+                            hier_group_size=config.hier_group_size,
+                            hier_fallback_s=config.hier_fallback_s)
 
     def _op_metrics(self, op: str, dtype: str) -> tuple:
         """(bytes_total, latency_hist, ops_total) of one (op, dtype)."""
@@ -428,15 +453,144 @@ class BackgroundRuntime:
         t0 = time.perf_counter()
         if batch:
             self._m_queue_depth.set(len(batch))
+        mp = self._mp
+        if mp is not None and batch and mp.plan is not None:
+            # a live megaplan: one check and one chained dispatch; a miss
+            # invalidates it and the cycle negotiates below
+            if self._megaplan_cycle(batch, t0):
+                return
         if self.controller is not None:
             batch = self._negotiate(batch)
         if not batch:
             self._m_cycles_idle.inc()
             return
         self._m_cycles_work.inc()
+        cap_sig = None
+        if mp is not None:
+            # record this cycle's chunk chain once the batch has been
+            # stable long enough, the whole step can replay and, at more
+            # than one rank, the coordinator granted the lease in this
+            # very round
+            cap_sig = megaplan_mod.batch_signature(batch)
+            if (mp.observe(cap_sig) and not self._pending
+                    and not self.joined
+                    and (self.controller is None
+                         or self.controller.megaplan_lease)):
+                self._mp_capture = []
         self._dispatch_batch(batch)
+        if self._mp_capture is not None:
+            self._megaplan_commit(cap_sig, batch)
+        self._finish_cycle(batch, t0)
+
+    def _finish_cycle(self, batch: list[TensorEntry], t0: float):
+        """A working cycle's tail, the negotiated and the replayed one's."""
         self.work_cycles += 1
         self._m_cycle.observe(time.perf_counter() - t0)
+
+    def _comm(self):
+        """The comm stream as PyTorch's current stream (nothing on the
+        CPU)."""
+        if self.comm_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.comm_stream)
+
+    def _megaplan_commit(self, sig, batch: list[TensorEntry]):
+        """Install the chain recorded in this cycle's dispatch, when every
+        entry of the batch went through a chunk plan."""
+        cap, self._mp_capture = self._mp_capture, None
+        if not cap or sum(len(c[0]) for c in cap) != len(batch):
+            self._mp.abort_capture()
+            return
+        self._mp.commit(megaplan_mod.Megaplan(
+            sig=sig, chunks=tuple(cap), epoch=megaplan_mod.epoch(),
+            plan_epoch=C._plan_epoch()))
+
+    def _megaplan_cycle(self, batch: list[TensorEntry], t0: float) -> bool:
+        """One cycle against the captured megaplan. True when the cycle
+        was handled: replayed, or, at more than one rank, dispatched from
+        the lease round's response after the coordinator withdrew the
+        lease in it (the round was consumed). False on a miss before any
+        round or dispatch, so the negotiated path runs the cycle; every
+        miss invalidates."""
+        mp = self._mp
+        plan = mp.plan
+        if (plan.epoch != megaplan_mod.epoch()
+                or plan.plan_epoch != C._plan_epoch()):
+            mp.invalidate("epoch")
+            return False
+        if self.joined or self._pending:
+            mp.invalidate("membership")
+            return False
+        if megaplan_mod.batch_signature(batch) != plan.sig:
+            mp.invalidate("signature")
+            return False
+        ctl = self.controller
+        if ctl is not None and not ctl.megaplan_lease:
+            # withheld on the last response: another rank broke stability
+            mp.invalidate("lease")
+            return False
+        if ctl is not None:
+            try:
+                resp = ctl.lease_round()
+            except Exception as exc:
+                self._fail_negotiation(exc, batch)
+                mp.invalidate("controller")
+                return True
+            if (not ctl.megaplan_lease or resp["errors"]
+                    or resp["join_done"] is not None
+                    or plan.epoch != megaplan_mod.epoch()):
+                # the lease broke in this round, which merged our marker:
+                # dispatch what its response released, as a negotiated
+                # round would (negotiating again would desync the ranks)
+                mp.invalidate("lease")
+                for e in batch:
+                    self._pending[self._wire_name(e)] = e
+                out = self._process_response(resp)
+                if not out:
+                    self._m_cycles_idle.inc()
+                    return True
+                self._m_cycles_work.inc()
+                self._dispatch_batch(out)
+                self._finish_cycle(out, t0)
+                return True
+        self._m_cycles_work.inc()
+        by = {self._wire_name(e): e for e in batch}
+        steps = []
+        for names, cplan, _, _ in plan.chunks:
+            entries = [by[n] for n in names]
+            steps.append((cplan, [e.tensor for e in entries],
+                          [e.output for e in entries],
+                          [e.ready for e in entries]))
+        calls0, t_chain = C.dist_calls, time.perf_counter()
+        with self._comm():
+            outs, exc = _native.chain_dispatch(self.fusion_buffer, steps,
+                                               self.comm_stream)
+        chain_s = time.perf_counter() - t_chain
+        self.collective_calls += C.dist_calls - calls0
+        for done, (names, _, nbytes, dtype) in zip(outs, plan.chunks):
+            self.chunks += 1
+            m_bytes, m_lat, m_ops = self._op_metrics("allreduce", dtype)
+            m_bytes.inc(nbytes)
+            m_ops.inc()
+            m_lat.observe(chain_s)
+            self._m_fusion_batch.observe(len(names))
+            self._m_fused_bytes.observe(nbytes)
+            for n in names:
+                self._finish(by[n], by[n].output, done=done)
+        if exc is not None:
+            # the chain stopped at a chunk: fail it and every later one,
+            # and go back to negotiating
+            err = HorovodInternalError(f"megaplan replay failed: {exc}")
+            failed = [n for names, _, _, _ in plan.chunks[len(outs):]
+                      for n in names]
+            self._m_op_errors.inc(len(failed))
+            for n in failed:
+                self._finish(by[n], None, err)
+            mp.invalidate("dispatch")
+        else:
+            mp.note_replay()
+        self._finish_cycle(batch, t0)
+        return True
 
     def _dispatch_batch(self, batch: list[TensorEntry]):
         """Group a ready batch into fusable allreduces and single ops, and
@@ -454,10 +608,10 @@ class BackgroundRuntime:
                 fusable.setdefault(key, []).append(e)
             else:
                 singles.append(e)
-        stream = (torch.cuda.stream(self.comm_stream)
-                  if self.comm_stream is not None
-                  else contextlib.nullcontext())
-        with stream:
+        if singles:
+            # a single op runs outside any chunk plan: not replayable
+            self._mp_capture = None
+        with self._comm():
             for group in fusable.values():
                 self._run_fused_allreduce(group)
             for e in singles:
@@ -477,19 +631,29 @@ class BackgroundRuntime:
         try:
             resp = self.controller.negotiate(sigs, joined=self.joined)
         except Exception as exc:
-            # fail everything, on shutdown too: a caller may be blocked in
-            # synchronize
-            if self._stop.is_set():
-                err: Exception = HorovodInternalError(
-                    "Horovod has been shut down")
-            else:
-                LOG.error("negotiation failed: %s", exc)
-                err = HorovodInternalError(
-                    f"controller negotiation failed: {exc}")
-            for e in self._pending.values():
-                self._finish(e, None, err)
+            self._fail_negotiation(exc, list(self._pending.values()))
             self._pending.clear()
             return []
+        return self._process_response(resp)
+
+    def _fail_negotiation(self, exc: Exception, entries):
+        """Fail ``entries`` after a round failed, on shutdown too: a caller
+        may be blocked in synchronize."""
+        if self._stop.is_set():
+            err: Exception = HorovodInternalError(
+                "Horovod has been shut down")
+        else:
+            LOG.error("negotiation failed: %s", exc)
+            err = HorovodInternalError(
+                f"controller negotiation failed: {exc}")
+        for e in entries:
+            self._finish(e, None, err)
+
+    def _process_response(self, resp: dict) -> list[TensorEntry]:
+        """Apply one round's response to the pending table: fail the
+        errored entries, pop the ready ones in the coordinator's order,
+        make a joined rank's zero contributions and note a finished join.
+        A negotiated round and a consumed lease round share it."""
         for n, msg in resp["errors"].items():
             e = self._pending.pop(n, None)
             if e is not None:
@@ -571,21 +735,12 @@ class BackgroundRuntime:
         self.handles.mark_done(entry.handle, result, exc, done)
 
     def _wait_ready(self, entries):
-        if self.comm_stream is not None:
-            for ev in {id(e.ready): e.ready for e in entries
-                       if e.ready is not None}.values():
-                self.comm_stream.wait_event(ev)
+        _native.wait_ready(self.comm_stream, [e.ready for e in entries])
 
     def _record_done(self, tensors):
         """The event after the comm stream's last kernel on ``tensors``,
         which are marked as used there (None on the CPU)."""
-        if self.comm_stream is None:
-            return None
-        for t in tensors:
-            t.record_stream(self.comm_stream)
-        done = torch.cuda.Event()
-        done.record(self.comm_stream)
-        return done
+        return _native.record_done(self.comm_stream, tensors)
 
     def _chunk_group(self, group: list[TensorEntry]) -> list[list]:
         """Split a fusable group into chunks of at most the fusion
@@ -632,15 +787,23 @@ class BackgroundRuntime:
         dtype = e0.tensor.dtype
         if (self._needs_scale(e0, self._group_of(e0.process_set))
                 and not fused_pack.can_scale(dtype)):
+            self._mp_capture = None
             for e in group:
                 self._run_single(e)
             return
         for chunk in self._chunk_group(group):
             plan = self._chunk_plan(chunk)
             if plan is None:
+                self._mp_capture = None
                 for e in chunk:
                     self._run_single(e)
                 continue
+            if self._mp_capture is not None:
+                # the plan is held by the megaplan from here on
+                self._mp_capture.append((
+                    tuple(self._wire_name(e) for e in chunk), plan,
+                    sum(e.tensor.numel() * e.tensor.element_size()
+                        for e in chunk), dtype_name(dtype)))
             self._dispatch_chunk(chunk, lambda plan=plan, chunk=chunk:
                                  plan.execute([e.tensor for e in chunk],
                                               [e.output for e in chunk],
@@ -669,6 +832,7 @@ class BackgroundRuntime:
                 [e.tensor for e in chunk]
                 + [e.output for e in chunk if e.output is not e.tensor])
         except Exception as exc:  # fail the whole chunk
+            self._mp_capture = None
             self._m_op_errors.inc(len(chunk))
             err = HorovodInternalError(f"fused allreduce failed: {exc}")
             for e in chunk:
@@ -724,6 +888,9 @@ class BackgroundRuntime:
         signature) are read before the dispatch and committed only after
         it succeeded, so a failed dispatch leaves the last ones in
         place."""
+        # the residuals' read-then-commit is state of each dispatch that a
+        # captured chain cannot replay
+        self._mp_capture = None
         store = self._quant_residuals
         for chunk in self._chunk_group(group):
             plan = self._chunk_plan(chunk, quant=spec)

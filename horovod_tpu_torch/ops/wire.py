@@ -1,16 +1,20 @@
 """Negotiation wire formats: the v1 JSON payloads with the 1-byte
-SAME_AS_LAST marker, which ``ops/controller.py`` speaks, and v2,
-versioned, length-delimited binary frames (ported whole from the JAX
-package; the port's controller does not run the v2 mode yet).
+SAME_AS_LAST marker, and v2, versioned, length-delimited binary frames
+(ported whole from the JAX package), which ``ops/controller.py`` speaks
+under ``HOROVOD_HIER_NEGOTIATION`` once every rank advertised them.
 
 v1, byte for byte the JAX controller's (its ``KVController``/
 ``_Coordinator`` write these payloads inline):
 
     submission := JSON {"e": [[name, sig], ...], "j": joined,
-                        "sd": shutting down}
+                        "sd": shutting down[, "wv": 2]}
+                  -- "wv" only in round 0 under HOROVOD_HIER_NEGOTIATION
                 | SAME_AS_LAST  -- the rank's last submission again
     response   := JSON {"ready", "sigs", "errors", "join_done",
-                        ["shutdown_done"], ["invalidate"], ["abort"]}
+                        ["shutdown_done"], ["invalidate"], ["abort"],
+                        ["wv"], ["mp"]}
+                  -- "wv" confirms v2 in round 0, "mp" grants the
+                     megaplan lease
 
 Reference: Horovod's common/wire/message.fbs — the
 reference serializes controller messages with FlatBuffers precisely
@@ -94,13 +98,15 @@ class WireDecodeError(ValueError):
 
 # -- v1: JSON payloads -------------------------------------------------------
 
-def encode_submission_v1(entries, joined: bool,
-                         shutting_down: bool) -> bytes:
+def encode_submission_v1(entries, joined: bool, shutting_down: bool,
+                         wv: Optional[int] = None) -> bytes:
     """One rank's v1 round submission; ``entries`` is an iterable of
-    ``(name, sig)``."""
-    return json.dumps({"e": [[n, sig] for n, sig in entries],
-                       "j": bool(joined),
-                       "sd": bool(shutting_down)}).encode()
+    ``(name, sig)``, ``wv`` the round-0 advert of wire v2."""
+    msg = {"e": [[n, sig] for n, sig in entries], "j": bool(joined),
+           "sd": bool(shutting_down)}
+    if wv is not None:
+        msg["wv"] = wv
+    return json.dumps(msg).encode()
 
 
 def decode_submission_v1(raw: bytes, last: Optional[dict]) -> dict:

@@ -276,6 +276,15 @@ def reducescatter_async(tensor, name=None, op=None,
                     process_set=process_set)
 
 
+def megaplan_report() -> dict:
+    """This rank's whole-step replay (``ops/megaplan.py``): ``{"enabled":
+    False}`` without ``HOROVOD_MEGAPLAN``, else the captures, replays,
+    misses, invalidations, hit rate and the live plan's shape."""
+    from ..ops import megaplan as _megaplan
+
+    return _megaplan.report()
+
+
 def poll(handle: int) -> bool:
     return _runtime().handles.poll(handle)
 

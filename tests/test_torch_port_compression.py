@@ -34,10 +34,12 @@ Mirrors ``tests/test_quantized.py``.
 """
 
 import itertools
+import json
 import os
 import subprocess
 import sys
 import textwrap
+import types
 import warnings
 
 import jax
@@ -1027,6 +1029,59 @@ def test_init_warns_for_a_knob_the_port_does_not_implement(fresh, monkeypatch,
     monkeypatch.setenv(knob, "1")
     with pytest.warns(RuntimeWarning, match=knob):
         hvd.init(device="cpu")
+
+
+class _RoundRecorder:
+    """A KV client that records the controller's PUTs and answers every
+    response poll with an empty round."""
+
+    def __init__(self):
+        self.puts = []
+
+    def put(self, scope, key, value):
+        self.puts.append(value)
+
+    def get(self, scope, key, timeout=30.0):
+        return b'{"ready": [], "errors": {}, "sigs": {}, "join_done": null}'
+
+
+class _SecondOfTwo:
+    """Rank 1 of a set of two, so a runtime builds a controller (and, not
+    being rank 0, no coordinator)."""
+
+    name = "global"
+    size = 2
+    rank = 1
+
+
+@pytest.mark.parametrize("knob", ["HOROVOD_HIER_NEGOTIATION",
+                                  "HOROVOD_MEGAPLAN"])
+def test_init_runs_a_knob_the_port_now_implements(fresh, monkeypatch, knob):
+    """The two control-plane knobs are no longer warned about: set, each
+    changes what the runtime runs. ``HOROVOD_MEGAPLAN`` makes the
+    megaplan's manager, which the runtime resolves;
+    ``HOROVOD_HIER_NEGOTIATION`` makes a controller advertise wire v2 in
+    its first round."""
+    assert hasattr(jenv, knob) and knob not in penv.UNIMPLEMENTED_KNOBS
+    monkeypatch.setenv(knob, "1")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        hvd.init(device="cpu")
+    assert not [w for w in seen if knob in str(w.message)]
+    rt = context.runtime()
+    if knob == "HOROVOD_MEGAPLAN":
+        assert rt._mp is not None and hvd.megaplan_report()["enabled"]
+        return
+    assert context._ctx.config.hier_negotiation
+    for on in (True, False):
+        monkeypatch.setenv(knob, "1" if on else "0")
+        config = RuntimeConfig.from_env()
+        assert config.hier_negotiation is on
+        kv = _RoundRecorder()
+        ctl = rt._maybe_controller.__func__(
+            types.SimpleNamespace(process_set=_SecondOfTwo()), config, kv)
+        ctl.negotiate({})
+        assert ("wv" in json.loads(kv.puts[0])) is on
 
 
 def test_init_warns_not_for_knobs_turned_off(fresh, monkeypatch):

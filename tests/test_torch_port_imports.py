@@ -72,9 +72,11 @@ _ISOLATED = textwrap.dedent("""
     from horovod_tpu_torch.common import context
     rt = context.runtime()
     assert rt.chunks > 0 and rt.collective_calls >= rt.chunks
+    assert rt._mp is None and hvd.megaplan_report() == {"enabled": False}
     for name in ("runner.launch", "runner.http_server", "runner.hosts",
                  "runner.network", "runner.secret", "ops.queue",
-                 "ops.controller", "ops.fused_pack", "ops.wire", "_native",
+                 "ops.controller", "ops.fused_pack", "ops.wire",
+                 "ops.megaplan", "_native",
                  "utils.metrics", "utils.lockcheck", "utils.retry",
                  "opt.sharded", "parallel.sharding_policy"):
         assert "horovod_tpu_torch." + name in sys.modules, name
@@ -135,6 +137,7 @@ def test_no_source_names_jax_or_the_jax_package():
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
                                              "collectives_probe.py",
                                              "flash_probe.py",
+                                             "megaplan_probe.py",
                                              "runtime_probe.py",
                                              "sp_probe.py",
                                              "resnet_probe.py",
