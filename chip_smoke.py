@@ -8,7 +8,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``horovod_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (the two flash-attention sources, ``fused_pack.cu``,
-   ``quant_wire.cu`` and ``xent.cu``), one ``nvcc`` each, started
+   ``quant_wire.cu``, ``xent.cu`` and ``adasum.cu``), one ``nvcc`` each, started
    together, and print each build's seconds and ``ptxas`` report
    (registers, spills); count the tensor-core
    instructions (``HGMMA``) in both flash kernels' SASS (``cuobjdump``),
@@ -162,7 +162,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches, chunks, cycles) and host ms a working cycle
    (``hvd_cycle_seconds``) of each arm; then the megaplan's counters
    after one ``DistributedOptimizer`` hook step under the megaplan;
-12. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+12. K4 (``csrc/adasum.cu``, Adasum's two kernels): K4a (the fp32 dot and
+   squared norms of a pair of rows, no floating-point atomic) twice,
+   bitwise the same, and within ``K4_SUMS_TOL`` of its plain version's
+   sums; K4b (the scaled add) bitwise its plain version on the same sums;
+   at ResNet-50's 161 parameter shapes in fp32, its 25.6 million elements
+   in bf16 and fp16, rows off 16-byte alignment; a zero-norm side,
+   identical rows (the mean) and orthogonal rows (the sum) bit for bit; a
+   tree of four rows within ``K4_TREE_TOL`` of the plain tree; then each
+   kernel timed on one pair of 25.6 million fp32 rows by events and device
+   time beside its byte bound, its plain version and (K4a) three
+   ``torch.dot`` calls, and over the 161 parameters' pairs a launch each;
+   the adasum path: four seeded batches of ResNet-50 at full width (64 at
+   224², bf16 over fp32 weights), each one local SGD step from the same
+   weights, give 161 deltas as four virtual ranks, which go through
+   ``adasum_tree_reduce`` on K4 (the counts set to 0 just before: 483
+   launches of each kernel, checked) and on the plain version, within
+   ``K4_TREE_TOL``, and through the two-level Adasum as 2 hosts of 2 on K4
+   against the plain version on the CPU; at a world of one
+   ``DistributedOptimizer(op=hvd.Adasum)`` trains 3 steps bitwise equal to
+   ``op=hvd.Average`` (the regular wrapper, as the JAX package's
+   fallback), ``hvd.SyncBatchNorm`` agrees with ``nn.BatchNorm2d`` within
+   ``SYNC_BN_TOL`` and ResNet-50 in fp32 with ``sync_bn_group`` over the
+   world of one with the unsynchronized path within ``SYNC_RESNET_*_TOL``;
+13. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -170,9 +193,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
-K2's and K3's on the compression path, K5's on the long-context path, the
-others' on the main path; ``launches_by_path`` gives every path's
-count, the resnet and megaplan paths' included), errors, times, bounds
+K2's and K3's on the compression path, K5's on the long-context path,
+K4's on the adasum path, the others' on the main path;
+``launches_by_path`` gives every path's count, the resnet, megaplan and
+adasum paths' included), errors, times, bounds
 and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -319,7 +343,7 @@ def share_of(bound_ms: float, dev_ms: float, ev_ms: float) -> tuple:
 # --- phase 2: build ---------------------------------------------------------
 
 SOURCES = ("flash_attention_sm90", "flash_attention_tf32", "fused_pack",
-           "quant_wire", "xent")
+           "quant_wire", "xent", "adasum")
 
 
 def _tensor_core_ops(lib: str) -> dict:
@@ -1181,6 +1205,7 @@ _CATEGORIES = (("flash forward kernel", r"flash_fwd"),
                 r"table_copy_kernel<CastOp|quantize_pack_kernel|"
                 r"reduce_unpack_kernel"),
                ("chunked cross-entropy (K5)", r"xent_(fwd|bwd)_chunk"),
+               ("Adasum (K4)", r"adasum_(dot_norms|scaled_add)"),
                # cuDNN's and torch's batch-norm kernels, then cuDNN's
                # convolutions (their Hopper kernels carry xmma in their
                # names, as cuBLAS's do) and its layout transposes
@@ -1455,6 +1480,7 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
 
 def _launch_counts() -> dict:
     """Every kernel's launches by name, and the flash kernel's by mask."""
+    from horovod_tpu_torch.ops import adasum
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.ops import quant_wire as qw
@@ -1464,11 +1490,13 @@ def _launch_counts() -> dict:
     counts.update(fp.kernel_launches)
     counts.update(qw.kernel_launches)
     counts.update(xent.kernel_launches)
+    counts.update(adasum.kernel_launches)
     counts.update(fa.mask_launches)
     return counts
 
 
 def _zero_launch_counts():
+    from horovod_tpu_torch.ops import adasum
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.ops import quant_wire as qw
@@ -1476,7 +1504,7 @@ def _zero_launch_counts():
 
     for counts in (fa.kernel_launches, fp.kernel_launches,
                    qw.kernel_launches, xent.kernel_launches,
-                   fa.mask_launches):
+                   adasum.kernel_launches, fa.mask_launches):
         for name in counts:
             counts[name] = 0
 
@@ -2893,7 +2921,437 @@ def megaplan_path_phase(device) -> tuple:
     return launches, readings
 
 
-# --- phase 13: the launcher ------------------------------------------------
+# --- phase 13: K4 (Adasum) and the adasum path ------------------------------
+
+# K4a's sums against the plain version's, each relative to its own scale
+# (|a| |b| for the dot, the squared norm for itself): fp32 sums of up to
+# 25.6 million products in another order (a block tree against cuBLAS)
+K4_SUMS_TOL = 1e-5
+# a tree's result against the plain tree's, relative to the largest
+# magnitude of the tensor: the coefficients inherit K4a's relative error
+K4_TREE_TOL = 1e-4
+# fp32 rounding: E[x^2] - E[x]^2 against cuDNN's Welford statistics
+SYNC_BN_TOL = 1e-4
+# ResNet-50 in fp32 (TF32 off): the synchronized batch norm's variance,
+# flax's E[x^2] - E[x]^2, against torch's Welford kernel, through 53 batch
+# norms; logits, then each gradient against its own largest magnitude.
+# The fp32 subtraction cancels where a channel's mean is large against its
+# spread, so a small gradient behind such a layer moves by a few percent
+# of itself (1.64e-2 for the last stage's projection, on the card)
+SYNC_RESNET_LOGIT_TOL, SYNC_RESNET_GRAD_TOL = 1e-3, 5e-2
+SYNC_BN_SHAPE = (64, 256, 56, 56)  # ResNet-50's second stage at batch 64
+ADASUM_RANKS = 4
+
+
+def _k4_sums_err(k, p) -> float:
+    import torch
+
+    scale = torch.stack([(p[1] * p[2]).sqrt(), p[1], p[2]]).clamp_min(1e-30)
+    return ((k - p).abs() / scale).max().item()
+
+
+def _k4_case(a, b, name: str) -> tuple:
+    """K4a twice (bitwise the same) and against its plain version; K4b
+    bitwise its plain version on K4a's sums. Returns (K4a's relative
+    error, K4a's largest absolute error, K4b's output)."""
+    from horovod_tpu_torch.ops import adasum
+
+    sk = adasum.dot_norms(a, b)
+    if not _same_bits(sk, adasum.dot_norms(a, b)):
+        raise AssertionError(f"K4a is not bitwise the same from run to run "
+                             f"({name})")
+    sp = adasum.dot_norms_plain(a, b)
+    err = _k4_sums_err(sk, sp)
+    if not err <= K4_SUMS_TOL:
+        raise AssertionError(f"K4a against its plain version: {err:.3g} "
+                             f"(tol {K4_SUMS_TOL}) ({name}): {sk.tolist()} "
+                             f"against {sp.tolist()}")
+    out = adasum.scaled_add(a, b, sk)
+    if not _same_bits(out, adasum.scaled_add_plain(a, b, sk)):
+        raise AssertionError(f"K4b differs from its plain version on the "
+                             f"same sums ({name})")
+    return err, (sk - sp).abs().max().item(), out
+
+
+def k4_check_phase(device) -> dict:
+    """K4 against its plain version on the card: ResNet-50's 161 parameter
+    shapes in fp32, one large shape (ResNet-50's 25.6 million elements) in
+    bf16 and fp16, rows off 16-byte alignment, the zero-norm sides
+    (coefficient 0: the other row, bitwise), identical rows (the mean: the
+    row, bitwise), orthogonal rows (the sum, bitwise), and a tree of four
+    rows against the plain tree. Returns the largest errors."""
+    import torch
+
+    from horovod_tpu_torch.ops import adasum
+
+    sizes = resnet50_grad_sizes()
+    total = sum(sizes)
+    g = torch.Generator(device=device).manual_seed(13)
+    worst, worst_abs, n = 0.0, 0.0, 0
+    for i, size in enumerate(sizes):
+        a, b = torch.randn((2, size), generator=g, device=device)
+        e, ea, _ = _k4_case(a, b, f"ResNet-50 shape {i}, {size}")
+        worst, worst_abs, n = max(worst, e), max(worst_abs, ea), n + 1
+    _log(f"  161 ResNet-50 shapes in fp32: K4a within {worst:.3g} of the "
+         f"plain sums' scale (tol {K4_SUMS_TOL}), bitwise from run to run; "
+         f"K4b bitwise the plain version on the same sums")
+    for dtype in (torch.bfloat16, torch.float16):
+        a, b = torch.randn((2, total), generator=g, device=device).to(dtype)
+        e, ea, _ = _k4_case(a, b, f"{dtype} at {total}")
+        _log(f"  {dtype} at {total} elements: K4a {e:.3g}; K4b bitwise")
+        worst, worst_abs, n = max(worst, e), max(worst_abs, ea), n + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn(2 * 1_000_003 + 2, generator=g,
+                          device=device).to(dtype)
+        a, b = buf[1:1_000_004], buf[1_000_005:2_000_008]  # misaligned
+        e, ea, _ = _k4_case(a, b, f"misaligned {dtype}")
+        worst, worst_abs, n = max(worst, e), max(worst_abs, ea), n + 1
+    a, b = torch.randn((2, 1_000_003), generator=g, device=device)
+    zero = torch.zeros_like(a)
+    for x, y, want, name in (
+            (zero, b, b, "a zero side: the other row"),
+            (a, zero, a, "b zero side: the other row"),
+            (zero, zero, zero, "both zero: zeros"),
+            (a, a.clone(), a, "identical rows: the mean"),
+            (torch.cat([a[:500_000], zero[500_000:]]),
+             torch.cat([zero[:500_000], b[500_000:]]),
+             torch.cat([a[:500_000], b[500_000:]]),
+             "orthogonal rows: the sum")):
+        got = adasum.adasum_combine(x, y)
+        if not _same_bits(got, want):
+            raise AssertionError(f"K4 on {name} is not exact")
+        n += 1
+    _log("  exact cases: a zero side gives the other row, identical rows "
+         "their mean, orthogonal rows their sum, bit for bit")
+    rows = torch.randn((4, total), generator=g, device=device)
+    tree = adasum.adasum_tree_reduce(rows)
+    plain = adasum.adasum_tree_reduce_plain(rows)
+    tree_err = ((tree - plain).abs().max() / plain.abs().max()).item()
+    if not tree_err <= K4_TREE_TOL:
+        raise AssertionError(f"the K4 tree of four rows against the plain "
+                             f"tree: {tree_err:.3g} (tol {K4_TREE_TOL})")
+    _log(f"  a tree of 4 rows of {total}: within {tree_err:.3g} of the "
+         f"plain tree's largest magnitude (tol {K4_TREE_TOL}); {n} cases")
+    del rows, tree, plain, a, b, zero
+    torch.cuda.empty_cache()
+    return {"sums_rel_err": worst, "sums_abs_err": worst_abs,
+            "tree_rel_err": tree_err, "cases": n}
+
+
+def k4_time_phase(device) -> list:
+    """K4a and K4b timed on one pair of rows of ResNet-50's 25.6 million
+    fp32 elements (a flat gradient a rank), by events and device time, in
+    turns with the library yardstick (K4a: three ``torch.dot`` calls over
+    the same rows; K4b: none, the composite is the plain version), beside
+    the byte bound and the plain version; and one combine of each of the
+    161 parameters' pairs (161 launches of each kernel, as a tree's round
+    at four ranks makes two of them), by events, beside its byte bound.
+    Returns the two kernel entries."""
+    import torch
+
+    from horovod_tpu_torch.ops import adasum
+
+    sizes = resnet50_grad_sizes()
+    total = sum(sizes)
+    g = torch.Generator(device=device).manual_seed(17)
+    a, b = torch.randn((2, total), generator=g, device=device)
+    sums = adasum.dot_norms(a, b)
+    sp = adasum.dot_norms_plain(a, b)
+    errs = {"adasum_dot_norms": (sums - sp).abs().max().item(),
+            "adasum_scaled_add": (adasum.scaled_add(a, b, sums)
+                                  - adasum.scaled_add_plain(a, b, sums))
+            .abs().max().item()}
+    out = torch.empty_like(a)
+    pairs = [torch.randn((2, s), generator=g, device=device) for s in sizes]
+    pair_sums = [adasum.dot_norms(x, y) for x, y in pairs]
+    fns = {
+        "adasum_dot_norms": (
+            lambda: adasum.dot_norms(a, b),
+            lambda: adasum.dot_norms_plain(a, b),
+            lambda: (torch.dot(a, b), torch.dot(a, a), torch.dot(b, b)),
+            lambda: [adasum.dot_norms(x, y) for x, y in pairs],
+            2 * total * 4 + 12),
+        "adasum_scaled_add": (
+            lambda: adasum.scaled_add(a, b, sums, out),
+            lambda: adasum.scaled_add_plain(a, b, sums, out),
+            None,
+            lambda: [adasum.scaled_add(x, y, s) for (x, y), s in
+                     zip(pairs, pair_sums)],
+            3 * total * 4 + 12)}
+    entries = []
+    for name, (kern, plain, lib, step, nbytes) in fns.items():
+        timed = {"kernel": kern} if lib is None else {"kernel": kern,
+                                                      "library": lib}
+        ev = in_turns(timed, lambda fn: time_ms(fn, iters=50))
+        dev = in_turns(timed, lambda fn: device_ms(fn, iters=50))
+        plain_ms = time_ms(plain, iters=10)
+        step_ms = time_ms(step, iters=5)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        step_bound = (nbytes - 12) / HBM_BYTES_PER_S * 1e3  # the same bytes
+        sh, sh_by = share_of(bound_ms, dev["kernel"], ev["kernel"])
+        _log(f"  {name} at {total} fp32: {ev['kernel']:.4f} ms by events, "
+             f"{dev['kernel']:.4f} device; bound {bound_ms:.4f} ms (bytes); "
+             f"share {sh:.3f} ({sh_by}); plain {plain_ms:.4f} ms; "
+             + (f"three torch.dot calls {ev['library']:.4f} ms, "
+                f"{dev['library']:.4f} device" if lib else
+                "library none (composite)")
+             + f"; the 161 parameters' pairs one launch each "
+             f"{step_ms:.4f} ms by events (bound {step_bound:.4f})")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/adasum.cu",
+            "replaces": "horovod_tpu/ops/adasum.py:26",
+            "launches": None, "max_abs_err": errs[name],
+            "ms": ev["kernel"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": ev.get("library"),
+            "library_note": ("three torch.dot calls" if lib else
+                             "none (composite)"),
+            "device_ms": dev["kernel"],
+            "library_device_ms": dev.get("library"), "share": sh,
+            "share_by": sh_by, "per_161_pairs_ms": step_ms,
+            "per_161_pairs_bound_ms": step_bound})
+    del a, b, out, pairs, pair_sums
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _local_deltas(device, model, params, ranks: int) -> list:
+    """Each virtual rank's one local step (SGD(0.05, momentum=0.9) from
+    the same weights, on its own seeded batch of 64 at 224^2): the
+    parameters' deltas, one list of ``ranks`` flat rows a parameter."""
+    import torch
+    import torch.nn.functional as F
+
+    import resnet_probe as rp
+
+    start = [p.detach().clone() for p in params]
+    deltas = [[] for _ in params]
+    for r in range(ranks):
+        images, labels = rp.synthetic_batch(0, ranks, RESNET_BATCH,
+                                            RESNET_IMAGE, 1000, r, device)
+        with torch.no_grad():
+            for p, s in zip(params, start):
+                p.copy_(s)
+        opt = torch.optim.SGD(params, lr=rp.LR, momentum=rp.MOMENTUM)
+        opt.zero_grad()
+        F.cross_entropy(model(images), labels).backward()
+        opt.step()
+        for d, p, s in zip(deltas, params, start):
+            d.append((p.detach() - s).reshape(-1))
+    return deltas
+
+
+def _optimizer_arm(device, op, images, labels, steps: int = 3) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    import resnet_probe as rp
+
+    model = rp.build("50", device, 0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=rp.LR, momentum=rp.MOMENTUM),
+        named_parameters=model.named_parameters(), op=op)
+    out = {"class": type(opt).__name__, "losses": [], "step_ms": []}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = F.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        out["losses"].append(loss.item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["params"] = torch.cat([p.detach().reshape(-1)
+                               for p in model.parameters()])
+    del model, opt
+    gc.collect()
+    return out
+
+
+def _sync_bn_check(device) -> dict:
+    """``hvd.SyncBatchNorm`` at a world of one against ``nn.BatchNorm2d``
+    on a ``SYNC_BN_SHAPE`` fp32 activation: output, input, weight and bias
+    gradients and the running statistics within ``SYNC_BN_TOL`` of each
+    tensor's largest magnitude."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    g = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn(SYNC_BN_SHAPE, generator=g, device=device) * 2 + 0.5
+    cot = torch.randn(SYNC_BN_SHAPE, generator=g, device=device)
+    c = SYNC_BN_SHAPE[1]
+    errs = {}
+    outs = []
+    for bn in (hvd.SyncBatchNorm(c, device=device),
+               torch.nn.BatchNorm2d(c, device=device)):
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, c, device=device))
+        xi = x.clone().requires_grad_()
+        y = bn(xi)
+        (y * cot).sum().backward()
+        outs.append({"out": y.detach(), "grad_in": xi.grad,
+                     "grad_weight": bn.weight.grad,
+                     "grad_bias": bn.bias.grad,
+                     "running_mean": bn.running_mean.clone(),
+                     "running_var": bn.running_var.clone()})
+    for k, want in outs[1].items():
+        errs[k] = ((outs[0][k] - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+    _log(f"  hvd.SyncBatchNorm against nn.BatchNorm2d, one rank: "
+         f"{ {k: f'{v:.3g}' for k, v in errs.items()} } (tol {SYNC_BN_TOL})")
+    if max(errs.values()) > SYNC_BN_TOL:
+        raise AssertionError("hvd.SyncBatchNorm disagrees with nn.BatchNorm2d")
+    del x, cot, outs
+    return errs
+
+
+def _sync_resnet_check(device) -> dict:
+    """ResNet-50 in fp32 (TF32 off) with ``sync_bn_group`` over a world of
+    one against the unsynchronized path (torch's batch-norm kernel), on 16
+    images: logits within ``SYNC_RESNET_LOGIT_TOL`` and each gradient
+    within ``SYNC_RESNET_GRAD_TOL`` of its largest magnitude."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    import resnet_probe as rp
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    images, labels = rp.synthetic_batch(0, 1, 16, RESNET_IMAGE, 1000, 0,
+                                        device)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    # no TF32 and no atomics in cuDNN's backward: only the batch norms
+    # differ between the two runs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for group in (None, hvd.global_process_set().group):
+            model = ResNet50(dtype=torch.float32, device=device, seed=0,
+                             sync_bn_group=group)
+            logits = model(images)
+            F.cross_entropy(logits, labels).backward()
+            runs.append((logits.detach(),
+                         {k: p.grad for k, p in model.named_parameters()}))
+            del model
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    (l0, g0), (l1, g1) = runs
+    logit_err = ((l1 - l0).abs().max() / l0.abs().max()).item()
+    errs = {k: ((g1[k] - a).abs().max() / a.abs().max().clamp_min(1e-30))
+            .item() for k, a in g0.items()}
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
+    _log(f"  ResNet-50 fp32, sync_bn_group over one rank against the "
+         f"unsynchronized path: logits within {logit_err:.3g} (tol "
+         f"{SYNC_RESNET_LOGIT_TOL}), gradients within {grad_err:.3g} of "
+         f"each one's largest (tol {SYNC_RESNET_GRAD_TOL}; the worst "
+         f"{worst}, largest {g0[worst].abs().max().item():.3g})")
+    if logit_err > SYNC_RESNET_LOGIT_TOL or grad_err > SYNC_RESNET_GRAD_TOL:
+        raise AssertionError("ResNet with sync_bn_group disagrees with its "
+                             "unsynchronized path at one rank")
+    return {"logits_rel_err": logit_err, "grads_rel_err": grad_err}
+
+
+def adasum_path_phase(device) -> tuple:
+    """The adasum path on one GPU (module docstring, phase 12). Returns the
+    path's launches and its readings."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import resnet_probe as rp
+    from horovod_tpu_torch.ops import adasum
+
+    model = rp.build("50", device, 0)
+    params = list(model.parameters())
+    deltas = _local_deltas(device, model, params, ADASUM_RANKS)
+    del model, params
+    gc.collect()
+    rows = [torch.stack(d) for d in deltas]
+    del deltas
+    _zero_launch_counts()  # just before the path runs
+    t0 = time.perf_counter()
+    got = [adasum.adasum_tree_reduce(r) for r in rows]
+    torch.cuda.synchronize()
+    tree_host_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    want_launches = len(rows) * (ADASUM_RANKS - 1)
+    _log(f"  161 deltas of {ADASUM_RANKS} virtual ranks through "
+         f"adasum_tree_reduce on K4: {tree_host_ms:.2f} ms (first pass, "
+         f"host clock); launches {launches}")
+    if not (launches["adasum_dot_norms"] == want_launches
+            and launches["adasum_scaled_add"] == want_launches):
+        raise AssertionError(f"K4 launched {launches} times, not "
+                             f"{want_launches} of each kernel")
+    tree_err = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30))
+                   .item() for k, p in zip(
+                       got, [adasum.adasum_tree_reduce_plain(r)
+                             for r in rows]))
+    _log(f"  against the plain tree: within {tree_err:.3g} of each "
+         f"tensor's largest magnitude (tol {K4_TREE_TOL})")
+    if tree_err > K4_TREE_TOL:
+        raise AssertionError("the K4 tree disagrees with the plain tree")
+    tree_ms = time_ms(lambda: [adasum.adasum_tree_reduce(r) for r in rows],
+                      iters=3, warmup=1)
+    _log(f"  the tree of all 161 tensors a step (966 launches): "
+         f"{tree_ms:.3f} ms by events")
+    # the two-level Adasum of the same deltas as 2 hosts of 2, on K4,
+    # against the same arithmetic on the CPU (the plain version)
+    hier = adasum.simulated_hierarchical
+    hier_err = 0.0
+    for r in rows:
+        k = hier(list(r), 2)[0]
+        p = hier([x.cpu() for x in r], 2)[0]
+        hier_err = max(hier_err, ((k.cpu() - p).abs().max()
+                                  / p.abs().max().clamp_min(1e-30)).item())
+    _log(f"  two levels (2 hosts of 2) on K4 against the plain version: "
+         f"within {hier_err:.3g} (tol {K4_TREE_TOL})")
+    if hier_err > K4_TREE_TOL:
+        raise AssertionError("the two-level Adasum on K4 disagrees with the "
+                             "plain version")
+    del rows, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hvd.init()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        images, labels = rp.synthetic_batch(0, 1, RESNET_BATCH, RESNET_IMAGE,
+                                            1000, 0, device)
+        arms = {"average": _optimizer_arm(device, hvd.Average, images,
+                                          labels),
+                "adasum": _optimizer_arm(device, hvd.Adasum, images, labels)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, d = arms["average"], arms["adasum"]
+    _log(f"  DistributedOptimizer at a world of one: op=Average "
+         f"({a['class']}) losses {a['losses']}, op=Adasum ({d['class']}) "
+         f"losses {d['losses']}; step ms {[round(x, 1) for x in a['step_ms']]}"
+         f" / {[round(x, 1) for x in d['step_ms']]}")
+    if d["class"] != "DistributedSGD" or a["losses"] != d["losses"] or not \
+            _same_bits(a["params"], d["params"]):
+        raise AssertionError("op=Adasum at a world of one is not bitwise the "
+                             "plain wrapper")
+    del arms, images, labels
+    gc.collect()
+    sync_bn = _sync_bn_check(device)
+    sync_resnet = _sync_resnet_check(device)
+    hvd.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings = {"tree_rel_err": tree_err, "tree_ms": tree_ms,
+                "tree_first_host_ms": tree_host_ms,
+                "hier_rel_err": hier_err,
+                "world_one_losses": a["losses"], "sync_bn": sync_bn,
+                "sync_resnet": sync_resnet}
+    return launches, readings
+
+
+# --- phase 14: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -3037,6 +3495,19 @@ def main() -> int:
     t_m = time.perf_counter()
     mp_launches, mp_readings = megaplan_path_phase(device)
     _log(f"  megaplan path: {time.perf_counter() - t_m:.1f} s")
+    _phase("[K4] Adasum's two kernels against their plain versions, then "
+           "timed at ResNet-50's flat gradient")
+    t_k4 = time.perf_counter()
+    k4_check = k4_check_phase(device)
+    k4_entries = k4_time_phase(device)
+    _log(f"  K4 phase: {time.perf_counter() - t_k4:.1f} s")
+    _phase("[adasum path] ResNet-50's 161 deltas of 4 virtual ranks through "
+           "the Adasum tree on K4; Adasum, SyncBatchNorm and sync_bn_group "
+           "at a world of one")
+    t_a = time.perf_counter()
+    ada_launches, ada_readings = adasum_path_phase(device)
+    ada_readings["k4_check"] = k4_check
+    _log(f"  adasum path: {time.perf_counter() - t_a:.1f} s")
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
@@ -3054,14 +3525,24 @@ def main() -> int:
             "long_context": lc_launches[entry["name"]],
             "zero1": zero_launches[entry["name"]],
             "resnet": resnet_launches[entry["name"]],
-            "megaplan": mp_launches[entry["name"]]}
+            "megaplan": mp_launches[entry["name"]],
+            "adasum": ada_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
     for entry in k5_entries:  # K5's path is the long-context one
         entry["launches"] = lc_launches[entry["name"]]
         entry["launches_by_path"] = {"long_context": entry["launches"]}
+    for entry in k4_entries:  # K4's path is the adasum one
+        entry["launches"] = ada_launches[entry["name"]]
+        entry["launches_by_path"] = {
+            "adasum": entry["launches"],
+            **{path: counts[entry["name"]] for path, counts in (
+                ("main", launches), ("fp32", fp32_launches),
+                ("collectives", coll_launches), ("sp", sp_launches),
+                ("long_context", lc_launches), ("zero1", zero_launches),
+                ("resnet", resnet_launches), ("megaplan", mp_launches))}}
 
-    kernels += wire_entries + k5_entries
+    kernels += wire_entries + k5_entries + k4_entries
 
     _phase("[launcher]")
     launcher_phase(root)
@@ -3071,6 +3552,7 @@ def main() -> int:
     print(json.dumps({"zero1": zero_arms}))
     print(json.dumps({"resnet": resnet_readings}))
     print(json.dumps({"megaplan": mp_readings}))
+    print(json.dumps({"adasum": ada_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

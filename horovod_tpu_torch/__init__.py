@@ -66,4 +66,5 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     size,
     sparse_allreduce_async,
     synchronize,
+    SyncBatchNorm,
 )

@@ -33,6 +33,17 @@ the JAX package's purely local call, ``add_process_set`` and
 non-members alike, in the same order (the reference Horovod's contract
 since 0.21).
 
+The global set has two levels where a hierarchical knob
+(``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER``) is set and the job is
+homogeneous (``local_size > 1`` and ``size == local_size * cross_size``,
+as JAX ``common/context.py:93-104`` requires of its ``mesh_2d``): the
+local group (this host's ranks) and the cross group (the ranks that share
+this ``local_rank``), each made for the caller and for the runtime
+(``Hierarchy``). The launcher fills hosts in order, so a rank is
+``cross_rank * local_size + local_rank``. Without a knob no group is made:
+every rank would pay for communicators that nothing uses. Other sets stay
+flat.
+
 ``init`` also reads the ``RuntimeConfig`` and starts the background runtime
 (``ops/queue.py``) on ``device()``, as ``horovod_tpu/common/context.py``
 :337-362 does. The runtime runs its collectives on a process group of its
@@ -68,6 +79,29 @@ _STORE_TIMEOUT = datetime.timedelta(seconds=300)
 _STORE_PORT_SCOPE, _STORE_PORT_KEY = "horovod_tpu_torch", "tcp_store_port"
 
 
+class Hierarchy:
+    """This rank's two levels of the global set (the port's counterpart of
+    the JAX ``ProcessSet.mesh_2d``): ``local_group`` over this host's
+    ``local_size`` ranks, ``cross_group`` over the ``cross_size`` ranks
+    that share this ``local_rank``, one rank a host."""
+
+    __slots__ = ("local_group", "cross_group", "local_size", "cross_size",
+                 "local_rank", "cross_rank")
+
+    def __init__(self, local_group, cross_group, local_size: int,
+                 cross_size: int, local_rank: int, cross_rank: int):
+        self.local_group = local_group
+        self.cross_group = cross_group
+        self.local_size = local_size
+        self.cross_size = cross_size
+        self.local_rank = local_rank
+        self.cross_rank = cross_rank
+
+    @property
+    def size(self) -> int:
+        return self.local_size * self.cross_size
+
+
 class ProcessSet:
     """A named set of ranks (the counterpart of ``horovod_tpu``'s
     mesh-backed ``ProcessSet``). ``group`` serves the caller's thread,
@@ -75,7 +109,9 @@ class ProcessSet:
     ``torch.distributed``'s non-member marker. A port rank is one process,
     so ``rank``/``size`` and the process-level ``cross_rank``/
     ``cross_size`` coincide: they equal the JAX package's for a launch that
-    gives each JAX worker one device."""
+    gives each JAX worker one device. ``hierarchy`` and
+    ``runtime_hierarchy`` are the two levels on the caller's and the
+    runtime's groups, or None (the module docstring says when)."""
 
     def __init__(self, name: str, ranks: Sequence[int], group,
                  runtime_group=None):
@@ -83,6 +119,8 @@ class ProcessSet:
         self.ranks = list(ranks)
         self.group = group
         self.runtime_group = runtime_group
+        self.hierarchy: Optional[Hierarchy] = None
+        self.runtime_hierarchy: Optional[Hierarchy] = None
 
     @property
     def size(self) -> int:
@@ -239,6 +277,36 @@ def init(device=None):
         _ctx.inits += 1
 
 
+def _build_hierarchy(ps: ProcessSet):
+    """The global set's local and cross groups, for the caller and for the
+    runtime, where the module docstring says. Every rank makes every
+    group, in the same order: each host's local group, then each local
+    rank's cross group, the caller's set before the runtime's."""
+    c = _ctx
+    L, X = c.local_size, c.cross_size
+    if not ((c.config.hierarchical_allreduce
+             or c.config.hierarchical_allgather)
+            and L > 1 and c.size == L * X):
+        return
+    if c.rank != c.cross_rank * L + c.local_rank:
+        raise RuntimeError(
+            f"rank {c.rank} is not cross_rank * local_size + local_rank "
+            f"({c.cross_rank} * {L} + {c.local_rank}): the launcher must "
+            "fill hosts in order for the hierarchical collectives")
+    for attr in ("hierarchy", "runtime_hierarchy"):
+        local = cross = None
+        for x in range(X):
+            g = _new_group([x * L + i for i in range(L)])
+            if x == c.cross_rank:
+                local = g
+        for i in range(L):
+            g = _new_group([x * L + i for x in range(X)])
+            if i == c.local_rank:
+                cross = g
+        setattr(ps, attr, Hierarchy(local, cross, L, X, c.local_rank,
+                                    c.cross_rank))
+
+
 def _kv_client(store):
     """The rendezvous store's client for negotiation: the launcher's, or
     one rank 0 serves when no launcher gave an address."""
@@ -268,6 +336,7 @@ def _start_runtime(store):
     group = _new_group(list(range(_ctx.size)))
     _ctx.global_set.runtime_group = group
     _ctx.process_sets = {"global": _ctx.global_set}
+    _build_hierarchy(_ctx.global_set)
     kv = _kv_client(store) if _ctx.size > 1 else None
     _ctx.runtime = BackgroundRuntime(_ctx.global_set, _ctx.config,
                                      _ctx.device, group, kv_client=kv)

@@ -77,11 +77,16 @@ HOROVOD_HIER_FALLBACK_S = "HOROVOD_HIER_FALLBACK_S"
 HOROVOD_MEGAPLAN = "HOROVOD_MEGAPLAN"
 HOROVOD_MEGAPLAN_STABLE_ROUNDS = "HOROVOD_MEGAPLAN_STABLE_ROUNDS"
 
+# the two-level data plane (ops/collectives.py): the allreduce as a
+# reduce-scatter within a host, an allreduce across hosts and an allgather
+# within the host, and the allgather's two-level flavour (JAX
+# common/env.py:47-48)
+HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
+HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
+
 # knobs of the JAX package that the port reads only to warn that it does
-# not implement them (JAX common/env.py:25, :47-48)
+# not implement them (JAX common/env.py:25)
 UNIMPLEMENTED_KNOBS = (
-    "HOROVOD_HIERARCHICAL_ALLREDUCE",
-    "HOROVOD_HIERARCHICAL_ALLGATHER",
     "HOROVOD_AUTOTUNE",
 )
 
@@ -140,7 +145,10 @@ class RuntimeConfig:
     - the control plane: ``hier_negotiation`` (the v2 wire through
       per-group leaders of ``hier_group_size`` ranks, a member falling
       back flat after ``hier_fallback_s``), and ``megaplan`` (capture
-      after ``megaplan_stable_rounds`` identical working cycles).
+      after ``megaplan_stable_rounds`` identical working cycles);
+    - the two-level data plane: ``hierarchical_allreduce`` and
+      ``hierarchical_allgather``, taken where the topology carries them
+      (``ops/collectives.py``).
     """
 
     fusion_threshold_bytes: int = 128 * 1024 * 1024
@@ -158,6 +166,8 @@ class RuntimeConfig:
     hier_fallback_s: float = 5.0
     megaplan: bool = False
     megaplan_stable_rounds: int = 5
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -186,4 +196,6 @@ class RuntimeConfig:
         c.megaplan = get_bool(HOROVOD_MEGAPLAN)
         c.megaplan_stable_rounds = get_int(HOROVOD_MEGAPLAN_STABLE_ROUNDS,
                                            c.megaplan_stable_rounds)
+        c.hierarchical_allreduce = get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE)
+        c.hierarchical_allgather = get_bool(HOROVOD_HIERARCHICAL_ALLGATHER)
         return c

@@ -19,10 +19,20 @@ one (``params_from_jax``):
   the biased batch variance both for normalizing and for the running
   update ``0.9·running + 0.1·batch``.
 
+``sync_bn_group`` (a ``torch.distributed`` group, say
+``hvd.global_process_set().group``) is flax's ``axis_name``
+(``horovod_tpu/models/resnet.py:129``, :148-150): every ``BatchNorm`` then
+takes the batch mean and the mean of squares in fp32, averages the two
+over the group with one ``dist.all_reduce`` on the caller's thread
+(``_GroupMean``, differentiable: its backward averages the cotangent the
+same way), and normalizes with ``max(0, E[x^2] - E[x]^2)``, flax's
+``_compute_stats`` and ``_normalize``, op for op; the running update is
+flax's with those statistics. Without a group the path is unchanged.
+
 Left out: the TPU-only ``space_to_depth`` stem and ``conv_impl``
-(``Im2ColConv``), and ``axis_name`` (sync BN, ROADMAP.md queue 1 item 13).
-The convolutions are ``F.conv2d`` (cuDNN) and the normalization torch's
-batch-norm kernel, as XLA ran both outside any Pallas kernel.
+(``Im2ColConv``). The convolutions are ``F.conv2d`` (cuDNN) and the
+normalization torch's batch-norm kernel, as XLA ran both outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -86,6 +97,27 @@ class Conv(nn.Module):
         return F.conv2d(x, w, stride=self.stride, padding=padding)
 
 
+class _GroupMean(torch.autograd.Function):
+    """The mean of ``t`` over the ranks of ``group`` (flax's ``lax.pmean``):
+    one ``all_reduce`` of the sum, divided by the group's size. Its
+    backward is the same mean of the cotangent, pmean's transpose."""
+
+    @staticmethod
+    def _mean(t, group):
+        out = t.clone()
+        dist.all_reduce(out, dist.ReduceOp.SUM, group=group)
+        return out.div_(dist.get_world_size(group))
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _GroupMean._mean(t.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _GroupMean._mean(dy.contiguous(), ctx.group), None
+
+
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
 
@@ -98,10 +130,13 @@ class BatchNorm(nn.Module):
     fp32 rounding of ``var + eps`` (a second pass over the activations
     for them cost a third of a ResNet-50 step's device time on an H100).
     Eval normalizes with the running statistics. The output keeps the
-    input's dtype. No ``num_batches_tracked``: flax has none."""
+    input's dtype. No ``num_batches_tracked``: flax has none. With
+    ``group`` the statistics are the group's (``_synced``)."""
 
-    def __init__(self, c: int, device, zero_scale: bool = False):
+    def __init__(self, c: int, device, zero_scale: bool = False,
+                 group=None):
         super().__init__()
+        self.group = group
         init = torch.zeros if zero_scale else torch.ones
         self.weight = nn.Parameter(init(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
@@ -112,6 +147,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, EPSILON)
+        if self.group is not None:
+            return self._synced(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, EPSILON)
         with torch.no_grad():
@@ -122,25 +159,44 @@ class BatchNorm(nn.Module):
                                    + (1.0 - MOMENTUM) * var)
         return y
 
+    def _synced(self, x):
+        """flax's ``BatchNorm`` with ``axis_name``: the statistics of the
+        group's whole batch, in fp32."""
+        xf = x.float()
+        moments = torch.stack([xf.mean((0, 2, 3)),
+                               (xf * xf).mean((0, 2, 3))])
+        mean, meansq = _GroupMean.apply(moments, self.group).unbind(0)
+        var = (meansq - mean * mean).clamp_min(0.0)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + EPSILON) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.copy_(MOMENTUM * self.running_mean
+                                    + (1.0 - MOMENTUM) * mean)
+            self.running_var.copy_(MOMENTUM * self.running_var
+                                   + (1.0 - MOMENTUM) * var)
+        return y.to(x.dtype)
+
 
 class BottleneckBlock(nn.Module):
     """1×1, 3×3 (stride ``stride``), 1×1 to ``4·filters``, a norm after
     each, the last one's scale zero at init; ``conv_proj`` and
     ``norm_proj`` on the residual where the shapes differ."""
 
-    def __init__(self, cin: int, filters: int, stride: int, device):
+    def __init__(self, cin: int, filters: int, stride: int, device,
+                 group=None):
         super().__init__()
         cout = 4 * filters
         self.conv1 = Conv(cin, filters, 1, 1, device)
-        self.bn1 = BatchNorm(filters, device)
+        self.bn1 = BatchNorm(filters, device, group=group)
         self.conv2 = Conv(filters, filters, 3, stride, device)
-        self.bn2 = BatchNorm(filters, device)
+        self.bn2 = BatchNorm(filters, device, group=group)
         self.conv3 = Conv(filters, cout, 1, 1, device)
-        self.bn3 = BatchNorm(cout, device, zero_scale=True)
+        self.bn3 = BatchNorm(cout, device, zero_scale=True, group=group)
         self.proj = cin != cout or stride != 1
         if self.proj:
             self.conv_proj = Conv(cin, cout, 1, stride, device)
-            self.norm_proj = BatchNorm(cout, device)
+            self.norm_proj = BatchNorm(cout, device, group=group)
 
     def forward(self, x, dtype):
         y = F.relu(self.bn1(self.conv1(x, dtype)))
@@ -157,24 +213,25 @@ class ResNet(nn.Module):
     zero scale above). ``device=None`` is ``hvd.device()``, or
     ``cuda:<local_rank>`` before ``hvd.init()``; without CUDA it raises
     unless ``device="cpu"`` (or ``"meta"``, for the shapes alone).
-    ``train()``/``eval()`` is flax's ``train``."""
+    ``train()``/``eval()`` is flax's ``train``; ``sync_bn_group`` is flax's
+    ``axis_name`` (the module docstring)."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, sync_bn_group=None):
         super().__init__()
         device = (torch.device(device) if device is not None
                   else default_device())
         self.dtype = dtype
         self.conv_init = Conv(IN_CHANNELS, num_filters, 7, 2, device,
                               pads=((3, 3), (3, 3)))
-        self.bn_init = BatchNorm(num_filters, device)
+        self.bn_init = BatchNorm(num_filters, device, group=sync_bn_group)
         blocks, cin = [], num_filters
         for i, block_count in enumerate(stage_sizes):
             for j in range(block_count):
                 stride = 2 if i > 0 and j == 0 else 1
                 blocks.append(BottleneckBlock(cin, num_filters * 2 ** i,
-                                              stride, device))
+                                              stride, device, sync_bn_group))
                 cin = 4 * num_filters * 2 ** i
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes, device=device)

@@ -43,6 +43,26 @@
   same bit for bit.
 - ``_eager_reducescatter`` (:1767-1779): an allreduce, then this rank's
   slice, which keeps the JAX result at every size.
+- Adasum (``ReduceOp.ADASUM``, :580-597, :660-669): at a world of one the
+  prescaled and postscaled identity; otherwise one ``all_gather`` of every
+  rank's prescaled row and ``adasum_tree_reduce`` over K4
+  (``ops/adasum.py``) on every rank, then the postscale. The factors follow
+  K1's rule (a half-precision factor is rounded to the dtype first).
+- The two-level data plane (``HOROVOD_HIERARCHICAL_ALLREDUCE``/
+  ``_ALLGATHER``, :551-648, :1360-1400) over the global set's
+  ``Hierarchy`` (``common/context.py``), where ``allreduce_hierarchy`` and
+  ``allgather_hierarchy`` say it applies (the JAX ``_allreduce_hier`` with
+  the port's topology for ``mesh_2d``): SUM and AVERAGE as a
+  ``reduce_scatter`` within the host of the padded, prescaled flat, an
+  ``all_reduce`` across hosts, AVERAGE's division by ``size()`` (the
+  contributions) and the postscale, then an ``all_gather`` within the
+  host, eager and in the fused chunk plans between K1's pack and unpack
+  (the compressed plans stay flat, :846-849); Adasum as Adasum of the
+  hosts' means (``adasum.hierarchical_allreduce``, a power-of-two number
+  of hosts); the allgather of equal first dimensions as an ``all_gather``
+  across hosts, then one within the host, then K1's pack of the rows into
+  rank order. The two-level sums add in another order than the flat
+  ones: the same within fp32 rounding, and bitwise on every rank.
 - The ZeRO-1 shard plans (:1170-1300), for ``opt/sharded.py``:
   ``sharded_pack_plan`` (K1 packs a dtype group's leaves into one flat
   buffer of ``world * shard_elems``, a zero pad after them),
@@ -83,6 +103,7 @@ from ..common import context as ctx_mod
 from ..common import env as env_schema
 from ..common.context import ProcessSet
 from ..utils import metrics as metrics_mod
+from . import adasum
 from . import compression as comp
 from . import fused_pack, quant_wire
 from . import megaplan as megaplan_mod
@@ -151,17 +172,126 @@ def _scaled(t: torch.Tensor, factor: float) -> torch.Tensor:
     return t * factor if factor != 1.0 else t
 
 
+def allreduce_hierarchy(ps: Optional[ProcessSet], op):
+    """The global set's two levels an allreduce of ``op`` on ``ps`` takes,
+    on the runtime's groups, or None for the flat path (JAX
+    ``_allreduce_hier``, :560-567): ``HOROVOD_HIERARCHICAL_ALLREDUCE``,
+    SUM, AVERAGE or ADASUM, a hierarchy (more than one rank a host) and,
+    for ADASUM, a power-of-two number of hosts."""
+    cfg = ctx_mod._ctx.config
+    h = getattr(ps, "runtime_hierarchy", None)
+    if (h is None or cfg is None or not cfg.hierarchical_allreduce
+            or op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM)):
+        return None
+    if op == ReduceOp.ADASUM and h.cross_size & (h.cross_size - 1):
+        return None
+    return h
+
+
+def allgather_hierarchy(ps: Optional[ProcessSet]):
+    """The two levels an allgather on ``ps`` takes, or None (JAX
+    ``_eager_allgather_fixed``'s verdict, :1360-1364)."""
+    cfg = ctx_mod._ctx.config
+    h = getattr(ps, "runtime_hierarchy", None)
+    if h is None or cfg is None or not cfg.hierarchical_allgather:
+        return None
+    return h
+
+
+def hierarchy_verdicts() -> tuple:
+    """The two knobs as the runtime reads them: a change invalidates a
+    captured megaplan."""
+    cfg = ctx_mod._ctx.config
+    return (bool(cfg and cfg.hierarchical_allreduce),
+            bool(cfg and cfg.hierarchical_allgather))
+
+
+def _padded_flat(t: torch.Tensor, nl: int) -> torch.Tensor:
+    """``t`` flattened into a new buffer padded with zeros to a multiple
+    of ``nl`` (JAX pads the same way, :609-613)."""
+    n = t.numel()
+    flat = torch.empty(n + (-n) % nl, dtype=t.dtype, device=t.device)
+    flat[:n].copy_(t.reshape(-1))
+    flat[n:].zero_()
+    return flat
+
+
+def _hier_sum(flat: torch.Tensor, hier):
+    """SUM of every rank's ``flat`` (padded to a multiple of the host's
+    ranks) in place: a ``reduce_scatter`` within the host, an
+    ``all_reduce`` of this rank's shard across hosts. Returns the shard, a
+    view of ``flat``; ``_hier_gather`` fills the rest."""
+    cs = flat.numel() // hier.local_size
+    shard = flat[hier.local_rank * cs:(hier.local_rank + 1) * cs]
+    _count_call()
+    _reduce_scatter(shard, flat, dist.ReduceOp.SUM, group=hier.local_group)
+    _count_call()
+    dist.all_reduce(shard, dist.ReduceOp.SUM, group=hier.cross_group)
+    return shard
+
+
+def _hier_gather(flat: torch.Tensor, shard: torch.Tensor, hier):
+    _count_call()
+    _all_gather(flat, shard, group=hier.local_group)
+
+
+def _k1_scaled(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """A contiguous copy of ``x`` times ``factor`` by K1's rule (the
+    torch rule for a dtype K1 does not scale)."""
+    if factor != 1.0 and not fused_pack.can_scale(x.dtype):
+        return (x * factor).contiguous()
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel():
+        fused_pack.pack([x.contiguous().view(-1)], out.view(-1), factor)
+    return out
+
+
+def _eager_adasum(x: torch.Tensor, group, pre: float, post: float,
+                  hier=None) -> torch.Tensor:
+    """Adasum of every rank's ``x`` into a new tensor (JAX
+    ``_allreduce_body``'s ADASUM branch, and the single-process identity);
+    a factor of 1 costs no pass."""
+    nproc = dist.get_world_size(group)
+    if x.numel() == 0 or (nproc == 1 and hier is None):
+        # Adasum over a single contributor is the identity
+        return _k1_scaled(_k1_scaled(x, pre), post)
+    buf = _k1_scaled(x, pre) if pre != 1.0 else x.contiguous()
+    if hier is not None:
+        red = adasum.hierarchical_allreduce(buf.view(-1), hier, _count_call)
+    else:
+        rows = torch.empty((nproc, buf.numel()), dtype=buf.dtype,
+                           device=buf.device)
+        _count_call()
+        _all_gather(rows.view(-1), buf.view(-1), group=group)
+        red = adasum.adasum_tree_reduce(rows)
+    red = red.view(x.shape)
+    return red if post == 1.0 else _k1_scaled(red, post)
+
+
 def _eager_allreduce(x: torch.Tensor, op, group, prescale_factor: float,
-                     postscale_factor: float) -> torch.Tensor:
+                     postscale_factor: float, hier=None) -> torch.Tensor:
     """Allreduce one tensor into a new one. Scaling follows PyTorch's type
     promotion, as JAX's weak typing does for a Python float: an integer
-    tensor with a factor other than 1 comes back as float32."""
+    tensor with a factor other than 1 comes back as float32. ``hier`` (a
+    ``Hierarchy``, ``allreduce_hierarchy``) takes the two-level path."""
     op = ReduceOp(op)
+    if op == ReduceOp.ADASUM:
+        return _eager_adasum(x, group, prescale_factor, postscale_factor,
+                             hier)
     buf = x * prescale_factor if prescale_factor != 1.0 else x.clone()
     if x.numel() == 0:
         # zero-element reduction: no call, still scaled
         return _scaled(buf, postscale_factor)
     buf = buf.contiguous()
+    if hier is not None:  # SUM or AVERAGE (allreduce_hierarchy)
+        flat = _padded_flat(buf, hier.local_size)
+        shard = _hier_sum(flat, hier)
+        if op == ReduceOp.AVERAGE:
+            shard.div_(hier.size)  # the contributions, one a rank
+        if postscale_factor != 1.0:
+            shard.mul_(postscale_factor)
+        _hier_gather(flat, shard, hier)
+        return flat[:buf.numel()].view(buf.shape)
     _count_call()
     if op == ReduceOp.AVERAGE and _has_avg(group):
         dist.all_reduce(buf, dist.ReduceOp.AVG, group=group)
@@ -245,10 +375,30 @@ def compact_rows(gathered: torch.Tensor, sizes, maxn: int, row: int,
     fused_pack.pack(parts, out.view(-1))
 
 
-def _eager_allgather(x: torch.Tensor, group, sizes=None) -> torch.Tensor:
+def _hier_allgather(xf: torch.Tensor, hier, out: torch.Tensor):
+    """The two-level allgather of equal rows (JAX :1360-1400): this rank's
+    row gathered across hosts, those rows gathered within the host (every
+    rank then holds every row, host-major), and K1's pack of the rows into
+    rank order ``cross_rank * local_size + local_rank``."""
+    nl, nx, m = hier.local_size, hier.cross_size, xf.numel()
+    across = torch.empty(nx * m, dtype=xf.dtype, device=xf.device)
+    _count_call()
+    _all_gather(across, xf, group=hier.cross_group)
+    both = torch.empty(nl * nx * m, dtype=xf.dtype, device=xf.device)
+    _count_call()
+    _all_gather(both, across, group=hier.local_group)
+    # both[l][c] is rank c * nl + l's row
+    fused_pack.pack([both[(l * nx + c) * m:(l * nx + c + 1) * m]
+                     for c in range(nx) for l in range(nl)], out.view(-1))
+
+
+def _eager_allgather(x: torch.Tensor, group, sizes=None,
+                     hier=None) -> torch.Tensor:
     """Allgather ``x`` along its first dimension, which may differ across
     ranks; ``sizes`` are the ranks' first dimensions when already
-    exchanged (``allgather_sizes``)."""
+    exchanged (``allgather_sizes``). ``hier`` (``allgather_hierarchy``)
+    takes the two-level path when every rank's first dimension is the
+    same; a ragged allgather stays flat."""
     n, rest = _rows(x, "allgather")
     if sizes is None:
         sizes = allgather_sizes(x, group)
@@ -257,6 +407,9 @@ def _eager_allgather(x: torch.Tensor, group, sizes=None) -> torch.Tensor:
     if maxn == 0 or row == 0:
         return out  # no element moves
     xf = x.contiguous().view(-1)
+    if min(sizes) == maxn and hier is not None:
+        _hier_allgather(xf, hier, out)
+        return out
     if min(sizes) == maxn:
         _count_call()
         _all_gather(out.view(-1), xf, group=group)
@@ -348,13 +501,18 @@ def _plan_epoch() -> int:
 
 class FusedChunkPlan:
     """One chunk's steady-state dispatch: its layout, its collective and
-    the factors the pack and the unpack apply."""
+    the factors the pack and the unpack apply. With ``hier`` (a
+    ``Hierarchy``) the collective is the two-level one: K1 packs the chunk
+    into a flat padded to a multiple of the host's ranks, ``_hier_sum``
+    and ``_hier_gather`` reduce it, and K1's unpack applies the postscale
+    and AVERAGE's 1/n."""
 
     __slots__ = ("group", "nproc", "dist_op", "pre", "unpack_factor",
-                 "sizes", "shapes", "dtype", "total")
+                 "sizes", "shapes", "dtype", "total", "hier")
 
     def __init__(self, group, nproc: int, op, pre: float, post: float,
-                 sizes: tuple, shapes: tuple, dtype: torch.dtype):
+                 sizes: tuple, shapes: tuple, dtype: torch.dtype,
+                 hier=None):
         self.group = group
         self.nproc = nproc
         self.pre = pre
@@ -362,7 +520,13 @@ class FusedChunkPlan:
         self.shapes = shapes
         self.dtype = dtype
         self.total = sum(sizes)
-        if op == ReduceOp.AVERAGE and _has_avg(group):
+        self.hier = hier
+        if hier is not None:
+            # two levels of sums: the 1/n rides the unpack
+            self.dist_op = dist.ReduceOp.SUM
+            self.unpack_factor = (post / nproc if op == ReduceOp.AVERAGE
+                                  else post)
+        elif op == ReduceOp.AVERAGE and _has_avg(group):
             self.dist_op, self.unpack_factor = dist.ReduceOp.AVG, post
         elif op == ReduceOp.AVERAGE:
             # the 1/n rides the unpack: one fp32 (fp64) factor post / n
@@ -375,6 +539,8 @@ class FusedChunkPlan:
         themselves) on PyTorch's current stream, through the fusion
         buffer; a chunk of one tensor is reduced in place in its output,
         with no pack."""
+        if self.hier is not None:
+            return self._execute_hier(inputs, outputs, fusion_buffer)
         if len(inputs) == 1:
             x, out = inputs[0].view(-1), outputs[0].view(-1)
             if self.pre != 1.0 or out.data_ptr() != x.data_ptr():
@@ -388,6 +554,22 @@ class FusedChunkPlan:
         fused_pack.pack(inputs, flat, self.pre)
         _count_call()
         dist.all_reduce(flat, self.dist_op, group=self.group)
+        fused_pack.unpack(flat, outputs, self.unpack_factor)
+
+    def _execute_hier(self, inputs: list, outputs: list, fusion_buffer):
+        nl = self.hier.local_size
+        padded = self.total + (-self.total) % nl
+        nbytes = padded * torch.empty((), dtype=self.dtype).element_size()
+        if nbytes <= fusion_buffer.capacity:
+            flat = fusion_buffer.lease(self.dtype, padded)
+        else:  # one tensor larger than the buffer is a chunk alone
+            flat = torch.empty(padded, dtype=self.dtype,
+                               device=inputs[0].device)
+        fused_pack.pack(inputs, flat, self.pre)
+        if padded > self.total:
+            flat[self.total:].zero_()
+        shard = _hier_sum(flat, self.hier)
+        _hier_gather(flat, shard, self.hier)
         fused_pack.unpack(flat, outputs, self.unpack_factor)
 
 
@@ -441,8 +623,9 @@ def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
                      dtype: torch.dtype, device_type: str, quant=None):
     """The cached plan of one chunk, keyed by the full chunk signature —
     ordered names, shapes, dtype, op, factors, set and its size, the
-    elastic generation and the device type. None for a chunk of no
-    elements, which the runtime reduces tensor by tensor.
+    elastic generation, the device type and the hierarchical verdict
+    (``allreduce_hierarchy``). None for a chunk of no elements, which the
+    runtime reduces tensor by tensor.
 
     ``quant`` (a ``compression.QuantSpec``) asks for the compressed wire,
     which exists for more than one process, SUM or AVERAGE and a float
@@ -457,9 +640,12 @@ def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
     wire = (quant is not None and nproc > 1
             and op in (ReduceOp.SUM, ReduceOp.AVERAGE)
             and dtype in quant_wire.DTYPES)
+    # the compressed plans stay flat (JAX :846-849)
+    hier = None if wire else allreduce_hierarchy(ps, op)
     key = ("fused_plan", "allreduce", ps.name, nproc, _plan_epoch(),
            tuple(names), tuple(shapes), str(dtype), int(op),
-           float(prescale_factor), float(postscale_factor), device_type)
+           float(prescale_factor), float(postscale_factor), device_type,
+           hier is not None)
     if wire:
         key = key + (quant.signature(),)
         return _insert_plan(key, lambda: _wire_plan(
@@ -467,7 +653,7 @@ def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
             shapes, dtype, quant))
     return _insert_plan(key, lambda: FusedChunkPlan(
         group, nproc, op, float(prescale_factor), float(postscale_factor),
-        sizes, tuple(shapes), dtype))
+        sizes, tuple(shapes), dtype, hier))
 
 
 # ===========================================================================

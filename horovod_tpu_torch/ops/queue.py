@@ -315,6 +315,8 @@ class BackgroundRuntime:
         self._mp = megaplan_mod.get_manager()
         # the chunk chain being recorded this cycle, or None
         self._mp_capture: Optional[list] = None
+        # the hierarchical knobs a captured chain was dispatched under
+        self._mp_hier = C.hierarchy_verdicts()
 
     def _maybe_controller(self, config, kv_client):
         """Negotiation over the rendezvous store, whenever the set has more
@@ -454,6 +456,11 @@ class BackgroundRuntime:
         if batch:
             self._m_queue_depth.set(len(batch))
         mp = self._mp
+        if mp is not None and C.hierarchy_verdicts() != self._mp_hier:
+            # the chunk plans' collectives changed: the captured chain
+            # would replay the old ones
+            self._mp_hier = C.hierarchy_verdicts()
+            megaplan_mod.invalidate_megaplan("hierarchical")
         if mp is not None and batch and mp.plan is not None:
             # a live megaplan: one check and one chained dispatch; a miss
             # invalidates it and the cycle negotiates below
@@ -927,13 +934,15 @@ class BackgroundRuntime:
         t0 = time.perf_counter()
         calls0 = C.dist_calls
         group = self._group_of(e.process_set)
+        ps = e.process_set or self.process_set
         try:
             if e.op == "allgather":
                 # sizes first: their host read waits on the comm stream
                 # before it waits on the caller's
                 sizes = C.allgather_sizes(e.tensor, group)
                 self._wait_ready([e])
-                r = C._eager_allgather(e.tensor, group, sizes)
+                r = C._eager_allgather(e.tensor, group, sizes,
+                                       C.allgather_hierarchy(ps))
                 done = self._record_done([e.tensor, r])
             elif e.op == "alltoall":
                 splits, mat = C.alltoall_split_matrix(e.tensor, e.splits,
@@ -944,9 +953,10 @@ class BackgroundRuntime:
             else:
                 self._wait_ready([e])
                 if e.op == "allreduce":
-                    r = C._eager_allreduce(e.tensor, e.reduce_op, group,
-                                           e.prescale_factor,
-                                           e.postscale_factor)
+                    r = C._eager_allreduce(
+                        e.tensor, e.reduce_op, group, e.prescale_factor,
+                        e.postscale_factor,
+                        C.allreduce_hierarchy(ps, e.reduce_op))
                     if e.output is e.tensor:
                         e.tensor.copy_(r)  # in place, in the tensor's dtype
                         r = e.tensor

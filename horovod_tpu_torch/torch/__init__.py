@@ -31,8 +31,12 @@ whole-leaf owners, as the JAX package's torch shim does it
 (``HOROVOD_SHARDED_MIN_ELEMS``) is stepped by one owning rank and
 broadcast from it, so each rank holds optimizer state for its own leaves
 and the small ones. The slice-level engine is ``opt.ShardedUpdateEngine``.
-Not ported, and raising ``NotImplementedError``: Adasum (ROADMAP.md queue
-1 item 13).
+
+``op=Adasum`` reduces through K4 (``ops/adasum.py``); at more than one
+rank ``DistributedOptimizer(op=Adasum)`` is the delta optimizer
+(``_AdasumMixin``), at one rank the regular wrapper, whose Adasum of one
+contribution is the identity. ``SyncBatchNorm`` (``torch/sync_batch_norm.py``)
+averages batch statistics over the ranks.
 """
 from __future__ import annotations
 
@@ -167,9 +171,6 @@ def _allreduce_kw(tensors, average, op, prescale_factor, postscale_factor,
     op = _coll._resolve_op(op, average)
     for t in tensors:
         _coll._check_average_dtype(t, op)
-    if op == Adasum:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP.md queue 1 item 13)")
     return dict(reduce_op=op, prescale_factor=float(prescale_factor),
                 postscale_factor=float(postscale_factor),
                 process_set=process_set)
@@ -840,6 +841,108 @@ class _ShardedMixin:
         self._m_bcast.inc(int(nbytes * (w - 1) / w))
 
 
+class _AdasumMixin:
+    """The delta optimizer of Adasum (the JAX package's torch shim,
+    ``horovod_tpu/torch/__init__.py`` :833-927; reference
+    torch/optimizer.py:329 ``_DistributedAdasumOptimizer``): each
+    parameter's hook runs the wrapped optimizer's step for that parameter
+    alone, turning the parameter into its delta ``p_after - p_before``;
+    the deltas are combined across ranks by an Adasum allreduce and
+    ``step()`` commits ``p = start + adasum(delta)``. A parameter whose hook
+    did not fire in a step contributes its local step's delta, or a zero
+    delta without a gradient, so every rank submits the same names. The
+    hooks hold the optimizer weakly, as the regular wrapper's do."""
+
+    def _hvd_adasum_setup(self, named_parameters, compression,
+                          backward_passes_per_step, process_set=None):
+        self._compression = compression
+        self._process_set = process_set
+        self._bpps = int(backward_passes_per_step)
+        self._passes: dict[torch.Tensor, int] = {}
+        self._handles: dict[torch.Tensor, tuple] = {}
+        self._starts: dict[torch.Tensor, torch.Tensor] = {}
+        self._hook_handles = []
+        self._names = _build_param_names(self, named_parameters, "adasum")
+        hook = _weak_hook(self)
+        for p in self._names:
+            if p.requires_grad:
+                self._passes[p] = 0
+                self._starts[p] = torch.zeros_like(p.data)
+                self._hook_handles.append(
+                    p.register_post_accumulate_grad_hook(hook))
+        weakref.finalize(self, _remove_hooks, self._hook_handles)
+
+    def _hook(self, p):
+        self._passes[p] += 1
+        if self._passes[p] < self._bpps:
+            return
+        self._passes[p] = 0
+        self._hvd_local_step_delta(p)
+
+    def _hvd_local_step_delta(self, p):
+        """The wrapped optimizer's step on ``p`` alone, then ``p`` becomes
+        its delta and its Adasum allreduce is enqueued (reference
+        ``_allreduce_grad_async``, optimizer.py:397-439)."""
+        start = self._starts[p]
+        start.copy_(p.data)
+        stashed = []
+        for group in self.param_groups:
+            stashed.append(group["params"])
+            group["params"] = [p] if any(p is v for v in group["params"]) \
+                else []
+        try:
+            self._hvd_base.step(self)
+        finally:
+            for params, group in zip(stashed, self.param_groups):
+                group["params"] = params
+        p.data.sub_(start)  # the delta: -lr * f(g)
+        self._hvd_enqueue_delta(p)
+
+    def _hvd_zero_delta(self, p):
+        self._starts[p].copy_(p.data)
+        p.data.zero_()
+        self._hvd_enqueue_delta(p)
+
+    def _hvd_enqueue_delta(self, p):
+        comp, ctx = self._compression.compress(p.data)
+        h = allreduce_async(comp, name=self._names[p], op=Adasum,
+                            process_set=self._process_set)
+        self._handles[p] = (h, ctx)
+
+    def synchronize(self):
+        """A separate synchronize means nothing to the delta optimizer:
+        ``step()`` commits (reference optimizer.py:460)."""
+
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        raise AssertionError(
+            "Skipping synchronization is not supported when using Adasum "
+            "optimizer.")
+
+    def set_backward_passes_per_step(self, passes: int):
+        self._bpps = int(passes)
+        for p in self._passes:
+            self._passes[p] = 0
+
+    def step(self, closure=None):
+        loss = closure() if closure is not None else None
+        for p in self._names:
+            if p.requires_grad and p not in self._handles:
+                if p.grad is not None:
+                    self._hvd_local_step_delta(p)
+                else:
+                    self._hvd_zero_delta(p)
+        for p, (h, ctx) in list(self._handles.items()):
+            reduced = synchronize(h)
+            delta = self._compression.decompress(reduced, ctx) \
+                .reshape(p.data.shape).to(p.data.dtype)
+            p.data.copy_(self._starts[p] + delta)
+        self._handles.clear()
+        for p in self._passes:
+            self._passes[p] = 0
+        return loss
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=Compression.none,
@@ -859,15 +962,30 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             "optimizer is already wrapped by DistributedOptimizer")
     if sharded_update is None:
         sharded_update = sharded_update_enabled()
-    if op == Adasum:
-        if sharded_update and size() > 1:
+    base = optimizer.__class__
+    # at one rank the regular wrapper, whose Adasum of one contribution is
+    # the identity (the JAX shim's cross_size() > 1 counts processes, the
+    # port's size() does)
+    if op == Adasum and size() > 1:
+        if sharded_update:
             # Adasum combines models (a local step a parameter, then the
             # deltas' reduction): there is no shared step to shard
             raise ValueError("sharded_update is not supported with op=Adasum")
-        raise NotImplementedError(
-            "the Adasum optimizer is not ported yet (ROADMAP.md queue 1 "
-            "item 13)")
-    base = optimizer.__class__
+        # reference optimizer.py:576: Adasum selects the delta optimizer
+        if (gradient_predivide_factor != 1.0 or prescale_factor != 1.0
+                or postscale_factor != 1.0 or sparse_as_dense):
+            raise ValueError(
+                "gradient_predivide_factor/prescale/postscale/"
+                "sparse_as_dense are not supported with op=Adasum")
+        body = {k: v for k, v in _AdasumMixin.__dict__.items()
+                if not k.startswith("__")}
+        body["_hvd_base"] = base
+        optimizer.__class__ = type("DistributedAdasum" + base.__name__,
+                                   (base,), body)
+        optimizer._hvd_adasum_setup(
+            list(named_parameters) if named_parameters is not None else None,
+            compression, backward_passes_per_step, process_set)
+        return optimizer
     body = {k: v for k, v in _DistributedMixin.__dict__.items()
             if not k.startswith("__")}
     prefix = "Distributed"
@@ -887,3 +1005,6 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if sharded_update:
         optimizer._hvd_sharded_setup(min_shard_elems)
     return optimizer
+
+
+from .sync_batch_norm import SyncBatchNorm  # noqa: E402,F401

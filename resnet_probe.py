@@ -104,7 +104,9 @@ def flop_per_img(depth: str, image: int) -> float:
     return fwd_flops(depth, image)
 
 
-def build(depth: str, device, seed: int):
+def build(depth: str, device, seed: int, sync_bn_group=None):
+    """The model at ``depth``; ``sync_bn_group`` synchronizes its batch
+    norms over that group (``models/resnet.py``)."""
     import torch
 
     from horovod_tpu_torch.models.resnet import ResNet
@@ -112,7 +114,8 @@ def build(depth: str, device, seed: int):
     stages, filters, classes = CONFIGS[depth]
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     return ResNet(stages, num_classes=classes, num_filters=filters,
-                  dtype=dtype, device=device, seed=seed)
+                  dtype=dtype, device=device, seed=seed,
+                  sync_bn_group=sync_bn_group)
 
 
 def synthetic_batch(seed: int, ranks: int, batch: int, image: int,

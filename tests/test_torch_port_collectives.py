@@ -103,8 +103,12 @@ def test_zero_element_allreduce_still_scales(dtype):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        hvd.allreduce(torch.ones(2), op=hvd.Adasum)
+    # Adasum (item 13) is ported: at a world of one it is the JAX
+    # package's identity
+    x = torch.arange(4.0) - 1.5
+    out = hvd.allreduce(x, op=hvd.Adasum)
+    ref = np.asarray(jhvd.allreduce(x.numpy(), op=hvd.Adasum))
+    assert torch.equal(out, x) and np.array_equal(out.numpy(), ref)
     # the sharded update (item 12) is ported: it builds the whole-leaf
     # ZeRO-1 wrapper
     p = torch.nn.Parameter(torch.ones(2))

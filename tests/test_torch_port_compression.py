@@ -1002,7 +1002,10 @@ ZERO_COST = textwrap.dedent("""
     names = metrics.get_registry().names()
     assert not [n for n in names if n.startswith(("hvd_quant_",
                                                   "hvd_compression_"))], names
-    assert off and all(len(eval(k)) == 12 for k in off), off
+    # the plain key, ending in the device type and the hierarchical
+    # verdict (no wire signature after them)
+    assert off and all(len(eval(k)) == 13 and eval(k)[-2:] == ("cpu", False)
+                       for k in off), off
     os.environ["HOROVOD_COMPRESSION"] = "int8"
     on = run()
     assert on == off, (on, off)  # a world of one: the plain plans
@@ -1055,13 +1058,16 @@ class _SecondOfTwo:
 
 
 @pytest.mark.parametrize("knob", ["HOROVOD_HIER_NEGOTIATION",
-                                  "HOROVOD_MEGAPLAN"])
+                                  "HOROVOD_MEGAPLAN",
+                                  "HOROVOD_HIERARCHICAL_ALLREDUCE",
+                                  "HOROVOD_HIERARCHICAL_ALLGATHER"])
 def test_init_runs_a_knob_the_port_now_implements(fresh, monkeypatch, knob):
-    """The two control-plane knobs are no longer warned about: set, each
-    changes what the runtime runs. ``HOROVOD_MEGAPLAN`` makes the
+    """The control-plane and two-level knobs are no longer warned about:
+    set, each changes what the runtime runs. ``HOROVOD_MEGAPLAN`` makes the
     megaplan's manager, which the runtime resolves;
     ``HOROVOD_HIER_NEGOTIATION`` makes a controller advertise wire v2 in
-    its first round."""
+    its first round; the two hierarchical knobs are read into the config,
+    and at a world of one (no second level) the collectives stay flat."""
     assert hasattr(jenv, knob) and knob not in penv.UNIMPLEMENTED_KNOBS
     monkeypatch.setenv(knob, "1")
     with warnings.catch_warnings(record=True) as seen:
@@ -1071,6 +1077,15 @@ def test_init_runs_a_knob_the_port_now_implements(fresh, monkeypatch, knob):
     rt = context.runtime()
     if knob == "HOROVOD_MEGAPLAN":
         assert rt._mp is not None and hvd.megaplan_report()["enabled"]
+        return
+    if knob.startswith("HOROVOD_HIERARCHICAL_"):
+        attr = knob[len("HOROVOD_"):].lower()
+        assert getattr(context._ctx.config, attr)
+        assert getattr(jenv.RuntimeConfig.from_env(), attr)
+        ps = hvd.global_process_set()
+        assert ps.hierarchy is None and ps.runtime_hierarchy is None
+        assert pcoll.allreduce_hierarchy(ps, hvd.Sum) is None
+        assert pcoll.allgather_hierarchy(ps) is None
         return
     assert context._ctx.config.hier_negotiation
     for on in (True, False):

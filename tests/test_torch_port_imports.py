@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import adasum
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import xent
 from horovod_tpu_torch.parallel import (ring_attention,
@@ -78,7 +79,8 @@ _ISOLATED = textwrap.dedent("""
                  "ops.controller", "ops.fused_pack", "ops.wire",
                  "ops.megaplan", "_native",
                  "utils.metrics", "utils.lockcheck", "utils.retry",
-                 "opt.sharded", "parallel.sharding_policy"):
+                 "opt.sharded", "parallel.sharding_policy", "ops.adasum",
+                 "torch.sync_batch_norm"):
         assert "horovod_tpu_torch." + name in sys.modules, name
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
@@ -135,6 +137,7 @@ _FORBIDDEN = re.compile(
 
 def test_no_source_names_jax_or_the_jax_package():
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                             "adasum_probe.py",
                                              "collectives_probe.py",
                                              "flash_probe.py",
                                              "megaplan_probe.py",
@@ -229,6 +232,20 @@ def test_k5_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         xent.chunked_softmax_xent(x, x, torch.zeros(2, dtype=torch.int64,
                                                     device="meta"), 4)
+
+
+def test_k4_raises_without_nvcc(monkeypatch, tmp_path):
+    """K4 builds at first use on the card; without nvcc it raises, and a
+    tensor on neither the CPU nor CUDA is refused before any build."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(adasum, "_fns", {})
+    for symbol in ("hvd_adasum_dot_norms", "hvd_adasum_scaled_add"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            adasum._kernel(symbol)
+    x = torch.empty(8, device="meta")
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        adasum.adasum_combine(x, x)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -596,8 +596,9 @@ def test_front_end_env_knob_and_threshold(port, monkeypatch):
     sizes = [p.numel() for p in m.parameters()]
     assert list(o._owners.values()) == jpolicy.assign_owners(
         sizes, 1, min_shard_elems=150)
-    # Adasum alone at a world of one is still the unported optimizer
-    with pytest.raises(NotImplementedError, match="item 13"):
-        hvd.DistributedOptimizer(torch.optim.SGD(_mlp(0).parameters(),
+    # Adasum at a world of one is the regular wrapper, here the sharded
+    # one, as the JAX shim's cross_size() > 1 guard makes it
+    o = hvd.DistributedOptimizer(torch.optim.SGD(_mlp(0).parameters(),
                                                  lr=0.1),
                                  op=hvd.Adasum, sharded_update=True)
+    assert type(o).__name__ == "ShardedDistributedSGD"
