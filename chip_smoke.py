@@ -185,7 +185,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fallback), ``hvd.SyncBatchNorm`` agrees with ``nn.BatchNorm2d`` within
    ``SYNC_BN_TOL`` and ResNet-50 in fp32 with ``sync_bn_group`` over the
    world of one with the unsynchronized path within ``SYNC_RESNET_*_TOL``;
-13. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+13. the elastic path (cuDNN deterministic, benchmark off, in every run):
+   (a) ResNet-50 as in the resnet path under ``hvd.elastic.run`` with
+   ``TorchState(model, optimizer, sampler, epoch, batch)`` over a seeded
+   synthetic dataset read through ``ElasticSampler``
+   (``elastic_probe.train_resnet``), committing every 2 steps, 8 steps
+   uninterrupted, then again with a one-shot ``plan.dispatch`` fault in
+   step 4: the step fails with ``HorovodInternalError``, the state goes
+   back to the step-2 commit, the process builds a new NCCL communicator
+   of one under generation 1 and finishes; parameters and buffers bitwise
+   the uninterrupted run's; milliseconds from the failure to the next
+   finished step and a commit's; (b) ``hvdrun --min-np 1 --max-np 1
+   --host-discovery-script`` runs the same worker, which ``os._exit(1)``s
+   after its step-4 commit to ``HOROVOD_ELASTIC_STORE``; the driver
+   respawns it, it resumes from the store and its final parameters and
+   buffers are bitwise (a)'s uninterrupted run's; seconds from the exit to
+   incarnation 1's first step, by part; (c) the full-width LM at 2 layers
+   through ``ShardedUpdateEngine`` with ``HOROVOD_ASYNC_CKPT=1``: a
+   snapshot and a flush after step 1 (it allocates the pinned buffers) and
+   after step 2 (it reuses them: the hot path), each with its host ms,
+   copy device ms (pinned copies on a side stream), bytes and the
+   writer's ms, a third step, then a
+   restore into a fresh engine bitwise the snapshot's state and
+   parameters; four simulated ranks' shards written and restored into
+   three, bitwise ``load_full_state`` of the gathered state. The free
+   disk and the bytes written are printed, the files removed. K1's
+   launches over (a) and (c) are the path's;
+14. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -195,8 +221,8 @@ The line before the last is one JSON object with the kernels' launches
 (each on the path that runs it: the fp32 flash kernel's on the fp32 path,
 K2's and K3's on the compression path, K5's on the long-context path,
 K4's on the adasum path, the others' on the main path;
-``launches_by_path`` gives every path's count, the resnet, megaplan and
-adasum paths' included), errors, times, bounds
+``launches_by_path`` gives every path's count, the resnet, megaplan,
+adasum and elastic paths' included), errors, times, bounds
 and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -3381,6 +3407,326 @@ print("LAUNCHED_WORKER_OK", rank)
 """
 
 
+# --- phase 13: the elastic path --------------------------------------------
+
+ELASTIC_STEPS, ELASTIC_COMMIT, ELASTIC_FAULT_STEP = 8, 2, 4
+ELASTIC_DEPTH = "50"
+
+
+def _elastic_args(**kw):
+    """``elastic_probe.train_resnet``'s arguments for the path."""
+    import types
+
+    a = types.SimpleNamespace(
+        depth=ELASTIC_DEPTH, image=RESNET_IMAGE, batch=RESNET_BATCH,
+        steps=ELASTIC_STEPS, commit_every=ELASTIC_COMMIT, seed=0,
+        max_world=1, exit_rank=-1, exit_step=-1, fault_rank=-1,
+        fault_step=-1, fault_site="plan.dispatch")
+    a.__dict__.update(kw)
+    return a
+
+
+def _elastic_inprocess(device) -> dict:
+    """(a): an uninterrupted run, then the run with the fault."""
+    import horovod_tpu_torch as hvd
+    import elastic_probe as ep
+
+    runs = {}
+    for name, kw in (("uninterrupted", {}),
+                     ("fault", {"fault_rank": 0,
+                                "fault_step": ELASTIC_FAULT_STEP})):
+        events = []
+        out = ep.train_resnet(_elastic_args(**kw), device=device,
+                              log=lambda **e: events.append(e))
+        out.pop("model")
+        out["events"] = events
+        runs[name] = out
+        hvd.shutdown()
+    ref, got = runs["uninterrupted"], runs["fault"]
+    failures = [e for e in got["events"] if e["event"] == "failure"]
+    r = got["readings"]
+    _log(f"  (a) failure in step {[e['step'] for e in failures]}; "
+         f"generation {got['gen']}; failure to the next finished step "
+         f"{[round(x * 1e3, 2) for x in r['recovery_s']]} ms; commit ms "
+         f"{[round(x, 2) for x in r['commit_ms']]}; losses {r['losses']}")
+    if [e["step"] for e in failures] != [ELASTIC_FAULT_STEP]:
+        raise AssertionError(f"(a): failures {failures}")
+    if got["gen"] != 1 or got["steps"] != ELASTIC_STEPS:
+        raise AssertionError(f"(a): generation {got['gen']}, steps "
+                             f"{got['steps']}")
+    if (got["params"], got["buffers"]) != (ref["params"], ref["buffers"]):
+        raise AssertionError("(a): the recovered run's state is not bitwise "
+                             "the uninterrupted run's")
+    _log("  (a) parameters and buffers bitwise the uninterrupted run's")
+    return runs
+
+
+def _elastic_relaunch(device, root: str, tmp: str, ref: dict) -> dict:
+    """(b): the worker crashes after its step-4 commit under the elastic
+    launcher and resumes from the store."""
+    import elastic_probe as ep
+
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(disc, 0o755)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "--min-np",
+           "1", "--max-np", "1", "--host-discovery-script", disc,
+           sys.executable, os.path.join(root, "elastic_probe.py"),
+           "--worker", "resnet", "--depth", ELASTIC_DEPTH, "--image",
+           str(RESNET_IMAGE), "--batch", str(RESNET_BATCH), "--steps",
+           str(ELASTIC_STEPS), "--commit-every", str(ELASTIC_COMMIT),
+           "--max-world", "1", "--exit-rank", "0", "--exit-step",
+           str(ELASTIC_FAULT_STEP)] + (
+               ["--device", "cpu"] if device.type == "cpu" else [])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HOROVOD_ELASTIC_GEN", "HOROVOD_FAULT_SPEC",
+                        "MASTER_PORT")}
+    env.update(PYTHONPATH=root, HOROVOD_ELASTIC_STORE=os.path.join(
+        tmp, "store.pkl"), HOROVOD_ELASTIC_RESPAWN_BACKOFF="0.1")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out = p.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise
+    ev = ep.events(out)
+    _log(f"  (b) hvdrun --min-np 1 --max-np 1: exit {p.returncode} after "
+         f"{time.perf_counter() - t0:.1f} s, {len(ev)} events")
+    if p.returncode != 0:
+        for line in out.strip().splitlines()[-30:]:
+            _log(f"    {line}")
+        raise AssertionError("(b): the elastic job failed")
+    finals = [e for e in ev if e["event"] == "final"]
+    exit_t = [e["t"] for e in ev if e["event"] == "exit"]
+    starts = [e for e in ev if e["event"] == "start" and e["inc"] == 1]
+    first = min(e["t"] for e in ev if e["event"] == "step" and e["inc"] == 1)
+    reading = {"exit_to_first_step_s": first - exit_t[0],
+               "parts_s": {"exit_to_worker_start": starts[0]["t_start"]
+                           - exit_t[0],
+                           "init_and_build": starts[0]["t_built"]
+                           - starts[0]["t_start"],
+                           "state_restore": starts[0]["t_state"]
+                           - starts[0]["t_built"],
+                           "sync_and_first_step": first
+                           - starts[0]["t_state"]},
+               "commit_ms_with_store": [e["ms"] for e in ev
+                                        if e["event"] == "commit"],
+               "resumed_at": starts[0]["batch_done"]}
+    _log(f"  (b) exit to incarnation 1's first step "
+         f"{reading['exit_to_first_step_s']:.2f} s "
+         f"({ {k: round(v, 3) for k, v in reading['parts_s'].items()} }); "
+         f"resumed after step {reading['resumed_at']}; commit ms with the "
+         f"store {[round(x, 1) for x in reading['commit_ms_with_store']]}")
+    if (len(finals) != 1 or finals[0]["inc"] != 1
+            or reading["resumed_at"] != ELASTIC_FAULT_STEP):
+        raise AssertionError(f"(b): finals {finals}, resumed at "
+                             f"{reading['resumed_at']}")
+    if (finals[0]["params"], finals[0]["buffers"]) != (ref["params"],
+                                                       ref["buffers"]):
+        raise AssertionError("(b): the relaunched run's state is not "
+                             "bitwise (a)'s uninterrupted run's")
+    _log("  (b) parameters and buffers bitwise (a)'s uninterrupted run's")
+    return reading
+
+
+def _state_on_cpu(sd: dict) -> dict:
+    return {"state": {i: {k: v.detach().cpu().clone() for k, v in st.items()}
+                      for i, st in sd["state"].items()},
+            "param_groups": sd["param_groups"]}
+
+
+def _same_state(name: str, got: dict, want: dict):
+    if set(got["state"]) != set(want["state"]):
+        raise AssertionError(f"{name}: state positions differ")
+    for i, st in want["state"].items():
+        for k, v in st.items():
+            _exact(f"{name}: state {i} {k}", got["state"][i][k].cpu(), v)
+
+
+def _elastic_ckpt(device, tmp: str) -> dict:
+    """(c): the async checkpointer under the ZeRO-1 engine."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.opt import sharded as S
+    from horovod_tpu_torch.parallel import ring_attention
+    from horovod_tpu_torch.utils import async_ckpt
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=1e-3, momentum=0.9)
+
+    os.environ.update(HOROVOD_ASYNC_CKPT="1", HOROVOD_ASYNC_CKPT_DIR=os.path.join(
+        tmp, "ckpt"))
+    try:
+        hvd.init(device=device)
+        ckpt = async_ckpt.get_checkpointer()
+        cfg = full_width_config(2)
+        model = TransformerLM(cfg, device=device, seed=0)
+        params = list(model.parameters())
+        engine = S.ShardedUpdateEngine(sgd, process_set=hvd.global_process_set())
+        engine.init(params)
+        reading, saved = {"step_ms": []}, None
+        for step in (1, 2, 3):
+            for p in params:
+                p.grad = None
+            t0 = time.perf_counter()
+            lm_loss(model, tokens_for(cfg, 8, 100 + step, device),
+                    attn_fn=ring_attention).backward()
+            engine.step(params)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            reading["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if step in (1, 2):
+                # step 1's snapshot allocates the pinned buffers; step 2's
+                # reuses them: the hot path
+                t0 = time.perf_counter()
+                ckpt.snapshot(step, engine.optimizer.state_dict(),
+                              replicated=params, layout=engine.layout)
+                reading.setdefault("snapshot_host_ms", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                reading["snapshot_bytes"] = ckpt.last_snapshot_bytes
+                if step == 2:
+                    saved = (_state_on_cpu(engine.full_state()),
+                             [p.detach().cpu().clone() for p in params])
+                t0 = time.perf_counter()
+                if not ckpt.flush(deadline_s=300.0):
+                    raise AssertionError("(c): the flush failed")
+                reading.setdefault("flush_ms", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                reading.setdefault("writer_ms", []).append(
+                    ckpt.last_write_s * 1e3)
+                reading.setdefault("copy_device_ms", []).append(
+                    ckpt.last_copy_device_ms)
+                reading["shard_file_bytes"] = ckpt.last_shard_bytes
+        fresh = S.ShardedUpdateEngine(sgd, process_set=hvd.global_process_set())
+        t0 = time.perf_counter()
+        m, _, replicated = async_ckpt.restore_sharded(ckpt.directory, params,
+                                                      fresh)
+        reading["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        _same_state("(c) restore", _state_on_cpu(fresh.full_state()),
+                    saved[0])
+        for i, (a, b) in enumerate(zip(replicated, saved[1])):
+            _exact(f"(c) parameter {i}", torch.from_numpy(a), b)
+        _log(f"  (c) snapshots at steps 1 and 2 (the first allocates the "
+             f"pinned buffers): host "
+             f"{[round(x, 2) for x in reading['snapshot_host_ms']]} ms, copy "
+             f"{[round(x, 2) for x in reading['copy_device_ms']]} device ms, "
+             f"{reading['snapshot_bytes']} bytes each; flush "
+             f"{[round(x, 1) for x in reading['flush_ms']]} ms, writer "
+             f"{[round(x, 1) for x in reading['writer_ms']]} ms, file "
+             f"{reading['shard_file_bytes']} bytes; restore "
+             f"{reading['restore_ms']:.1f} ms; step ms "
+             f"{[round(x, 2) for x in reading['step_ms']]}; restored state "
+             "and parameters bitwise the snapshot's")
+        del engine, fresh, saved, replicated
+        async_ckpt.reset_checkpointer()
+        # four simulated ranks' shards restored into three
+        leaves = [p.detach().clone() for p in params]
+        del model, params
+        gc.collect()
+        eng4 = S.make_simulated_engines(sgd, 4)
+        for e in eng4:
+            e.init(leaves)
+        grads = [[torch.randn(p.shape, generator=torch.Generator(
+            device=device).manual_seed(10 * r + i), device=device)
+            for i, p in enumerate(leaves)] for r in range(4)]
+        S.simulated_step(eng4, leaves, grads)
+        del grads
+        sim_dir = os.path.join(tmp, "sim")
+        for r, e in enumerate(eng4):
+            c = async_ckpt.AsyncCheckpointer(rank=r, world=4,
+                                             directory=sim_dir)
+            c.snapshot(1, e.optimizer.state_dict(),
+                       replicated=leaves if r == 0 else None,
+                       layout=e.layout)
+            if not c.flush(deadline_s=300.0):
+                raise AssertionError("(c): a simulated rank's flush failed")
+            c.stop()
+        gathered = S.simulated_full_state(eng4)
+        del eng4
+        t0 = time.perf_counter()
+        eng3 = S.make_simulated_engines(sgd, 3)
+        for e in eng3:
+            async_ckpt.restore_sharded(sim_dir, leaves, e)
+        reading["restore_4_to_3_ms"] = (time.perf_counter() - t0) * 1e3
+        direct = S.make_simulated_engines(sgd, 3)
+        for e in direct:
+            e.load_full_state(gathered, leaves)
+        _same_state("(c) 4 -> 3", _state_on_cpu(S.simulated_full_state(eng3)),
+                    _state_on_cpu(S.simulated_full_state(direct)))
+        _log(f"  (c) 4 simulated ranks -> 3 through the files in "
+             f"{reading['restore_4_to_3_ms']:.1f} ms: bitwise "
+             "load_full_state of the gathered state")
+        del eng3, direct, gathered, leaves
+        hvd.shutdown()
+        return reading
+    finally:
+        for k in ("HOROVOD_ASYNC_CKPT", "HOROVOD_ASYNC_CKPT_DIR"):
+            os.environ.pop(k, None)
+        async_ckpt.reset_checkpointer()
+
+
+def elastic_path_phase(device, root: str) -> tuple:
+    """The elastic path (module docstring, phase 13). Returns the path's
+    launches (over (a) and (c)) and its readings."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    hvd.shutdown()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    env0 = {k: os.environ.get(k) for k in ("HOROVOD_ELASTIC_GEN",
+                                           "HOROVOD_FAULT_SPEC")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    _log(f"  {shutil.disk_usage(tmp).free} bytes free under {tmp}")
+    try:
+        _zero_launch_counts()  # just before the path runs
+        runs = _elastic_inprocess(device)
+        for k, v in env0.items():  # the reset bumped the generation
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        ckpt = _elastic_ckpt(device, tmp)
+        launches = _launch_counts()
+        relaunch = _elastic_relaunch(device, root, tmp,
+                                     runs["uninterrupted"])
+        if not (launches["fused_pack"] and launches["fused_unpack"]):
+            raise AssertionError(f"K1 never launched on the elastic path: "
+                                 f"{launches}")
+        written = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(tmp) for f in fs)
+        _log(f"  {written} bytes written under {tmp}; launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fault = runs["fault"]["readings"]
+    readings = {"inprocess": {"recovery_ms": [x * 1e3
+                                              for x in fault["recovery_s"]],
+                              "commit_ms": fault["commit_ms"],
+                              "losses": fault["losses"],
+                              "uninterrupted_losses":
+                              runs["uninterrupted"]["readings"]["losses"]},
+                "relaunch": relaunch, "async_ckpt": ckpt,
+                "bytes_written": written}
+    return launches, readings
+
+
 def launcher_phase(root: str):
     """One worker through the port's hvdrun, on the card."""
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
@@ -3508,6 +3854,13 @@ def main() -> int:
     ada_launches, ada_readings = adasum_path_phase(device)
     ada_readings["k4_check"] = k4_check
     _log(f"  adasum path: {time.perf_counter() - t_a:.1f} s")
+    _phase("[elastic path] ResNet-50 under hvd.elastic.run: an in-process "
+           "recovery and a relaunch from the store, each bitwise an "
+           "uninterrupted run; the async checkpointer under the ZeRO-1 "
+           "engine (the LM at 2 layers) and a 4 -> 3 restore")
+    t_e = time.perf_counter()
+    el_launches, el_readings = elastic_path_phase(device, root)
+    _log(f"  elastic path: {time.perf_counter() - t_e:.1f} s")
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
@@ -3526,7 +3879,8 @@ def main() -> int:
             "zero1": zero_launches[entry["name"]],
             "resnet": resnet_launches[entry["name"]],
             "megaplan": mp_launches[entry["name"]],
-            "adasum": ada_launches[entry["name"]]}
+            "adasum": ada_launches[entry["name"]],
+            "elastic": el_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
     for entry in k5_entries:  # K5's path is the long-context one
@@ -3540,7 +3894,8 @@ def main() -> int:
                 ("main", launches), ("fp32", fp32_launches),
                 ("collectives", coll_launches), ("sp", sp_launches),
                 ("long_context", lc_launches), ("zero1", zero_launches),
-                ("resnet", resnet_launches), ("megaplan", mp_launches))}}
+                ("resnet", resnet_launches), ("megaplan", mp_launches),
+                ("elastic", el_launches))}}
 
     kernels += wire_entries + k5_entries + k4_entries
 
@@ -3553,6 +3908,7 @@ def main() -> int:
     print(json.dumps({"resnet": resnet_readings}))
     print(json.dumps({"megaplan": mp_readings}))
     print(json.dumps({"adasum": ada_readings}))
+    print(json.dumps({"elastic": el_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,6 +9,10 @@ kernels are written by hand for Hopper (``csrc/``). Entry points run on
     hvd.init()
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(opt, named_parameters=model.named_parameters())
+
+Elastic training: ``hvd.elastic.run``, ``hvd.elastic.TorchState`` and
+``hvd.elastic.ElasticSampler`` (``elastic/``), launched with
+``python -m horovod_tpu_torch.runner --min-np ... --host-discovery-script``.
 """
 
 from .ops.collectives import (  # noqa: F401
@@ -24,6 +28,7 @@ from .opt import ShardedUpdateEngine, plan_shard_layout  # noqa: F401
 from .torch import (  # noqa: F401  (the Horovod surface)
     Compression,
     DistributedOptimizer,
+    ElasticSampler,
     HorovodInternalError,
     ProcessSet,
     add_process_set,
@@ -46,6 +51,7 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     cross_rank,
     cross_size,
     device,
+    elastic,
     global_process_set,
     grouped_allreduce,
     grouped_allreduce_,
@@ -67,4 +73,5 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     sparse_allreduce_async,
     synchronize,
     SyncBatchNorm,
+    TorchState,
 )

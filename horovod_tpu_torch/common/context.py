@@ -44,6 +44,14 @@ this ``local_rank``), each made for the caller and for the runtime
 every rank would pay for communicators that nothing uses. Other sets stay
 flat.
 
+``shutdown(drain=False)`` is the elastic reset's (``elastic/__init__.py``):
+the runtime stops without the shutdown barrier, the device is
+synchronized, and the next ``init`` builds new communicators under the
+next ``HOROVOD_ELASTIC_GEN``. The key under which rank 0 publishes its
+``TCPStore``'s port carries the driver's ``HOROVOD_ELASTIC_EPOCH``, the
+generation and this process's count of inits, so no rank of a new
+incarnation or generation dials a store that is gone.
+
 ``init`` also reads the ``RuntimeConfig`` and starts the background runtime
 (``ops/queue.py``) on ``device()``, as ``horovod_tpu/common/context.py``
 :337-362 does. The runtime runs its collectives on a process group of its
@@ -200,6 +208,19 @@ def _launcher_kv():
     return None
 
 
+def _store_port_key() -> str:
+    """The launcher KV key under which rank 0 publishes its ``TCPStore``'s
+    port: one key an incarnation (the elastic driver's epoch), a reset
+    generation and an init of this process. A relaunched process counts
+    its inits from 0 again, and the driver's KV store outlives the
+    incarnation, so without the epoch a new rank could read the port of a
+    store that died with the last one."""
+    return (f"{_STORE_PORT_KEY}."
+            f"e{env_schema.get_int(env_schema.HOROVOD_ELASTIC_EPOCH, 0)}"
+            f"g{env_schema.get_int(env_schema.HOROVOD_ELASTIC_GEN, 0)}"
+            f".{_ctx.inits}")
+
+
 def _store(rank: int, size: int):
     if os.environ.get(env_schema.HOROVOD_RANK) is None:
         return dist.HashStore()
@@ -215,8 +236,7 @@ def _store(rank: int, size: int):
             f"{env_schema.MASTER_PORT} nor the launcher's rendezvous "
             f"address ({env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR}/_PORT) is: "
             "a launched worker needs one of them")
-    # one key an init, so a re-init never reads the port of a store gone
-    key = f"{_STORE_PORT_KEY}.{_ctx.inits}"
+    key = _store_port_key()
     if rank == 0:
         # the OS picks the port of the socket the store holds: no other
         # process can take it between the choice and the bind
@@ -273,6 +293,11 @@ def init(device=None):
 
         megaplan_mod.init_manager(rank=rank)
         _start_runtime(store)
+        # the async checkpointer and its SIGTERM flush, when
+        # HOROVOD_ASYNC_CKPT is set (horovod_tpu/common/context.py:307)
+        from ..utils import async_ckpt
+
+        async_ckpt.init_checkpointer(rank=rank, world=size)
         _ctx.initialized = True
         _ctx.inits += 1
 
@@ -343,15 +368,21 @@ def _start_runtime(store):
     _ctx.runtime.start()
 
 
-def shutdown():
+def shutdown(drain: bool = True):
     """Stop the runtime (its pending handles fail) and tear the process
-    group down; a second call is a no-op."""
+    group down; a second call is a no-op. ``drain=False`` skips the
+    shutdown barrier with the other ranks (an elastic reset, where a peer
+    may be gone). The device is synchronized before the communicators go,
+    so no NCCL call of this process is in flight when they are
+    destroyed."""
     with _ctx.lock:
         if not _ctx.initialized:
             return
         if _ctx.runtime is not None:
-            _ctx.runtime.stop()
+            _ctx.runtime.stop(drain=drain)
             _ctx.runtime = None
+        if _ctx.device is not None and _ctx.device.type == "cuda":
+            torch.cuda.synchronize(_ctx.device)
         from ..ops import megaplan as megaplan_mod
 
         megaplan_mod.reset_manager()

@@ -41,9 +41,30 @@ HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
 HOROVOD_RESPONSE_TIMEOUT_S = "HOROVOD_RESPONSE_TIMEOUT_S"
-# negotiation-round namespace generations (ops/controller.py _ctl_prefix)
+# elastic training (elastic/): the driver's discovery epoch and the
+# in-process reset generation (both in the negotiation rounds' namespace,
+# ops/controller.py _ctl_prefix, and in the TCPStore port's key,
+# common/context.py), the flag the driver sets on its workers, the
+# committed-state store a relaunched worker resumes from, and the
+# respawn-before-blacklist budget with its backoff scale (JAX
+# common/env.py:51, :68-76)
+HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
 HOROVOD_ELASTIC_EPOCH = "HOROVOD_ELASTIC_EPOCH"
 HOROVOD_ELASTIC_GEN = "HOROVOD_ELASTIC_GEN"
+HOROVOD_ELASTIC_STORE = "HOROVOD_ELASTIC_STORE"
+HOROVOD_ELASTIC_RESPAWN_ATTEMPTS = "HOROVOD_ELASTIC_RESPAWN_ATTEMPTS"
+HOROVOD_ELASTIC_RESPAWN_BACKOFF = "HOROVOD_ELASTIC_RESPAWN_BACKOFF"
+# fault injection at the control plane's seams (utils/faults.py; JAX
+# common/env.py:59-60)
+HOROVOD_FAULT_SPEC = "HOROVOD_FAULT_SPEC"
+HOROVOD_FAULT_SEED = "HOROVOD_FAULT_SEED"
+# the async sharded checkpointer (utils/async_ckpt.py): its switch, its
+# directory, and the SIGTERM grace window in seconds, which the elastic
+# driver waits before SIGKILL and a worker's final flush stays inside
+# (JAX common/env.py:171-173)
+HOROVOD_ASYNC_CKPT = "HOROVOD_ASYNC_CKPT"
+HOROVOD_ASYNC_CKPT_DIR = "HOROVOD_ASYNC_CKPT_DIR"
+HOROVOD_PREEMPT_GRACE_S = "HOROVOD_PREEMPT_GRACE_S"
 
 # control-plane retries (utils/retry.py) and the lock auditor
 HOROVOD_RETRY_MAX_ATTEMPTS = "HOROVOD_RETRY_MAX_ATTEMPTS"

@@ -30,3 +30,11 @@ def atomic_tmp(path: str):
         with contextlib.suppress(OSError):
             os.unlink(tmp)
         raise
+
+
+def atomic_write_bytes(path: str, data: bytes):
+    """Write ``data`` to ``path`` whole or not at all (through
+    :func:`atomic_tmp`): a reader never sees a half-written file."""
+    with atomic_tmp(path) as tmp:
+        with open(tmp, "wb") as f:
+            f.write(data)

@@ -40,9 +40,13 @@ marker and nothing perturbed the round, and after
 response; a replaying rank submits through ``lease_round``. The lease is
 never granted under wire v2, whose leaders merge their groups every round.
 
+Fault points (``utils/faults.py``) sit where the JAX package has them:
+``controller.submit`` before each submission, ``leader.merge`` once a
+leader has its group's submissions, ``controller.poll`` in each attempt
+of the response poll.
+
 Left out, as ROADMAP.md queue 1 lists them: tuned parameters (item 11),
-and the tracing, straggler, flight-recorder and fault hooks (items 14
-and 16).
+and the tracing, straggler and flight-recorder hooks (items 6 and 16).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import time
 from typing import Optional
 
 from ..common import env as env_schema
+from ..utils import faults as faults_mod
 from ..utils import metrics as metrics_mod
 from ..utils import retry as retry_mod
 from . import megaplan as megaplan_mod
@@ -263,6 +268,7 @@ class KVController:
             w = self.SAME_AS_LAST
             self.fast_rounds += 1
             self._m_cache_hit.inc()
+            faults_mod.fault_point("controller.submit")
             self.client.put(_ctl_scope(r), f"ready/{self.rank}", w)
             self.bytes_sent += len(w)
             self._m_wire_bytes.inc(len(w))
@@ -312,6 +318,7 @@ class KVController:
             pending.items(), joined, shutting_down,
             wv=wire.WIRE_V2 if self._hier and r == 0 else None)
         w = self._marker_or(payload, "flat")  # v1 has the flat channel only
+        faults_mod.fault_point("controller.submit")
         self.client.put(_ctl_scope(r), f"ready/{self.rank}", w)
         self.bytes_sent += len(w)
         self._m_wire_bytes.inc(len(w))
@@ -366,6 +373,7 @@ class KVController:
         a leader's own path while it backs off."""
         payload = wire.encode_submission(entries, joined, shutting_down)
         w = self._marker_or(payload, "flat")
+        faults_mod.fault_point("controller.submit")
         self.client.put(_ctl_scope(r), f"ready/{self.rank}", w)
         self._sent(w)
         self._last_payload = payload
@@ -378,6 +386,7 @@ class KVController:
         gscope = f"{_ctl_scope(r)}/g{self._group}"
         payload = wire.encode_submission(entries, joined, shutting_down)
         w = self._marker_or(payload, "group")
+        faults_mod.fault_point("controller.submit")
         try:
             # submit and wait on the fan-down key in one call
             raw = self.client.put_get(gscope, f"ready/{self.rank}", w, "resp",
@@ -413,6 +422,7 @@ class KVController:
         try:
             w, covered = self._merge_group(r, gscope, members, entries,
                                            joined, shutting_down)
+            faults_mod.fault_point("controller.submit")
             # submit and wait on the response in one call; a 404 at the
             # deadline means the put landed and the round is still open
             try:
@@ -461,6 +471,7 @@ class KVController:
                 if suffix.isdigit() and int(suffix) != self.rank \
                         and int(suffix) in self._member_set:
                     got[int(suffix)] = raw
+        faults_mod.fault_point("leader.merge")
         merged: dict = {}  # (name, canonical sig) -> [name, sig, ranks]
         order: list = []
         covered = {self.rank}
@@ -523,6 +534,7 @@ class KVController:
             base_delay_s=0.05, max_delay_s=1.0)
 
         def attempt():
+            faults_mod.fault_point("controller.poll")
             remaining = deadline - (time.monotonic() - start)
             per = max(0.1, min(self.POLL_ATTEMPT_S, deadline / 4.0,
                                remaining))

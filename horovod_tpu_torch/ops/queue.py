@@ -90,6 +90,13 @@ finished with them). A miss falls back to the negotiated path; a lease
 the coordinator withdrew in the lease round's own response is handled as
 that round's negotiated response, because the round was consumed.
 
+Fault points (``utils/faults.py``), where the JAX package has them:
+``plan.dispatch`` before each chunk's or single op's dispatch (a fault
+there fails the chunk's handles with ``HorovodInternalError``, which an
+elastic ``run`` recovers from), ``megaplan.capture`` before a capture is
+installed (it aborts the capture) and ``megaplan.replay`` before a replay
+(it invalidates the megaplan and the cycle negotiates).
+
 Left out, as ROADMAP.md queue 1 lists them: autotuning
 (``set_compression_spec``), and the tracing, timeline, flight-recorder,
 anatomy and perf-ledger hooks.
@@ -108,6 +115,7 @@ import torch
 
 from ..common import context as ctx_mod
 from ..common.exceptions import DuplicateNameError, HorovodInternalError
+from ..utils import faults as faults_mod
 from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
 from .. import _native
@@ -508,9 +516,14 @@ class BackgroundRuntime:
         if not cap or sum(len(c[0]) for c in cap) != len(batch):
             self._mp.abort_capture()
             return
-        self._mp.commit(megaplan_mod.Megaplan(
-            sig=sig, chunks=tuple(cap), epoch=megaplan_mod.epoch(),
-            plan_epoch=C._plan_epoch()))
+        try:
+            faults_mod.fault_point("megaplan.capture")
+            self._mp.commit(megaplan_mod.Megaplan(
+                sig=sig, chunks=tuple(cap), epoch=megaplan_mod.epoch(),
+                plan_epoch=C._plan_epoch()))
+        except Exception as exc:
+            LOG.warning("megaplan capture aborted: %s", exc)
+            self._mp.abort_capture()
 
     def _megaplan_cycle(self, batch: list[TensorEntry], t0: float) -> bool:
         """One cycle against the captured megaplan. True when the cycle
@@ -535,6 +548,14 @@ class BackgroundRuntime:
         if ctl is not None and not ctl.megaplan_lease:
             # withheld on the last response: another rank broke stability
             mp.invalidate("lease")
+            return False
+        try:
+            # before any round or dispatch: an injected fault falls back to
+            # the negotiated cycle with nothing half done
+            faults_mod.fault_point("megaplan.replay")
+        except Exception as exc:
+            LOG.warning("megaplan replay fault: %s", exc)
+            mp.invalidate("fault")
             return False
         if ctl is not None:
             try:
@@ -834,6 +855,7 @@ class BackgroundRuntime:
         calls0 = C.dist_calls
         try:
             self._wait_ready(chunk)
+            faults_mod.fault_point("plan.dispatch")
             run()
             done = self._record_done(
                 [e.tensor for e in chunk]
@@ -936,6 +958,7 @@ class BackgroundRuntime:
         group = self._group_of(e.process_set)
         ps = e.process_set or self.process_set
         try:
+            faults_mod.fault_point("plan.dispatch")
             if e.op == "allgather":
                 # sizes first: their host read waits on the comm stream
                 # before it waits on the caller's

@@ -32,6 +32,7 @@ from typing import Optional
 from urllib.error import HTTPError
 from urllib.parse import unquote
 
+from ..utils import faults as _faults
 from ..utils import retry as _retry
 from . import secret as _secret
 
@@ -245,7 +246,8 @@ class RendezvousServer:
         return self.port
 
     def stop(self):
-        self._server.shutdown()
+        if self._thread:  # shutdown() waits for a serve_forever that runs
+            self._server.shutdown()
         self._server.server_close()
         if self._thread:
             self._thread.join(timeout=5)
@@ -303,8 +305,13 @@ class KVStoreClient:
                                               max_delay_s=1.0)
                   if method in self.IDEMPOTENT_VERBS
                   else _retry.RetryPolicy(max_attempts=1))
-        return _retry.Retrier(site or f"kv.{method.lower()}", policy).call(
-            lambda: self._attempt(method, path, body, headers, timeout))
+        site = site or f"kv.{method.lower()}"
+
+        def attempt():
+            _faults.fault_point(site)
+            return self._attempt(method, path, body, headers, timeout)
+
+        return _retry.Retrier(site, policy).call(attempt)
 
     def _headers(self, method: str, path: str, body: bytes = b"",
                  exclude: str = "", mode: str = "") -> dict:
@@ -342,6 +349,9 @@ class KVStoreClient:
 
     def put(self, scope: str, key: str, value: bytes):
         path = f"{scope}/{key}"
+        # a torn value is stored "successfully", as a writer that crashed
+        # mid-value would leave it for the readers
+        value = _faults.corrupt("kv.put", value)
         status, _, _ = self._request(
             "PUT", path, value, self._headers("PUT", path, value), 30.0)
         self._check_status(status, path, f"PUT {path}")

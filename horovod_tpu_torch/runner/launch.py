@@ -16,8 +16,14 @@ rank 0 binds port 0 and publishes the port it got through the KV store
 package's ``HOROVOD_TPU_*`` variables are not set. One process drives one
 GPU: a worker takes ``cuda:<HOROVOD_LOCAL_RANK>`` (``common/context.py``). The
 first worker to fail ends the job, and its exit code is the launcher's.
-Elastic launches, config files and the JAX package's runtime knobs that the
-port does not read are left out.
+
+``--min-np``, ``--max-np`` or ``--host-discovery-script`` make the launch
+elastic (``elastic/driver.py`` ``run_elastic``)::
+
+    python -m horovod_tpu_torch.runner --min-np 2 --max-np 4 --host-discovery-script ./hosts.sh python train.py
+
+Config files and the JAX package's runtime knobs that the port does not
+read are left out.
 """
 
 from __future__ import annotations
@@ -92,9 +98,10 @@ def build_ssh_command(hostname: str, command: list[str], env: dict, *,
     return ssh_args + [hostname, remote]
 
 
-def _stream(prefix: str, pipe, out, tee_path: Optional[str] = None):
+def _stream(prefix: str, pipe, out, tee_path: Optional[str] = None,
+            tee_mode: str = "wb"):
     tag = b"stdout" if out is sys.stdout.buffer else b"stderr"
-    tee = open(tee_path, "wb") if tee_path else None
+    tee = open(tee_path, tee_mode) if tee_path else None
     try:
         for line in iter(pipe.readline, b""):
             out.write(b"[" + prefix.encode() + b"]<" + tag + b">: " + line)
@@ -107,15 +114,20 @@ def _stream(prefix: str, pipe, out, tee_path: Optional[str] = None):
             tee.close()
 
 
-def _output_threads(p, rank: int, output_filename: Optional[str]) -> list:
+def _output_threads(p, rank: int, output_filename: Optional[str],
+                    first_incarnation: bool = True) -> list:
     """Rank-prefixed console streams for one worker, teed into
-    ``<output_filename>/rank.<rank>.{out,err}`` when set."""
+    ``<output_filename>/rank.<rank>.{out,err}`` when set: fresh files for a
+    rank's first incarnation, appended to by the elastic driver's
+    respawns, so one file tells the whole story of a rank."""
     threads = []
     for pipe, out, kind in ((p.stdout, sys.stdout.buffer, "out"),
                             (p.stderr, sys.stderr.buffer, "err")):
         tee = (os.path.join(output_filename, f"rank.{rank}.{kind}")
                if output_filename else None)
-        t = threading.Thread(target=_stream, args=(str(rank), pipe, out, tee),
+        t = threading.Thread(target=_stream,
+                             args=(str(rank), pipe, out, tee,
+                                   "wb" if first_incarnation else "ab"),
                              daemon=True)
         t.start()
         threads.append(t)
@@ -237,6 +249,14 @@ def make_parser() -> argparse.ArgumentParser:
                    help="NIC whose address workers dial for the rendezvous "
                         "store and rank 0's TCPStore; default: probe the "
                         "route to each worker host")
+    # elastic: any of the first three makes the launch elastic
+    p.add_argument("--min-np", type=int, default=None)
+    p.add_argument("--max-np", type=int, default=None)
+    p.add_argument("--host-discovery-script", default=None,
+                   help="executable printing the available hosts, one "
+                        "'host' or 'host:slots' a line")
+    p.add_argument("--slots-per-host", type=int, default=1,
+                   help="slots of a discovered host printed without them")
     p.add_argument("command", nargs=argparse.REMAINDER)
     return p
 
@@ -268,6 +288,12 @@ def run_commandline(argv=None) -> int:
     if not command:
         print("hvdrun: no command given", file=sys.stderr)
         return 2
+    if args.host_discovery_script or args.min_np or args.max_np:
+        from ..elastic.driver import run_elastic
+
+        if args.num_proc is None:
+            args.num_proc = 1
+        return run_elastic(command, args)
     if args.from_allocation:
         try:
             hosts = hosts_from_allocation(os.environ)

@@ -37,10 +37,16 @@ rank ``DistributedOptimizer(op=Adasum)`` is the delta optimizer
 (``_AdasumMixin``), at one rank the regular wrapper, whose Adasum of one
 contribution is the identity. ``SyncBatchNorm`` (``torch/sync_batch_norm.py``)
 averages batch statistics over the ranks.
+
+Elastic training (``hvd.elastic``, ``elastic/``): ``hvd.elastic.run``
+around a training function, ``TorchState`` (below) for the model, the
+optimizer, an ``ElasticSampler`` (``torch/elastic_sampler.py``) and
+picklable counters.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import logging
 import weakref
@@ -1008,3 +1014,125 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
 
 
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402,F401
+
+
+# --- elastic TorchState (reference torch/elastic/state.py) ------------------
+
+from .. import elastic  # noqa: E402,F401  (hvd.elastic)
+from ..elastic.state import ObjectState as _ObjectState  # noqa: E402
+from .elastic_sampler import ElasticSampler  # noqa: E402,F401
+
+# the store's key for the model's, the optimizer's and the sampler's state
+_TORCH_STORE_KEY = "_torch_state"
+
+
+class TorchState(_ObjectState):
+    """Elastic state with a torch model, optimizer and sampler beside the
+    keyword attributes (reference ``TorchState``, JAX
+    ``horovod_tpu/torch/__init__.py:995-1073``).
+
+    - ``save`` (a commit) snapshots the state dicts as ``clone()``s on the
+      model's device and the sampler's progress;
+    - ``restore`` loads them back, and drops the optimizer's handles of a
+      step that failed;
+    - ``sync`` broadcasts the parameters and buffers and the optimizer's
+      state from rank 0, and merges every rank's processed indices into
+      the sampler (no single rank knows the whole progress after a
+      resize).
+
+    One departure from the JAX package (ROADMAP.md queue 3): under
+    ``HOROVOD_ELASTIC_STORE`` a commit also writes the model's and the
+    optimizer's state dicts, as host tensors, with the keyword attributes,
+    so a relaunched world resumes its weights as the JAX package's
+    ``JaxState`` resumes its params; the JAX shim's ``TorchState`` comes
+    back with fresh weights there. The lowest local rank of each host
+    writes."""
+
+    def __init__(self, model=None, optimizer=None, sampler=None, **kwargs):
+        self._model = model
+        self._optimizer = optimizer
+        self._sampler = sampler
+        self._model_saved = None
+        self._opt_saved = None
+        self._sampler_saved = None
+        super().__init__(**kwargs)
+
+    # a script may reassign these after a reset: the snapshots follow
+    @property
+    def model(self):
+        return self._model
+
+    @model.setter
+    def model(self, m):
+        self._model = m
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    @optimizer.setter
+    def optimizer(self, o):
+        self._optimizer = o
+
+    @property
+    def sampler(self):
+        return self._sampler
+
+    @sampler.setter
+    def sampler(self, s):
+        self._sampler = s
+
+    def save(self):
+        if self._model is not None:
+            self._model_saved = {k: v.detach().clone()
+                                 for k, v in self._model.state_dict().items()}
+        if self._optimizer is not None:
+            self._opt_saved = copy.deepcopy(self._optimizer.state_dict())
+        if self._sampler is not None:
+            self._sampler_saved = copy.deepcopy(self._sampler.state_dict())
+        super().save()
+
+    def _store_payload(self) -> dict:
+        part = {}
+        if self._model_saved is not None:
+            part["model"] = _to_cpu(self._model_saved)
+        if self._opt_saved is not None:
+            part["optimizer"] = _to_cpu(self._opt_saved)
+        if self._sampler_saved is not None:
+            part["sampler"] = self._sampler_saved
+        return dict(self._saved, **{_TORCH_STORE_KEY: part})
+
+    def _load_store(self, payload: dict):
+        payload = dict(payload)
+        part = payload.pop(_TORCH_STORE_KEY, {})
+        self._model_saved = part.get("model")
+        self._opt_saved = part.get("optimizer")
+        self._sampler_saved = part.get("sampler")
+        super()._load_store(payload)
+
+    def restore(self):
+        super().restore()
+        if self._model_saved is not None:
+            self._model.load_state_dict(self._model_saved)
+        if self._optimizer is not None:
+            # a failed step leaves handles of the runtime that is gone
+            for pending in ("_handles", "_sparse_thunks"):
+                getattr(self._optimizer, pending, {}).clear()
+            if self._opt_saved is not None:
+                self._optimizer.load_state_dict(self._opt_saved)
+        if self._sampler_saved is not None:
+            self._sampler.load_state_dict(self._sampler_saved)
+
+    def sync(self):
+        if self._model is not None:
+            broadcast_parameters(self._model.state_dict(), root_rank=0)
+        if self._optimizer is not None:
+            broadcast_optimizer_state(self._optimizer, root_rank=0)
+        if self._sampler is not None:
+            st = self._sampler.state_dict()
+            merged = set()
+            for s in allgather_object(st):
+                merged.update(s.get("processed_indices", ()))
+            st["processed_indices"] = sorted(merged)
+            self._sampler.load_state_dict(st)
+        super().sync()

@@ -36,6 +36,7 @@ _ISOLATED = textwrap.dedent("""
     from horovod_tpu_torch.models import transformer as PT
     from horovod_tpu_torch.parallel import ring_attention
     import resnet_probe
+    import elastic_probe
 
     cfg = PT.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
                                n_layers=2, d_ff=64, max_seq=16,
@@ -63,6 +64,12 @@ _ISOLATED = textwrap.dedent("""
     loss.backward()
     opt.step()
     assert torch.isfinite(loss) and not torch.equal(before, model.embed)
+    # the elastic surface: TorchState, the sampler and run
+    state = hvd.elastic.TorchState(model, opt, sampler=hvd.ElasticSampler(
+        list(range(8))), batch=0)
+    state.commit()
+    assert hvd.elastic.run(lambda st: st.batch)(state) == 0
+    assert elastic_probe.ARMS == ("crash", "resize", "inproc", "zero1_ckpt")
     resnet = resnet_probe.build("tiny", torch.device("cpu"), 0)
     assert resnet_probe.CONFIGS["tiny"][0] == [1, 1, 1, 1]
     assert all(p.device == hvd.device() for p in PR.ResNet(
@@ -80,7 +87,10 @@ _ISOLATED = textwrap.dedent("""
                  "ops.megaplan", "_native",
                  "utils.metrics", "utils.lockcheck", "utils.retry",
                  "opt.sharded", "parallel.sharding_policy", "ops.adasum",
-                 "torch.sync_batch_norm"):
+                 "torch.sync_batch_norm", "elastic", "elastic.driver",
+                 "elastic.executor", "elastic.state", "elastic.discovery",
+                 "elastic.registration", "torch.elastic_sampler",
+                 "utils.faults", "utils.checkpoint", "utils.async_ckpt"):
         assert "horovod_tpu_torch." + name in sys.modules, name
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
@@ -144,6 +154,7 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "runtime_probe.py",
                                              "sp_probe.py",
                                              "resnet_probe.py",
+                                             "elastic_probe.py",
                                              "wire_probe.py",
                                              "zero_probe.py")]
     for root, _, names in os.walk(PKG):

@@ -101,7 +101,7 @@ def test_rank_zero_publishes_the_port_its_store_bound(launcher_env,
     kv = launcher_env
     monkeypatch.setenv(penv.HOROVOD_RANK, "0")
     master = context._store(0, 2)
-    key = f"{context._STORE_PORT_KEY}.{context._ctx.inits}"
+    key = context._store_port_key()
     published = int(kv.get(context._STORE_PORT_SCOPE, key, timeout=1.0))
     assert published == master.port != 0
     # rank 1 reads the port from the KV store and dials the same store
