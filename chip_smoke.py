@@ -211,7 +211,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    three, bitwise ``load_full_state`` of the gathered state. The free
    disk and the bytes written are printed, the files removed. K1's
    launches over (a) and (c) are the path's;
-14. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+14. observe: ResNet-50 at 224², 64 images, bf16, through
+   ``DistributedOptimizer`` (cuDNN deterministic), every run after a fresh
+   ``init`` (``observe_probe.py``'s functions at a world of one): (a) 8 hook
+   steps with every instrument on (timeline, tracing, flight recorder,
+   perf ledger, anatomy, a metrics file) and 8 with none, in turns for 3
+   rounds: parameters and buffers bitwise equal across every run; the
+   timeline parses, every one of the 161 gradients has its
+   ``NEGOTIATE_ALLREDUCE`` and ``FUSED_ALLREDUCE`` spans, paired, once a
+   step; the perf ledger's five phases, summed over each hook step's
+   working cycles, come to at most the step's wall time (within 5 %); the
+   anatomy's chunk entities equal the runtime's
+   chunks (each timed on the card by its events); the metrics file holds
+   the runtime's series and the three reports are enabled with the steps
+   they saw; the median hook step of each arm beside the resnet path's;
+   (b) 60 hook steps under ``HOROVOD_AUTOTUNE=1`` against 60 untuned:
+   bitwise equal; every proposal is the configuration the runtime runs at
+   the next sample, and each log row shows the knobs of its sample; the
+   samples, their scores and the settled configuration; then the default
+   and the settled configuration as fixed knobs, 8 steps each, in turns
+   for 2 rounds. K1's launches over the path are the ``observe`` path's;
+15. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -222,7 +242,7 @@ The line before the last is one JSON object with the kernels' launches
 K2's and K3's on the compression path, K5's on the long-context path,
 K4's on the adasum path, the others' on the main path;
 ``launches_by_path`` gives every path's count, the resnet, megaplan,
-adasum and elastic paths' included), errors, times, bounds
+adasum, elastic and observe paths' included), errors, times, bounds
 and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -3727,6 +3747,122 @@ def elastic_path_phase(device, root: str) -> tuple:
     return launches, readings
 
 
+# --- phase 14: the observe path --------------------------------------------
+
+OBSERVE_STEPS, OBSERVE_ROUNDS = 8, 3
+OBSERVE_TUNE_STEPS, OBSERVE_FIXED_STEPS = 60, 8
+
+
+def observe_path_phase(device, resnet_hook_ms: float) -> tuple:
+    """The observe path (module docstring, phase 14). Returns the path's
+    launches and its readings."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import observe_probe as op
+    import resnet_probe as rp
+
+    hvd.shutdown()
+    images, labels = rp.synthetic_batch(0, 1, RESNET_BATCH, RESNET_IMAGE,
+                                        rp.CONFIGS["50"][2], 0, device)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    env0 = {k: os.environ.get(k) for k in op.KNOBS + ("HOROVOD_ELASTIC_GEN",)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    gen = 0
+    try:
+        _zero_launch_counts()  # just before the path runs
+        runs = {}
+        for i in range(OBSERVE_ROUNDS):
+            for on in (True, False):
+                runs[f"{'on' if on else 'off'}#{i + 1}"] = op.instruments_run(
+                    gen, on, tmp, "50", images, labels, OBSERVE_STEPS, None,
+                    False)
+                gen += 1
+        op.init(gen, {}, None)
+        gen += 1
+        untuned = op.hook_run("50", images, labels, OBSERVE_TUNE_STEPS)
+        hvd.shutdown()
+        tuned = op.autotune_run(gen, tmp, "50", images, labels,
+                                OBSERVE_TUNE_STEPS, None, False)
+        gen += 1
+        fixed, gen = op.fixed_runs(gen, {"default": op.DEFAULT_CONFIG,
+                                         "settled": tuned["settled"]},
+                                   "50", images, labels, OBSERVE_FIXED_STEPS,
+                                   2, None, False)
+        launches = _launch_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    first = runs["on#1"]["state"]
+    for name, rd in runs.items():
+        if not torch.equal(rd.pop("state"), first):
+            raise AssertionError(f"observe {name}: parameters or buffers "
+                                 "differ from on#1's")
+        rd.pop("names")
+        rd.pop("windows")
+        _log(f"  instruments {name}: step ms "
+             f"{[round(x * 1e3, 2) for x in rd['step_s']]}; median after the "
+             f"first {rd['median_step_ms']:.2f}; chunks a step {rd['chunks']}")
+        if "records" in rd:
+            _log(f"    {rd['records']}; timeline {rd['timeline']}; "
+                 f"{rd['trace_spans']} spans, {rd['open_spans']} open; "
+                 f"{rd['flightrec_events']} flight-recorder events; "
+                 f"{rd['metrics_file_series']} series in the metrics file")
+            _log(f"    perf phases {rd['perf_phases']}")
+            _log(f"    anatomy headroom {rd['headroom']}; critical path "
+                 f"{rd['critical_path']}")
+    on = [rd["median_step_ms"] for k, rd in runs.items() if k.startswith("on")]
+    off = [rd["median_step_ms"] for k, rd in runs.items()
+           if k.startswith("off")]
+    _log(f"  hook step median: instruments on {statistics.median(on):.2f} ms "
+         f"({on}), off {statistics.median(off):.2f} ms ({off}); the resnet "
+         f"path's hooks {resnet_hook_ms:.2f} ms")
+    if not torch.equal(tuned.pop("state"), untuned.pop("state")):
+        raise AssertionError("the autotuned run's parameters differ from "
+                             "the untuned run's")
+    for s in tuned["samples"]:
+        _log(f"    autotune sample {s}")
+    _log(f"  autotune: {len(tuned['samples'])} samples, settled on "
+         f"{tuned['settled']} (converged {tuned['done']}); median step "
+         f"{tuned['median_step_ms']:.2f} ms against the untuned "
+         f"{untuned['median_step_ms']:.2f}; parameters bitwise the untuned "
+         f"run's; {tuned['proposals_checked']} proposals each ran at the "
+         f"next sample")
+    for name, f in fixed.items():
+        _log(f"  fixed {name}: step ms "
+             f"{[round(x * 1e3, 2) for x in f['step_s']]}; median after the "
+             f"first {f['median_step_ms']:.2f}; chunks a step {f['chunks']}")
+    if not (launches["fused_pack"] and launches["fused_unpack"]):
+        raise AssertionError(f"K1 never launched on the observe path: "
+                             f"{launches}")
+    _log(f"  launches {launches}")
+    readings = {"instruments": runs,
+                "hook_median_ms": {"on": statistics.median(on),
+                                   "off": statistics.median(off),
+                                   "resnet_path_hooks": resnet_hook_ms},
+                "autotune": {k: tuned[k] for k in (
+                    "samples", "settled", "done", "median_step_ms",
+                    "step_s", "knobs_at_samples", "proposals_checked")},
+                "untuned": {k: untuned[k] for k in ("median_step_ms",
+                                                    "step_s")},
+                "fixed": fixed}
+    del images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
 def launcher_phase(root: str):
     """One worker through the port's hvdrun, on the card."""
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
@@ -3861,11 +3997,21 @@ def main() -> int:
     t_e = time.perf_counter()
     el_launches, el_readings = elastic_path_phase(device, root)
     _log(f"  elastic path: {time.perf_counter() - t_e:.1f} s")
+    _phase("[observe path] ResNet-50 at 224^2, batch 64, bf16: 8 hook steps "
+           "with every instrument on and 8 with none, in turns for 3 "
+           "rounds; 60 steps under HOROVOD_AUTOTUNE=1 against 60 untuned; "
+           "the default and the settled configuration as fixed knobs")
+    t_o = time.perf_counter()
+    ob_launches, ob_readings = observe_path_phase(
+        device, resnet_readings["hooks"]["median_step_ms"])
+    _log(f"  observe path: {time.perf_counter() - t_o:.1f} s")
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
     for entry in wire_entries:
-        entry["launches_by_path"] = {"compression": entry["launches"]}
+        entry["launches_by_path"] = {
+            "compression": entry["launches"],
+            "observe": ob_launches.get(entry["name"], 0)}
     for entry in kernels:
         path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
                 else launches)
@@ -3880,12 +4026,15 @@ def main() -> int:
             "resnet": resnet_launches[entry["name"]],
             "megaplan": mp_launches[entry["name"]],
             "adasum": ada_launches[entry["name"]],
-            "elastic": el_launches[entry["name"]]}
+            "elastic": el_launches[entry["name"]],
+            "observe": ob_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
     for entry in k5_entries:  # K5's path is the long-context one
         entry["launches"] = lc_launches[entry["name"]]
-        entry["launches_by_path"] = {"long_context": entry["launches"]}
+        entry["launches_by_path"] = {
+            "long_context": entry["launches"],
+            "observe": ob_launches.get(entry["name"], 0)}
     for entry in k4_entries:  # K4's path is the adasum one
         entry["launches"] = ada_launches[entry["name"]]
         entry["launches_by_path"] = {
@@ -3895,7 +4044,7 @@ def main() -> int:
                 ("collectives", coll_launches), ("sp", sp_launches),
                 ("long_context", lc_launches), ("zero1", zero_launches),
                 ("resnet", resnet_launches), ("megaplan", mp_launches),
-                ("elastic", el_launches))}}
+                ("elastic", el_launches), ("observe", ob_launches))}}
 
     kernels += wire_entries + k5_entries + k4_entries
 
@@ -3909,6 +4058,7 @@ def main() -> int:
     print(json.dumps({"megaplan": mp_readings}))
     print(json.dumps({"adasum": ada_readings}))
     print(json.dumps({"elastic": el_readings}))
+    print(json.dumps({"observe": ob_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

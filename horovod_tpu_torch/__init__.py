@@ -13,6 +13,11 @@ kernels are written by hand for Hopper (``csrc/``). Entry points run on
 Elastic training: ``hvd.elastic.run``, ``hvd.elastic.TorchState`` and
 ``hvd.elastic.ElasticSampler`` (``elastic/``), launched with
 ``python -m horovod_tpu_torch.runner --min-np ... --host-discovery-script``.
+
+The runtime's instruments: ``hvd.metrics_snapshot()``,
+``hvd.trace_report()``, ``hvd.perf_report()``, ``hvd.anatomy_report()``,
+``hvd.start_timeline(path)``/``hvd.stop_timeline()``, and the autotuner
+under ``HOROVOD_AUTOTUNE=1`` (``utils/``).
 """
 
 from .ops.collectives import (  # noqa: F401
@@ -63,6 +68,9 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     local_rank,
     local_size,
     megaplan_report,
+    anatomy_report,
+    metrics_snapshot,
+    perf_report,
     poll,
     rank,
     reducescatter,
@@ -71,7 +79,10 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     shutdown,
     size,
     sparse_allreduce_async,
+    start_timeline,
+    stop_timeline,
     synchronize,
     SyncBatchNorm,
     TorchState,
+    trace_report,
 )

@@ -51,6 +51,14 @@ class FusionBuffer:
         # offset 0 of an allocation, whose alignment suits every dtype
         return self._buf[:nbytes].view(dtype)
 
+    def resize(self, nbytes: int) -> None:
+        """Take a new size (the autotuner's fusion threshold): the buffer is
+        allocated again at its next use. Every chunk that used the old one
+        was issued on the comm stream, where the caching allocator hands
+        the freed memory out again only in stream order."""
+        self.capacity = max(0, int(nbytes))
+        self._buf = None
+
     def allocated_bytes(self) -> int:
         return 0 if self._buf is None else int(self._buf.numel())
 
@@ -65,24 +73,27 @@ def wait_ready(stream, events) -> None:
         stream.wait_event(ev)
 
 
-def record_done(stream, tensors):
+def record_done(stream, tensors, timing: bool = False):
     """Mark ``tensors`` as used on ``stream`` and return an event recorded
-    after its last kernel; None on the CPU."""
+    after its last kernel (a timed one with ``timing``, which the step
+    anatomy reads); None on the CPU."""
     if stream is None:
         return None
     for t in tensors:
         t.record_stream(stream)
-    done = torch.cuda.Event()
+    done = torch.cuda.Event(enable_timing=timing)
     done.record(stream)
     return done
 
 
-def chain_dispatch(buffer: FusionBuffer, steps, stream=None):
+def chain_dispatch(buffer: FusionBuffer, steps, stream=None,
+                   timing: bool = False):
     """Run a captured step's chunks in their captured order, with no
     negotiation, grouping or plan lookup. ``steps`` holds ``(plan, inputs,
     outputs, ready events)`` a chunk, ``plan`` an
     ``ops.collectives.FusedChunkPlan``; ``stream`` is the comm stream the
-    chain is issued on (None on the CPU).
+    chain is issued on (None on the CPU); ``timing`` times the done
+    events.
 
     Returns ``(outs, exc)``: the done event (None on the CPU) of every
     chunk that was fully issued, and the failure that stopped the chain
@@ -94,7 +105,7 @@ def chain_dispatch(buffer: FusionBuffer, steps, stream=None):
             wait_ready(stream, ready)
             plan.execute(inputs, outputs, buffer)
             outs.append(record_done(stream, inputs + [
-                o for o, i in zip(outputs, inputs) if o is not i]))
+                o for o, i in zip(outputs, inputs) if o is not i], timing))
         except Exception as exc:
             return outs, exc
     return outs, None

@@ -64,6 +64,19 @@ package falls back to name-ordered execution there, which two ranks whose
 gradient hooks fire in different orders cannot survive). ``shutdown``
 stops the runtime, whose pending handles fail with
 ``HorovodInternalError``.
+
+The instruments (JAX ``common/context.py`` :327-381, :472-494), built by
+``init`` only when their knobs are set: the flight recorder, the tracer
+(its clock offset measured against the launcher's ``GET /clock``), the
+perf ledger and its SLO engine, the step anatomy, the timeline (rank 0
+writes ``HOROVOD_TIMELINE``; ``start_timeline``/``stop_timeline`` open and
+close it at run time), the stall inspector (unless
+``HOROVOD_STALL_CHECK_DISABLE``), the autotuner (``HOROVOD_AUTOTUNE``) and
+the metrics dumper (a ``HOROVOD_METRICS_FILE``, ``.rank{k}`` on the other
+ranks, and under a launcher the push of every instrument's snapshot).
+``shutdown`` closes the timeline and stops the dumper after a final
+flush; the recorder, the ledger and the anatomy live as long as the
+process, as the metrics registry does.
 """
 
 from __future__ import annotations
@@ -170,6 +183,10 @@ class _Context:
         self.runtime = None
         self.kv_server = None  # a store rank 0 serves without a launcher
         self.inits = 0  # completed inits of this process
+        self.timeline = None  # utils.timeline.Timeline
+        self.stall_inspector = None
+        self.autotuner = None
+        self.metrics_dumper = None  # utils.metrics.MetricsDumper
 
 
 _ctx = _Context()
@@ -292,14 +309,19 @@ def init(device=None):
         from ..ops import megaplan as megaplan_mod
 
         megaplan_mod.init_manager(rank=rank)
+        _init_instruments()
         _start_runtime(store)
         # the async checkpointer and its SIGTERM flush, when
         # HOROVOD_ASYNC_CKPT is set (horovod_tpu/common/context.py:307)
         from ..utils import async_ckpt
 
         async_ckpt.init_checkpointer(rank=rank, world=size)
+        _start_metrics_dumper()
         _ctx.initialized = True
         _ctx.inits += 1
+        from ..utils import flightrec
+
+        flightrec.note("init_phase", phase="initialized")
 
 
 def _build_hierarchy(ps: ProcessSet):
@@ -354,6 +376,32 @@ def _kv_client(store):
     return KVStoreClient(kv["addr"], kv["port"], secret_key=kv["secret"])
 
 
+def _init_instruments():
+    """The flight recorder, tracer, perf ledger, anatomy, timeline and
+    stall inspector whose knobs are set, before the runtime and its
+    controller resolve them."""
+    from ..utils import anatomy, flightrec, perfledger, tracing
+    from ..utils.stall import StallInspector
+    from ..utils.timeline import Timeline
+
+    cfg, rank = _ctx.config, _ctx.rank
+    flightrec.init_recorder(rank=rank)
+    flightrec.note("init_phase", phase="config")
+    if cfg.trace_enabled:
+        tracing.init_tracer(
+            rank=rank,
+            addr=os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_ADDR),
+            port=os.environ.get(env_schema.HOROVOD_GLOO_RENDEZVOUS_PORT))
+    # rank 0 writes the timeline, as the reference's coordinator does
+    _ctx.timeline = Timeline(cfg.timeline_filename if rank == 0 else "",
+                             mark_cycles=cfg.timeline_mark_cycles)
+    _ctx.stall_inspector = None if cfg.stall_check_disable else \
+        StallInspector(warning_time_s=cfg.stall_warning_time_s,
+                       shutdown_time_s=cfg.stall_shutdown_time_s)
+    perfledger.init_ledger(rank=rank, stall_inspector=_ctx.stall_inspector)
+    anatomy.init_profiler(rank=rank)
+
+
 def _start_runtime(store):
     from ..ops.queue import BackgroundRuntime
 
@@ -364,8 +412,43 @@ def _start_runtime(store):
     _build_hierarchy(_ctx.global_set)
     kv = _kv_client(store) if _ctx.size > 1 else None
     _ctx.runtime = BackgroundRuntime(_ctx.global_set, _ctx.config,
-                                     _ctx.device, group, kv_client=kv)
+                                     _ctx.device, group, kv_client=kv,
+                                     timeline=_ctx.timeline,
+                                     stall_inspector=_ctx.stall_inspector)
+    cfg = _ctx.config
+    if cfg.autotune:
+        from ..utils.autotune import Autotuner
+
+        _ctx.autotuner = Autotuner(
+            _ctx.runtime, log_path=cfg.autotune_log,
+            warmup_samples=cfg.autotune_warmup_samples,
+            max_samples=cfg.autotune_max_samples, config=cfg)
+        _ctx.runtime.autotuner = _ctx.autotuner
     _ctx.runtime.start()
+    from ..utils import flightrec
+
+    flightrec.note("init_phase", phase="runtime_started")
+
+
+def _start_metrics_dumper():
+    """The metrics publisher, when there is somewhere to publish: a
+    ``HOROVOD_METRICS_FILE`` (suffixed ``.rank{k}`` off rank 0, so ranks on
+    one host do not share a file) or the launcher's KV store, whose
+    endpoints merge what every rank pushes. With neither, no thread."""
+    from ..utils import metrics
+
+    cfg = _ctx.config
+    path = cfg.metrics_file
+    if path and _ctx.rank != 0:
+        path = f"{path}.rank{_ctx.rank}"
+    kv = _launcher_kv() if cfg.metrics_push else None
+    if not path and kv is None:
+        return
+    _ctx.metrics_dumper = metrics.MetricsDumper(
+        metrics.get_registry(), file_path=path,
+        interval_s=cfg.metrics_dump_interval_s, kv_client=kv,
+        rank=_ctx.rank)
+    _ctx.metrics_dumper.start()
 
 
 def shutdown(drain: bool = True):
@@ -381,6 +464,16 @@ def shutdown(drain: bool = True):
         if _ctx.runtime is not None:
             _ctx.runtime.stop(drain=drain)
             _ctx.runtime = None
+        if _ctx.timeline is not None:
+            _ctx.timeline.close()
+            _ctx.timeline = None
+        if _ctx.metrics_dumper is not None:
+            # the final flush: the file and the pushes hold everything the
+            # stopped runtime counted
+            _ctx.metrics_dumper.stop()
+            _ctx.metrics_dumper = None
+        _ctx.stall_inspector = None
+        _ctx.autotuner = None
         if _ctx.device is not None and _ctx.device.type == "cuda":
             torch.cuda.synchronize(_ctx.device)
         from ..ops import megaplan as megaplan_mod
@@ -398,6 +491,17 @@ def shutdown(drain: bool = True):
 
 def is_initialized() -> bool:
     return _ctx.initialized
+
+
+def start_timeline(filename: str, mark_cycles: bool = False):
+    """Open the timeline at run time (reference operations.cc:738-764);
+    every rank that calls it writes ``filename``."""
+    _require_init().timeline.reopen(filename, mark_cycles=mark_cycles)
+
+
+def stop_timeline():
+    """Close the timeline's file, which then parses as JSON."""
+    _require_init().timeline.reopen("", mark_cycles=False)
 
 
 def _require_init() -> _Context:

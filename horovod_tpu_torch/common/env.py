@@ -4,10 +4,11 @@ so a launcher sets one environment for either package. No knob here is
 missing from the JAX package.
 
 ``UNIMPLEMENTED_KNOBS`` names the JAX package's knobs that change what a
-job computes or sends and that the port does not implement yet;
-``warn_unimplemented`` (called by ``hvd.init()``) warns once for each of
-them that is turned on, so a job configured for the JAX package does not
-run differently under the port without a word.
+job computes or sends and that the port does not implement yet (none
+since the autotuner was ported); ``warn_unimplemented`` (called by
+``hvd.init()``) warns once for each of them that is turned on, so a job
+configured for the JAX package would not run differently under the port
+without a word.
 """
 
 from __future__ import annotations
@@ -105,11 +106,49 @@ HOROVOD_MEGAPLAN_STABLE_ROUNDS = "HOROVOD_MEGAPLAN_STABLE_ROUNDS"
 HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
 HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
 
-# knobs of the JAX package that the port reads only to warn that it does
-# not implement them (JAX common/env.py:25)
-UNIMPLEMENTED_KNOBS = (
-    "HOROVOD_AUTOTUNE",
-)
+# the runtime's instruments (JAX common/env.py:23-43, :54-56, :88-90,
+# :121-132, :155-156): the timeline file rank 0 writes and its cycle marks;
+# the stall inspector's switch; the metrics file, its dump interval in
+# seconds and the push to the launcher; cross-rank tracing (its span
+# buffer, a clock-offset override in seconds); the flight recorder and its
+# ring; the perf ledger, its ring and the SLO budgets; the step anatomy
+# and its ring. Each instrument exists only when its knob is set.
+HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
+HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
+HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
+HOROVOD_METRICS_FILE = "HOROVOD_METRICS_FILE"
+HOROVOD_METRICS_DUMP_INTERVAL = "HOROVOD_METRICS_DUMP_INTERVAL"
+HOROVOD_METRICS_PUSH = "HOROVOD_METRICS_PUSH"
+HOROVOD_TRACE = "HOROVOD_TRACE"
+HOROVOD_TRACE_BUFFER = "HOROVOD_TRACE_BUFFER"
+HOROVOD_TRACE_CLOCK_OFFSET = "HOROVOD_TRACE_CLOCK_OFFSET"
+HOROVOD_FLIGHTREC = "HOROVOD_FLIGHTREC"
+HOROVOD_FLIGHTREC_BUFFER = "HOROVOD_FLIGHTREC_BUFFER"
+HOROVOD_PERFLEDGER = "HOROVOD_PERFLEDGER"
+HOROVOD_PERFLEDGER_BUFFER = "HOROVOD_PERFLEDGER_BUFFER"
+HOROVOD_SLO_SPEC = "HOROVOD_SLO_SPEC"
+HOROVOD_ANATOMY = "HOROVOD_ANATOMY"
+HOROVOD_ANATOMY_BUFFER = "HOROVOD_ANATOMY_BUFFER"
+# the autotuner (utils/autotune.py): its switch, its CSV log, the warm-up
+# samples, the working cycles a sample, the samples before it converges,
+# the tuned file and the revert guardrail; and the most tensors a fused
+# chunk, one of its knobs (0: bytes only)
+HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
+HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
+HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
+HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE = "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"
+HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = \
+    "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+HOROVOD_AUTOTUNE_TUNED_FILE = "HOROVOD_AUTOTUNE_TUNED_FILE"
+HOROVOD_AUTOTUNE_REVERT_PCT = "HOROVOD_AUTOTUNE_REVERT_PCT"
+HOROVOD_AUTOTUNE_REVERT_WINDOWS = "HOROVOD_AUTOTUNE_REVERT_WINDOWS"
+HOROVOD_PLAN_CHUNK_TENSORS = "HOROVOD_PLAN_CHUNK_TENSORS"
+
+# knobs of the JAX package that change what a job computes or sends and
+# that the port does not implement, which it reads only to warn (JAX
+# common/env.py:25); empty since the autotuner was ported, and kept so a
+# knob the port lacks is named here, never ignored without a word
+UNIMPLEMENTED_KNOBS: tuple = ()
 
 
 def get_bool(name: str, default: bool = False) -> bool:
@@ -169,7 +208,11 @@ class RuntimeConfig:
       after ``megaplan_stable_rounds`` identical working cycles);
     - the two-level data plane: ``hierarchical_allreduce`` and
       ``hierarchical_allgather``, taken where the topology carries them
-      (``ops/collectives.py``).
+      (``ops/collectives.py``);
+    - ``plan_chunk_tensors``: the most tensors a fused chunk (0: bounded
+      by bytes only), an autotuner knob;
+    - the instruments and the autotuner (the knobs above, with the JAX
+      package's defaults).
     """
 
     fusion_threshold_bytes: int = 128 * 1024 * 1024
@@ -189,6 +232,22 @@ class RuntimeConfig:
     megaplan_stable_rounds: int = 5
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
+    plan_chunk_tensors: int = 0
+    timeline_filename: str = ""
+    timeline_mark_cycles: bool = False
+    stall_check_disable: bool = False
+    metrics_file: str = ""
+    metrics_dump_interval_s: float = 30.0
+    metrics_push: bool = True
+    trace_enabled: bool = False
+    autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 20
+    autotune_max_samples: int = 20
+    autotune_tuned_file: str = ""
+    autotune_revert_pct: float = 20.0
+    autotune_revert_windows: int = 2
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -219,4 +278,27 @@ class RuntimeConfig:
                                            c.megaplan_stable_rounds)
         c.hierarchical_allreduce = get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE)
         c.hierarchical_allgather = get_bool(HOROVOD_HIERARCHICAL_ALLGATHER)
+        c.plan_chunk_tensors = get_int(HOROVOD_PLAN_CHUNK_TENSORS,
+                                       c.plan_chunk_tensors)
+        c.timeline_filename = get_str(HOROVOD_TIMELINE)
+        c.timeline_mark_cycles = get_bool(HOROVOD_TIMELINE_MARK_CYCLES)
+        c.stall_check_disable = get_bool(HOROVOD_STALL_CHECK_DISABLE)
+        c.metrics_file = get_str(HOROVOD_METRICS_FILE)
+        c.metrics_dump_interval_s = get_float(HOROVOD_METRICS_DUMP_INTERVAL,
+                                              c.metrics_dump_interval_s)
+        c.metrics_push = get_bool(HOROVOD_METRICS_PUSH, True)
+        c.trace_enabled = get_bool(HOROVOD_TRACE)
+        c.autotune = get_bool(HOROVOD_AUTOTUNE)
+        c.autotune_log = get_str(HOROVOD_AUTOTUNE_LOG)
+        c.autotune_warmup_samples = get_int(HOROVOD_AUTOTUNE_WARMUP_SAMPLES,
+                                            c.autotune_warmup_samples)
+        c.autotune_steps_per_sample = get_int(
+            HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, c.autotune_steps_per_sample)
+        c.autotune_max_samples = get_int(
+            HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, c.autotune_max_samples)
+        c.autotune_tuned_file = get_str(HOROVOD_AUTOTUNE_TUNED_FILE)
+        c.autotune_revert_pct = get_float(HOROVOD_AUTOTUNE_REVERT_PCT,
+                                          c.autotune_revert_pct)
+        c.autotune_revert_windows = get_int(HOROVOD_AUTOTUNE_REVERT_WINDOWS,
+                                            c.autotune_revert_windows)
         return c

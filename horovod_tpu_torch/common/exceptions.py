@@ -47,10 +47,14 @@ class DuplicateNameError(ValueError):
     DUPLICATE_NAME_ERROR)."""
 
 
-class StalledTensorError(RuntimeError):
+class StalledTensorError(HorovodInternalError):
     """Raised when stalled tensors force a shutdown (the reference's
-    stall-inspector shutdown path, ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``).
-    """
+    stall-inspector shutdown path, ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``):
+    by the local stall inspector at a world of one, and for a name the
+    coordinator failed because ranks never submitted it, whose message
+    names them. A ``HorovodInternalError``, so an elastic ``run`` recovers
+    from it as from any failed collective (the JAX package raises the
+    base class there)."""
 
 
 class FaultInjectedError(RuntimeError):

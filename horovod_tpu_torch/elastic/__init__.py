@@ -65,8 +65,11 @@ def _reinitialize():
     from ..ops.collectives import invalidate_fused_plans
     from ..opt import sharded as sharded_mod
 
-    os.environ[env_schema.HOROVOD_ELASTIC_GEN] = str(
-        int(os.environ.get(env_schema.HOROVOD_ELASTIC_GEN, "0")) + 1)
+    gen = int(os.environ.get(env_schema.HOROVOD_ELASTIC_GEN, "0")) + 1
+    os.environ[env_schema.HOROVOD_ELASTIC_GEN] = str(gen)
+    from ..utils import flightrec
+
+    flightrec.note("elastic_generation", generation=gen, reset=True)
     device = ctx_mod._ctx.device
     ctx_mod.shutdown(drain=False)
     # the new generation's plans hold the new groups

@@ -100,6 +100,10 @@ class _HostUpdateListener:
         while not self._stop.is_set():
             cur = self._fetch_epoch()
             if cur is not None and cur != self._seen_epoch:
+                from ..utils import flightrec
+
+                flightrec.note("elastic_generation", epoch=cur,
+                               previous=self._seen_epoch)
                 self._seen_epoch = cur
                 self.change_count += 1
             self._stop.wait(self.WATCH_INTERVAL_S)

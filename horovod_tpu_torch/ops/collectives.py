@@ -598,6 +598,10 @@ def invalidate_fused_plans() -> int:
     (``horovod_tpu/ops/collectives.py:466-471``)."""
     n = len(_PLANS)
     _PLANS.clear()
+    if n:
+        from ..utils import flightrec
+
+        flightrec.note("plan_cache_invalidated", count=n)
     megaplan_mod.invalidate_megaplan("plan_cache")
     return n
 

@@ -45,8 +45,24 @@ Fault points (``utils/faults.py``) sit where the JAX package has them:
 leader has its group's submissions, ``controller.poll`` in each attempt
 of the response poll.
 
-Left out, as ROADMAP.md queue 1 lists them: tuned parameters (item 11),
-and the tracing, straggler and flight-recorder hooks (items 6 and 16).
+Tuned parameters (``utils/autotune.py``): rank 0's autotuner hands a
+proposal to ``submit_params``; the coordinator puts it on the next
+response (``"params"``), and every rank, rank 0 included, applies it in
+``_finish_round`` through ``on_params`` (the runtime's
+``_apply_tuned_params``) at the same round. A round that carries params
+resets the megaplan lease's streak.
+
+Tracing (``HOROVOD_TRACE``): each submission with pending names carries
+the rank's clock-aligned submit time (``"t"`` in v1 JSON, outside the
+SAME_AS_LAST comparison, after the marker as ``{"t": ...}``; the v2
+frames' own field; a leader forwards its group's times; a v1 round takes
+its time after the ``controller.submit`` fault point, where the JAX
+package takes it before), the coordinator
+keeps each rank's first time a name and, when the name goes ready, names
+the last rank and how long the first waited (``"strag"`` on the response,
+``hvd_straggler_*`` series). With tracing off the wire is byte for byte
+the untraced one. A leader notes its rounds and a member its fallbacks in
+the flight recorder (``leader_round``).
 """
 
 from __future__ import annotations
@@ -60,8 +76,11 @@ from typing import Optional
 
 from ..common import env as env_schema
 from ..utils import faults as faults_mod
+from ..utils import flightrec as flightrec_mod
+from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
 from ..utils import retry as retry_mod
+from ..utils import tracing as tracing_mod
 from . import megaplan as megaplan_mod
 from . import wire
 
@@ -81,6 +100,20 @@ def _ctl_prefix() -> str:
 
 def _ctl_scope(r: int) -> str:
     return f"{_ctl_prefix()}/r{r}"
+
+
+#: The knob that every stall-shutdown error of the coordinator names. The
+#: response carries an error as its text alone (the JAX package's frames,
+#: byte for byte), so the runtime tells a stall from any other failure by
+#: this token (``is_stall_error``); both of the coordinator's stall
+#: messages are built around it.
+STALL_SHUTDOWN_KNOB = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
+
+
+def is_stall_error(msg: str) -> bool:
+    """Whether a response's error text is the coordinator's stall
+    shutdown."""
+    return STALL_SHUTDOWN_KNOB in msg
 
 
 def dtype_name(dtype) -> str:
@@ -147,6 +180,8 @@ class KVController:
     # lease; set every round by _finish_round, read by the cycle's capture
     # gate and the replay's check
     megaplan_lease = False
+    # callable(dict) applying tuned knobs at a response's receipt
+    on_params = None
 
     def __init__(self, client, rank: int, size: int,
                  poll_timeout: float = RESPONSE_TIMEOUT_S,
@@ -194,6 +229,8 @@ class KVController:
         self._m_wire_bytes = reg.counter(
             "hvd_controller_wire_bytes_total",
             "negotiation submission bytes put to the KV store")
+        # resolved once: None keeps the wire the untraced one
+        self._tracer = tracing_mod.get_tracer()
         self._coord: Optional[_Coordinator] = None
         if rank == 0:
             self._coord = _Coordinator(client, size,
@@ -269,6 +306,8 @@ class KVController:
             self.fast_rounds += 1
             self._m_cache_hit.inc()
             faults_mod.fault_point("controller.submit")
+            if self._tracer is not None:
+                w += json.dumps({"t": self._tracer.aligned_now()}).encode()
             self.client.put(_ctl_scope(r), f"ready/{self.rank}", w)
             self.bytes_sent += len(w)
             self._m_wire_bytes.inc(len(w))
@@ -301,6 +340,13 @@ class KVController:
         self.megaplan_lease = bool(resp.get("mp"))
         if resp.get("shutdown_done"):
             self.broken = True  # every rank asked to shut down
+        if resp.get("params") is not None and self.on_params is not None:
+            # tuned knobs ride the response, so every rank applies them at
+            # the same round (reference SynchronizeParameters)
+            try:
+                self.on_params(resp["params"])
+            except Exception as e:  # tuning never breaks the lockstep
+                LOG.warning("on_params failed: %s", e)
         if (self._wire_version < wire.WIRE_V2
                 and int(resp.get("wv") or 1) >= wire.WIRE_V2):
             # every rank advertised v2 and the coordinator confirmed:
@@ -312,13 +358,37 @@ class KVController:
             self._last_agg = None
         return resp
 
+    def _submit_time(self, pending) -> Optional[float]:
+        """The clock-aligned submit time a traced round carries when this
+        rank has names pending, else None."""
+        if self._tracer is None or not pending:
+            return None
+        return self._tracer.aligned_now()
+
+    @staticmethod
+    def _stamp(w: bytes, t_sub, encode) -> bytes:
+        """The submission ``w`` (the marker or the payload) with the traced
+        submit time ``t_sub``: after the marker as JSON, else the payload
+        encoded again by ``encode(t_sub)``."""
+        if t_sub is None:
+            return w
+        if w == wire.SAME_AS_LAST:
+            return w + json.dumps({"t": t_sub}).encode()
+        return encode(t_sub)
+
     def _round_v1(self, r: int, pending: dict, joined: bool,
                   shutting_down: bool) -> bytes:
-        payload = wire.encode_submission_v1(
-            pending.items(), joined, shutting_down,
-            wv=wire.WIRE_V2 if self._hier and r == 0 else None)
+        wv = wire.WIRE_V2 if self._hier and r == 0 else None
+        payload = wire.encode_submission_v1(pending.items(), joined,
+                                            shutting_down, wv=wv)
         w = self._marker_or(payload, "flat")  # v1 has the flat channel only
         faults_mod.fault_point("controller.submit")
+        # stamped after the fault point: a submit path slowed there reads
+        # as this rank submitting late
+        w = self._stamp(w, self._submit_time(pending),
+                        lambda t: wire.encode_submission_v1(
+                            pending.items(), joined, shutting_down, wv=wv,
+                            t=t))
         self.client.put(_ctl_scope(r), f"ready/{self.rank}", w)
         self.bytes_sent += len(w)
         self._m_wire_bytes.inc(len(w))
@@ -362,17 +432,23 @@ class KVController:
     def _round_v2(self, r: int, pending: dict, joined: bool,
                   shutting_down: bool) -> bytes:
         entries = list(pending.items())
+        t_sub = self._submit_time(pending)
         if self.rank == self._group_ranks[0]:
-            return self._leader_round(r, entries, joined, shutting_down)
+            return self._leader_round(r, entries, joined, shutting_down,
+                                      t_sub)
         if r < self._flat_until:
-            return self._flat_round(r, entries, joined, shutting_down)
-        return self._member_round(r, entries, joined, shutting_down)
+            return self._flat_round(r, entries, joined, shutting_down,
+                                    t_sub)
+        return self._member_round(r, entries, joined, shutting_down, t_sub)
 
-    def _flat_round(self, r: int, entries, joined, shutting_down) -> bytes:
+    def _flat_round(self, r: int, entries, joined, shutting_down,
+                    t_sub=None) -> bytes:
         """A v2 submission straight to the coordinator: the fallback, and
         a leader's own path while it backs off."""
         payload = wire.encode_submission(entries, joined, shutting_down)
-        w = self._marker_or(payload, "flat")
+        w = self._stamp(self._marker_or(payload, "flat"), t_sub,
+                        lambda t: wire.encode_submission(
+                            entries, joined, shutting_down, t=t))
         faults_mod.fault_point("controller.submit")
         self.client.put(_ctl_scope(r), f"ready/{self.rank}", w)
         self._sent(w)
@@ -380,12 +456,15 @@ class KVController:
         self._last_channel = "flat"
         return self._poll_response(r)
 
-    def _member_round(self, r: int, entries, joined, shutting_down) -> bytes:
+    def _member_round(self, r: int, entries, joined, shutting_down,
+                      t_sub=None) -> bytes:
         """Submit through the group's leader; submit flat if its fan-down
         does not come within the fallback time."""
         gscope = f"{_ctl_scope(r)}/g{self._group}"
         payload = wire.encode_submission(entries, joined, shutting_down)
-        w = self._marker_or(payload, "group")
+        w = self._stamp(self._marker_or(payload, "group"), t_sub,
+                        lambda t: wire.encode_submission(
+                            entries, joined, shutting_down, t=t))
         faults_mod.fault_point("controller.submit")
         try:
             # submit and wait on the fan-down key in one call
@@ -401,7 +480,9 @@ class KVController:
             # rank's tensors, and stay flat for a while
             self._flat_until = r + self.FLAT_BACKOFF_ROUNDS
             self._last_payload = None
-            raw = self._flat_round(r, entries, joined, shutting_down)
+            flightrec_mod.note("leader_round", role="member", round=r,
+                               group=self._group, fallback=True)
+            raw = self._flat_round(r, entries, joined, shutting_down, t_sub)
             # the coordinator may have closed the round on the leader's
             # aggregate without reading the flat submission, so its flat
             # cache for this rank is not to be trusted: markers resume
@@ -409,19 +490,21 @@ class KVController:
             self._last_payload = None
             return raw
 
-    def _leader_round(self, r: int, entries, joined, shutting_down) -> bytes:
+    def _leader_round(self, r: int, entries, joined, shutting_down,
+                      t_sub=None) -> bytes:
         """Gather the group, put one aggregate to the coordinator and fan
         the response down. A failed merge or submit falls back to a flat
         round (the members submit flat on their own timeout), so a dead
         leader stalls a round and never desyncs it."""
         if r < self._flat_until:
-            return self._flat_round(r, entries, joined, shutting_down)
+            return self._flat_round(r, entries, joined, shutting_down,
+                                    t_sub)
         gscope = f"{_ctl_scope(r)}/g{self._group}"
         members = self._group_ranks[1:]
         raw = None
         try:
             w, covered = self._merge_group(r, gscope, members, entries,
-                                           joined, shutting_down)
+                                           joined, shutting_down, t_sub)
             faults_mod.fault_point("controller.submit")
             # submit and wait on the response in one call; a 404 at the
             # deadline means the put landed and the round is still open
@@ -438,7 +521,9 @@ class KVController:
             self._last_agg = None
             self._last_payload = None
             self._flat_until = r + self.FLAT_BACKOFF_ROUNDS
-            raw = self._flat_round(r, entries, joined, shutting_down)
+            flightrec_mod.note("leader_round", role="leader", round=r,
+                               group=self._group, fallback=True)
+            raw = self._flat_round(r, entries, joined, shutting_down, t_sub)
             self._last_payload = None
             return raw
         if members and len(covered) == 1:
@@ -451,10 +536,13 @@ class KVController:
             # the members wait on the group's key: unblock them first
             self.client.put(gscope, "resp", raw)
             self._sent(raw)
+        flightrec_mod.note("leader_round", role="leader", round=r,
+                           group=self._group, covered=len(covered),
+                           bytes=len(w))
         return raw
 
     def _merge_group(self, r: int, gscope: str, members, entries, joined,
-                     shutting_down):
+                     shutting_down, t_sub=None):
         """Collect the members' submissions (those in by the fallback time;
         a member left out submits flat itself), merge them with this
         leader's, and return ``(bytes to put, covered ranks)``. The
@@ -477,6 +565,7 @@ class KVController:
         covered = {self.rank}
         j_set = {self.rank} if joined else set()
         sd_set = {self.rank} if shutting_down else set()
+        t_map = {} if t_sub is None else {self.rank: t_sub}
 
         def add(name, sig, k):
             key = (name, json.dumps(sig))
@@ -491,20 +580,28 @@ class KVController:
             add(name, sig, self.rank)
         for k in sorted(got):
             raw = got[k]
+            t_k = None
             if raw[:1] == wire.SAME_AS_LAST:
                 msg = self._member_cache.get(k)
                 if msg is None:
                     # nothing to expand the marker with: the member stays
                     # uncovered and submits flat when no fan-down frees it
                     continue
+                if len(raw) > 1:  # a traced marker's submit time
+                    try:
+                        t_k = float(json.loads(raw[1:])["t"])
+                    except (ValueError, TypeError, KeyError):
+                        t_k = None
             else:
                 try:
                     msg = wire.decode_submission(raw)
                 except wire.WireDecodeError:
                     continue  # a torn frame: the member submits flat
-                msg.pop("t", None)  # a traced peer's submit time
+                t_k = msg.pop("t", None)  # a traced member's submit time
                 self._member_cache[k] = msg
             covered.add(k)
+            if t_k is not None:
+                t_map[k] = float(t_k)
             if msg.get("j"):
                 j_set.add(k)
             if msg.get("sd"):
@@ -516,10 +613,15 @@ class KVController:
                                      j_set, sd_set)
         if base == self._last_agg:
             w = wire.SAME_AS_LAST
+            if t_map:
+                w += json.dumps(
+                    {"t": {str(k): v for k, v in t_map.items()}}).encode()
             self.fast_rounds += 1
             self._m_cache_hit.inc()
         else:
-            w = base
+            w = (base if not t_map else
+                 wire.encode_aggregate(self._group, self.size, items,
+                                       covered, j_set, sd_set, t_map=t_map))
             self._m_cache_miss.inc()
         self._last_agg = base
         return w, covered
@@ -556,6 +658,15 @@ class KVController:
                     return
         except Exception:
             return  # peer gone or round timed out: nothing left to serve
+
+    def submit_params(self, params: dict):
+        """Rank 0: hand tuned knobs to the coordinator, which puts them on
+        the next response, so every rank applies them through
+        ``on_params`` at the same round."""
+        if self._coord is not None:
+            self._coord.set_params(params)
+        elif self.on_params is not None:
+            self.on_params(params)
 
     def stop(self):
         if self._coord:
@@ -618,6 +729,15 @@ class _Coordinator(threading.Thread):
         self._last_joined_rank = -1
         self._first_seen: dict[str, float] = {}
         self._stall_warned: set[str] = set()
+        # name -> {rank: its first clock-aligned submit time} (tracing)
+        self._arrivals: dict[str, dict] = {}
+        # the straggler series, made at the first attribution, so an
+        # untraced run has none
+        self._m_strag_wait = None
+        self._m_strag_last: dict[int, object] = {}
+        # tuned knobs for the next response (submit_params)
+        self._params_lock = lockcheck.make_lock("controller.params")
+        self._pending_params = None  # guarded-by: _params_lock
         reg = metrics_mod.get_registry()
         self._m_responses = reg.counter(
             "hvd_coordinator_responses_total",
@@ -628,6 +748,10 @@ class _Coordinator(threading.Thread):
         self._m_stall_warn = reg.counter(
             "hvd_coordinator_stall_warnings_total",
             "coordinator stall warnings (round or per-tensor)")
+
+    def set_params(self, params: dict):
+        with self._params_lock:
+            self._pending_params = params
 
     def _warn_stall(self, round_no: int, missing: set[int], elapsed: float):
         waiting = {n: sorted(self._required(n) - ranks)
@@ -646,11 +770,12 @@ class _Coordinator(threading.Thread):
         absent ranks, and tell workers to resend full payloads."""
         msg = (f"collective negotiation stalled for {elapsed:.0f} s waiting "
                f"on ranks {sorted(missing)}; shutting the round down "
-               "(HOROVOD_STALL_SHUTDOWN_TIME_SECONDS exceeded)")
+               f"({STALL_SHUTDOWN_KNOB} exceeded)")
         errors = {n: msg for n in self.order}
         self.table.clear()
         self.order.clear()
         self.errors.clear()
+        self._arrivals.clear()
         self._last_submission.clear()
         self._mp_stable = 0
         self.client.put(_ctl_scope(r), "resp", wire.encode_response_v1(
@@ -660,7 +785,8 @@ class _Coordinator(threading.Thread):
         """One source's submission in the contribution shape, the format
         sniffed a frame (marker, v2 binary, v1 JSON), so a flat rank and a
         leader's aggregate can share a round; ``mk`` says the source sent
-        the marker. The decoded contribution is kept for markers."""
+        the marker, ``t`` holds the traced submit times by rank. The
+        decoded contribution (without ``t``) is kept for markers."""
         if raw[:1] == wire.SAME_AS_LAST:
             base = self._last_submission.get(source)
             if base is None:
@@ -670,7 +796,19 @@ class _Coordinator(threading.Thread):
                         "wv": wire.WIRE_V1,
                         "covered": (set() if source[:1] == "g"
                                     else {int(source)})}
-            return dict(base, mk=True)
+            t_map: dict = {}
+            if len(raw) > 1:
+                # a traced marker: a float for a flat rank, {rank: float}
+                # for an aggregate
+                try:
+                    t = json.loads(raw[1:])["t"]
+                    if isinstance(t, dict):
+                        t_map = {int(k): float(v) for k, v in t.items()}
+                    else:
+                        t_map = {int(source): float(t)}
+                except (ValueError, TypeError, KeyError):
+                    t_map = {}
+            return dict(base, t=t_map, mk=True)
         if raw[:1] == _MAGIC_BYTE:
             if wire.is_aggregate(raw):
                 m = wire.decode_aggregate(raw)
@@ -679,17 +817,26 @@ class _Coordinator(threading.Thread):
                            "covered": set(m["covered"]),
                            "j": set(m["j"]), "sd": set(m["sd"]),
                            "wv": wire.WIRE_V2}
+                t_map = {int(k): float(v)
+                         for k, v in (m.get("t") or {}).items()}
             else:
-                contrib = _flat_contribution(
-                    int(source), wire.decode_submission(raw), wire.WIRE_V2)
+                msg = wire.decode_submission(raw)
+                t = msg.pop("t", None)
+                contrib = _flat_contribution(int(source), msg, wire.WIRE_V2)
+                t_map = {} if t is None else {int(source): float(t)}
         else:
             msg = wire.decode_response_v1(raw)
             if isinstance(msg, list):  # a bare entry list
                 msg = {"e": msg}
+            t = msg.pop("t", None)  # per round, not part of the cache
             contrib = _flat_contribution(int(source), msg,
                                          int(msg.get("wv") or 1))
+            try:
+                t_map = {} if t is None else {int(source): float(t)}
+            except (TypeError, ValueError):
+                t_map = {}
         self._last_submission[source] = contrib
-        return dict(contrib, mk=False)
+        return dict(contrib, t=t_map, mk=False)
 
     def _gather_round(self, r: int) -> Optional[list]:
         """Read submissions until every rank is covered (a flat source
@@ -766,6 +913,7 @@ class _Coordinator(threading.Thread):
                               and resp["join_done"] is None
                               and not self._joined and not self._down
                               and not self._wire_v2 and "wv" not in resp
+                              and "params" not in resp
                               and all(c["mk"] for _, c in contribs))
                     self._mp_stable = self._mp_stable + 1 if stable else 0
                     if self._mp_stable >= self._mp_rounds:
@@ -818,9 +966,10 @@ class _Coordinator(threading.Thread):
                     self._joined.add(k)
                     self._last_joined_rank = k
             self._down |= c["sd"]
+            t_map = c.get("t") or {}
             for name, sig, ranks in c["entries"]:
                 for k in sorted(ranks):
-                    self._increment(name, sig, k)
+                    self._increment(name, sig, k, t_map.get(k))
         self._check_stalled_tensors()
         ready = [n for n in self.order
                  if n not in self.errors
@@ -836,6 +985,7 @@ class _Coordinator(threading.Thread):
                 c["j"] = set()
         errors = dict(self.errors)
         sigs = {n: self.table[n][0] for n in ready}
+        strag = self._attribute_stragglers(ready)
         for n in ready + list(errors):
             self.table.pop(n, None)
             if n in self.order:
@@ -843,11 +993,52 @@ class _Coordinator(threading.Thread):
             self.errors.pop(n, None)
             self._first_seen.pop(n, None)
             self._stall_warned.discard(n)
+            self._arrivals.pop(n, None)
         resp = {"ready": ready, "sigs": sigs, "errors": errors,
                 "join_done": join_done}
+        if strag:
+            resp["strag"] = strag
         if len(self._down) == self.size:
             resp["shutdown_done"] = True
+        with self._params_lock:
+            if self._pending_params is not None:
+                resp["params"] = self._pending_params
+                self._pending_params = None
         return resp
+
+    def _attribute_stragglers(self, ready: list[str]) -> dict:
+        """For each released name whose required ranks all reported a
+        submit time: the rank that submitted last and how long the first
+        waited. Feeds the ``hvd_straggler_*`` series and rides the
+        response, so every rank stamps its spans alike."""
+        strag: dict[str, list] = {}
+        for n in ready:
+            arr = self._arrivals.pop(n, None)
+            if not arr or len(arr) < 2:
+                continue
+            required = self._required(n) - self._joined
+            if not required.issubset(arr.keys()):
+                continue
+            times = {k: arr[k] for k in required}
+            last = max(times, key=lambda k: times[k])
+            wait = max(times.values()) - min(times.values())
+            strag[n] = [last, round(wait, 6)]
+            if self._m_strag_wait is None:
+                self._m_strag_wait = metrics_mod.get_registry().histogram(
+                    "hvd_straggler_wait_seconds",
+                    "per-collective wait between the fastest and the "
+                    "last-submitting rank (clock-aligned)",
+                    buckets=tracing_mod.STRAGGLER_BUCKETS_S)
+            self._m_strag_wait.observe(wait)
+            c = self._m_strag_last.get(last)
+            if c is None:
+                c = self._m_strag_last[last] = \
+                    metrics_mod.get_registry().counter(
+                        "hvd_straggler_last_rank_total",
+                        "collectives for which this rank submitted last",
+                        rank=str(last))
+            c.inc()
+        return strag
 
     def _abort_close(self, r: int, exc: Exception):
         """Fail fast when the coordinator dies: publish an abort for the
@@ -876,8 +1067,7 @@ class _Coordinator(threading.Thread):
             if self.stall_shutdown_s > 0 and age > self.stall_shutdown_s:
                 self.errors[n] = (
                     f"tensor {n!r} stalled for {age:.0f} s waiting on ranks "
-                    f"{missing}; exceeded "
-                    "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS")
+                    f"{missing}; exceeded {STALL_SHUTDOWN_KNOB}")
             elif age > self.stall_warning_s and n not in self._stall_warned:
                 LOG.warning(
                     "Tensor %r has been ready on ranks %s for %.0f s but is "
@@ -895,9 +1085,14 @@ class _Coordinator(threading.Thread):
             return set(sig[9])
         return set(range(self.size))
 
-    def _increment(self, name: str, sig: list, rank: int):
+    def _increment(self, name: str, sig: list, rank: int,
+                   t_sub: Optional[float] = None):
         """Count one rank's submission of ``name``; a signature that
-        differs from the first rank's fails the name on every rank."""
+        differs from the first rank's fails the name on every rank.
+        ``t_sub`` is the rank's traced submit time: its first one a name
+        is kept."""
+        if t_sub is not None:
+            self._arrivals.setdefault(name, {}).setdefault(rank, t_sub)
         if name not in self.table:
             self.table[name] = (sig, {rank})
             self.order.append(name)

@@ -37,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Optional, Sequence, Tuple
 
 from ..common import env as env_schema
+from ..utils import flightrec as flightrec_mod
 from ..utils import metrics as metrics_mod
 
 DEFAULT_STABLE_ROUNDS = 5
@@ -164,6 +165,9 @@ class MegaplanManager:
         self._m_captures.inc()
         self._m_active.set(1)
         self._m_capture_rounds.set(self.capture_rounds)
+        flightrec_mod.note("megaplan", event="captured",
+                           tensors=plan.tensors, chunks=len(plan.chunks),
+                           bytes=plan.nbytes, rounds=self._stable)
 
     def abort_capture(self) -> None:
         """A capture failed: a new capture needs a new stable window."""
@@ -193,6 +197,7 @@ class MegaplanManager:
                 reason=reason)
         m.inc()
         self._m_active.set(0)
+        flightrec_mod.note("megaplan", event="invalidated", reason=reason)
 
     def replay_hit_rate(self) -> Optional[float]:
         """The replayed share of the cycles after a capture; None before

@@ -97,9 +97,29 @@ elastic ``run`` recovers from), ``megaplan.capture`` before a capture is
 installed (it aborts the capture) and ``megaplan.replay`` before a replay
 (it invalidates the megaplan and the cycle negotiates).
 
-Left out, as ROADMAP.md queue 1 lists them: autotuning
-(``set_compression_spec``), and the tracing, timeline, flight-recorder,
-anatomy and perf-ledger hooks.
+The instruments (``utils/``; each exists only when its knob is set, and
+a hook then costs one ``is None`` or truth test): the timeline's
+``NEGOTIATE_<OP>`` span from enqueue to finish and its activity
+(``FUSED_ALLREDUCE``, ``QUANT_FUSED_ALLREDUCE`` or the op) around each
+dispatch; the stall inspector's pending table, checked every cycle; a
+tracing ``Span`` on each entry, stamped at drain, negotiation, dispatch
+and finish, and finalized in ``_finish``, where every terminal path ends
+(a failed chunk, a failed round, an elastic stop); the flight recorder's
+round and fallback notes; the perf ledger's and the anatomy's record of
+each working cycle (``_finish_cycle``), the anatomy's chunk entities
+timed on the card by ``EventToken``s (an event before a chunk's first
+kernel and its done event, read without a synchronize). All JSON and
+file work runs on the timeline's writer and the metrics dumper's threads.
+
+The autotuner's knobs (``_apply_tuned_params``): the fusion threshold,
+the cycle time, the most tensors a chunk (``HOROVOD_PLAN_CHUNK_TENSORS``),
+the wire, the negotiation group size and the hierarchical flags, applied
+all or nothing at a round's response, which every rank receives at the
+same round; a world of one applies them at the end of the sampling
+cycle. Each setter that moves a chunk boundary drops the cached plans,
+and every change drops a captured megaplan. A new cycle time takes effect
+at the next sleep. The autotuner samples every
+``autotune_steps_per_sample`` working cycles.
 """
 
 from __future__ import annotations
@@ -114,16 +134,22 @@ from typing import Any, Optional
 import torch
 
 from ..common import context as ctx_mod
-from ..common.exceptions import DuplicateNameError, HorovodInternalError
+from ..common import env as env_schema
+from ..common.exceptions import (DuplicateNameError, HorovodInternalError,
+                                 StalledTensorError)
+from ..utils import anatomy as anatomy_mod
 from ..utils import faults as faults_mod
+from ..utils import flightrec as flightrec_mod
 from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
+from ..utils import perfledger as perfledger_mod
+from ..utils import tracing as tracing_mod
 from .. import _native
 from . import collectives as C
 from . import compression as comp
 from . import fused_pack
 from . import megaplan as megaplan_mod
-from .controller import dtype_name
+from .controller import dtype_name, is_stall_error
 
 LOG = logging.getLogger("horovod_tpu_torch")
 
@@ -149,6 +175,8 @@ class TensorEntry:
     ready: Any = None
     # the entry's wire (a compression.QuantSpec from a marker), or None
     quant: Any = None
+    # lifecycle trace span (utils/tracing.py); None unless HOROVOD_TRACE
+    span: Any = None
 
 
 class HandleManager:
@@ -260,12 +288,16 @@ class BackgroundRuntime:
     rank)."""
 
     def __init__(self, process_set, config, device: torch.device, group,
-                 kv_client=None):
+                 kv_client=None, timeline=None, stall_inspector=None):
         self.process_set = process_set
         self.group = group
         self.device = torch.device(device)
         self.cycle_time_ms = config.cycle_time_ms
         self.fusion_threshold = config.fusion_threshold_bytes
+        # the most tensors a fused chunk (0: bounded by bytes only)
+        self.plan_chunk_tensors = max(0, int(config.plan_chunk_tensors))
+        self.timeline = timeline
+        self.stall = stall_inspector
         self.queue = TensorQueue()
         self.handles = HandleManager()
         self.fusion_buffer = _native.FusionBuffer(
@@ -284,6 +316,7 @@ class BackgroundRuntime:
         self.work_cycles = 0
         self.chunks = 0            # fused chunks, one tensor or more
         self.collective_calls = 0  # calls into the communicator
+        self.bytes_processed = 0   # the autotuner's score without a ledger
         reg = metrics_mod.get_registry()
         self.metrics = reg
         self._m_cycle = reg.histogram(
@@ -310,7 +343,30 @@ class BackgroundRuntime:
             "hvd_op_errors_total", "eager ops failed during execution")
         self._m_by_op: dict[tuple, tuple] = {}
         self._m_enq: dict[str, Any] = {}
+        # attached by context.init under HOROVOD_AUTOTUNE
+        self.autotuner = None
+        self.autotune_steps_per_sample = max(
+            1, int(config.autotune_steps_per_sample))
+        # the instruments, resolved once: None costs a hook one check
+        self.tracer = tracing_mod.get_tracer()
+        self.recorder = flightrec_mod.get_recorder()
+        self.ledger = perfledger_mod.get_ledger()
+        self.profiler = anatomy_mod.get_profiler()
+        # the ledger's and the anatomy's scratch of one cycle (cycle
+        # thread only, reset as a cycle starts): the execute windows'
+        # seconds and the round's worst straggler verdict
+        self._perf_exec_s = 0.0
+        self._perf_strag: Optional[tuple] = None
+        # the wire knob is refused under the sharded update
+        self._sharded_update = env_schema.get_bool(
+            env_schema.HOROVOD_SHARDED_UPDATE)
         self.controller = self._maybe_controller(config, kv_client)
+        if self.controller is not None:
+            self.controller.on_params = self._apply_tuned_params
+            if self.stall is not None:
+                # the coordinator owns the stall shutdown at more than one
+                # rank (it knows who is missing); the local inspector warns
+                self.stall.shutdown_time_s = 0.0
         # the compressed wire (HOROVOD_COMPRESSION) and its guardrails;
         # the residuals are set up by the first group that asks for it
         self._quant = comp.resolve_quant_spec(config)
@@ -344,6 +400,108 @@ class BackgroundRuntime:
                             hier=config.hier_negotiation,
                             hier_group_size=config.hier_group_size,
                             hier_fallback_s=config.hier_fallback_s)
+
+    # -- tuned parameters (utils/autotune.py) -------------------------------
+    def _validate_tuned_params(self, p: dict) -> dict:
+        """Parse and check a proposal into typed knob values before any is
+        applied: a malformed proposal leaves the runtime as it was."""
+        out = {}
+        if "fusion" in p:
+            v = int(p["fusion"])
+            if v <= 0:
+                raise ValueError(f"fusion threshold must be > 0, got {v}")
+            out["fusion"] = v
+        if "cycle" in p:
+            v = float(p["cycle"])
+            if not v > 0:
+                raise ValueError(f"cycle time must be > 0, got {v}")
+            out["cycle"] = v
+        if "chunk" in p:
+            v = int(p["chunk"])
+            if v < 0:
+                raise ValueError(f"plan chunk tensors must be >= 0, got {v}")
+            out["chunk"] = v
+        if "compression" in p:
+            mode = str(p["compression"]).strip().lower() or "none"
+            # raises for a mode outside none|bf16|int8|int4
+            spec = comp.spec_for_mode(mode)
+            if spec is not None and self._sharded_update:
+                raise ValueError(
+                    "compression is mutually exclusive with the sharded "
+                    "update (HOROVOD_SHARDED_UPDATE)")
+            out["compression"] = spec
+        if "hier_group" in p:
+            v = int(p["hier_group"])
+            if v < 1:
+                raise ValueError(f"hier group size must be >= 1, got {v}")
+            out["hier_group"] = v
+        for k in ("hier_ar", "hier_ag"):
+            if k in p:
+                out[k] = bool(p[k])
+        return out
+
+    def _apply_tuned_params(self, p: dict):
+        """Apply tuned knobs (reference SynchronizeParameters): called at a
+        round's response, which every rank receives at the same round, or
+        at a world of one by the autotuner itself. All or nothing; each
+        knob that moves a chunk boundary goes through its setter, which
+        drops the cached plans, and any change drops a captured
+        megaplan."""
+        try:
+            knobs = self._validate_tuned_params(p)
+            if knobs:
+                megaplan_mod.invalidate_megaplan("tuned_params")
+            if "fusion" in knobs:
+                self.set_fusion_threshold(knobs["fusion"])
+            if "cycle" in knobs:
+                # read at the cycle thread's next sleep
+                self.cycle_time_ms = knobs["cycle"]
+            if "chunk" in knobs:
+                self.set_plan_chunk_tensors(knobs["chunk"])
+            if "compression" in knobs:
+                self.set_compression_spec(knobs["compression"])
+            if "hier_group" in knobs and self.controller is not None:
+                self.controller.set_group_size(knobs["hier_group"])
+            if "hier_ar" in knobs or "hier_ag" in knobs:
+                cfg = ctx_mod._ctx.config
+                cfg.hierarchical_allreduce = bool(
+                    knobs.get("hier_ar", cfg.hierarchical_allreduce))
+                cfg.hierarchical_allgather = bool(
+                    knobs.get("hier_ag", cfg.hierarchical_allgather))
+        finally:
+            at = self.autotuner
+            if at is not None and p.get("final"):
+                at.done = True
+
+    def set_fusion_threshold(self, nbytes: int):
+        """Adopt a new fusion threshold: the chunks' boundaries move, so
+        the fusion buffer takes the new size and the cached plans go."""
+        nbytes = int(nbytes)
+        if nbytes == self.fusion_threshold:
+            return
+        self.fusion_threshold = nbytes
+        self.fusion_buffer.resize(nbytes)
+        C.invalidate_fused_plans()
+
+    def set_plan_chunk_tensors(self, n: int):
+        """Adopt a new cap on a chunk's tensors (0: bytes only); the
+        boundaries move as under a new threshold."""
+        n = max(0, int(n))
+        if n == self.plan_chunk_tensors:
+            return
+        self.plan_chunk_tensors = n
+        C.invalidate_fused_plans()
+
+    def set_compression_spec(self, spec):
+        """Adopt a new runtime wire (None, cast or blockwise:
+        ``compression.spec_for_mode``). The plans key on the wire, but the
+        old wire's are dead weight, so they go; the fallback notes reset
+        so the new wire counts its own."""
+        if spec == self._quant:
+            return
+        self._quant = spec
+        self._quant_noted.clear()
+        C.invalidate_fused_plans()
 
     def _op_metrics(self, op: str, dtype: str) -> tuple:
         """(bytes_total, latency_hist, ops_total) of one (op, dtype)."""
@@ -383,15 +541,27 @@ class BackgroundRuntime:
         if self.comm_stream is not None:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
+        tracer = self.tracer
         for e in entries:
             e.handle = self.handles.allocate()
             e.ready = ready
+            if tracer is not None:
+                e.span = tracer.begin(e.name, e.op)
         try:
             self.queue.push(entries)
         except BaseException:
             for e in entries:
                 self.handles.discard(e.handle)
+                if e.span is not None:
+                    # a refused entry never reaches _finish
+                    tracer.finish(e.span, error=True)
             raise
+        if self.stall:
+            for e in entries:
+                self.stall.record_pending(e.name)
+        if self.timeline:
+            for e in entries:
+                self.timeline.negotiate_start(e.name, e.op.upper())
         for e in entries:
             c = self._m_enq.get(e.op)
             if c is None:
@@ -426,6 +596,9 @@ class BackgroundRuntime:
             self.controller.stop()
         err = HorovodInternalError("Horovod has been shut down")
         for e in list(self._pending.values()) + self.queue.finalize():
+            if e.span is not None:
+                self.tracer.finish(e.span, error=True)
+                e.span = None
             self.handles.mark_done(e.handle, exc=err)
         self._pending.clear()
         # cached plans hold this runtime's process group, which dies with
@@ -461,8 +634,19 @@ class BackgroundRuntime:
         self.cycles += 1
         batch = self.queue.drain()
         t0 = time.perf_counter()
+        t_neg = 0.0
+        self._perf_exec_s, self._perf_strag = 0.0, None
         if batch:
             self._m_queue_depth.set(len(batch))
+            if self.tracer is not None:
+                now = time.time()
+                for e in batch:
+                    if e.span is not None:
+                        e.span.t[tracing_mod.T_DRAIN] = now
+            if self.timeline:
+                self.timeline.mark_cycle_start()
+        if self.stall:
+            batch = self._check_stalls(batch)
         mp = self._mp
         if mp is not None and C.hierarchy_verdicts() != self._mp_hier:
             # the chunk plans' collectives changed: the captured chain
@@ -475,7 +659,9 @@ class BackgroundRuntime:
             if self._megaplan_cycle(batch, t0):
                 return
         if self.controller is not None:
+            t_n = time.perf_counter()
             batch = self._negotiate(batch)
+            t_neg = time.perf_counter() - t_n
         if not batch:
             self._m_cycles_idle.inc()
             return
@@ -492,15 +678,64 @@ class BackgroundRuntime:
                     and (self.controller is None
                          or self.controller.megaplan_lease)):
                 self._mp_capture = []
-        self._dispatch_batch(batch)
+        t_disp = self._dispatch_batch(batch)
         if self._mp_capture is not None:
             self._megaplan_commit(cap_sig, batch)
-        self._finish_cycle(batch, t0)
+        self._finish_cycle(batch, t0, t_neg, t_disp)
 
-    def _finish_cycle(self, batch: list[TensorEntry], t0: float):
-        """A working cycle's tail, the negotiated and the replayed one's."""
+    def _check_stalls(self, batch: list) -> list:
+        """The stall inspector's pass (every cycle): past the shutdown time
+        it raises with the stalled names, which fail here, in the batch and
+        in the pending table; the cycle goes on with the rest. Any other
+        failure fails the drained batch, which no later cycle sees, and
+        leaves the cycle: a drained entry left unfinished would hang its
+        handle."""
+        try:
+            self.stall.check()
+        except Exception as exc:
+            names = getattr(exc, "names", None)
+            if names is None:
+                err = HorovodInternalError(f"stall check failed: {exc!r}")
+                for e in batch:
+                    self._finish(e, None, err)
+                raise
+            names = set(names)
+            for e in batch + [e for e in self._pending.values()
+                              if e.name in names]:
+                if e.name in names:
+                    self._pending.pop(self._wire_name(e), None)
+                    self._finish(e, None, StalledTensorError(str(exc)))
+            return [e for e in batch if e.name not in names]
+        return batch
+
+    def _finish_cycle(self, batch: list[TensorEntry], t0: float,
+                      t_neg: float = 0.0, t_disp: float = 0.0):
+        """A working cycle's tail, the negotiated and the replayed one's:
+        the cycle histogram, the ledger's and the anatomy's records, and
+        the autotuner's sample every ``autotune_steps_per_sample`` working
+        cycles."""
+        wall = time.perf_counter() - t0
         self.work_cycles += 1
-        self._m_cycle.observe(time.perf_counter() - t0)
+        self._m_cycle.observe(wall)
+        if self.ledger is not None:
+            self.ledger.record_step(wall, negotiate_s=t_neg,
+                                    dispatch_s=t_disp,
+                                    exec_s=self._perf_exec_s,
+                                    tensors=len(batch),
+                                    straggler=self._perf_strag)
+        if self.profiler is not None:
+            self.profiler.record_step(wall, negotiate_s=t_neg,
+                                      dispatch_s=t_disp, tensors=len(batch),
+                                      names=[e.name for e in batch],
+                                      straggler=self._perf_strag)
+        at = self.autotuner
+        if at is not None:
+            at.note_cycle(batch)
+            if self.work_cycles % self.autotune_steps_per_sample == 0:
+                try:
+                    at.sample()
+                except Exception:
+                    LOG.exception("autotune sample failed")
 
     def _comm(self):
         """The comm stream as PyTorch's current stream (nothing on the
@@ -557,13 +792,16 @@ class BackgroundRuntime:
             LOG.warning("megaplan replay fault: %s", exc)
             mp.invalidate("fault")
             return False
+        t_neg = 0.0
         if ctl is not None:
+            t_n = time.perf_counter()
             try:
                 resp = ctl.lease_round()
             except Exception as exc:
                 self._fail_negotiation(exc, batch)
                 mp.invalidate("controller")
                 return True
+            t_neg = time.perf_counter() - t_n
             if (not ctl.megaplan_lease or resp["errors"]
                     or resp["join_done"] is not None
                     or plan.epoch != megaplan_mod.epoch()):
@@ -578,8 +816,8 @@ class BackgroundRuntime:
                     self._m_cycles_idle.inc()
                     return True
                 self._m_cycles_work.inc()
-                self._dispatch_batch(out)
-                self._finish_cycle(out, t0)
+                t_disp = self._dispatch_batch(out)
+                self._finish_cycle(out, t0, t_neg, t_disp)
                 return True
         self._m_cycles_work.inc()
         by = {self._wire_name(e): e for e in batch}
@@ -589,14 +827,27 @@ class BackgroundRuntime:
             steps.append((cplan, [e.tensor for e in entries],
                           [e.output for e in entries],
                           [e.ready for e in entries]))
+        if self.tracer is not None:
+            disp0 = time.time()
+            for e in batch:
+                if e.span is not None:
+                    e.span.t[tracing_mod.T_DISPATCH_START] = disp0
+        profiler, start = self.profiler, None
         calls0, t_chain = C.dist_calls, time.perf_counter()
         with self._comm():
+            if profiler is not None and self.comm_stream is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self.comm_stream)
             outs, exc = _native.chain_dispatch(self.fusion_buffer, steps,
-                                               self.comm_stream)
+                                               self.comm_stream,
+                                               timing=start is not None)
         chain_s = time.perf_counter() - t_chain
+        self._perf_exec_s += chain_s
         self.collective_calls += C.dist_calls - calls0
+        disp1 = time.time() if self.tracer is not None else 0.0
         for done, (names, _, nbytes, dtype) in zip(outs, plan.chunks):
             self.chunks += 1
+            self.bytes_processed += nbytes
             m_bytes, m_lat, m_ops = self._op_metrics("allreduce", dtype)
             m_bytes.inc(nbytes)
             m_ops.inc()
@@ -604,7 +855,13 @@ class BackgroundRuntime:
             self._m_fusion_batch.observe(len(names))
             self._m_fused_bytes.observe(nbytes)
             for n in names:
-                self._finish(by[n], by[n].output, done=done)
+                e = by[n]
+                if e.span is not None:
+                    e.span.t[tracing_mod.T_DISPATCH_END] = disp1
+                    e.span.chunk_bytes = nbytes
+                    e.span.chunk_tensors = len(names)
+                self._finish(e, e.output, done=done)
+        t_disp = time.perf_counter() - t_chain
         if exc is not None:
             # the chain stopped at a chunk: fail it and every later one,
             # and go back to negotiating
@@ -617,12 +874,20 @@ class BackgroundRuntime:
             mp.invalidate("dispatch")
         else:
             mp.note_replay()
-        self._finish_cycle(batch, t0)
+            if profiler is not None:
+                done = outs[-1] if outs else None
+                profiler.note_megaplan(
+                    list(by), sum(c[2] for c in plan.chunks), len(batch),
+                    chain_s, token=(anatomy_mod.EventToken(start, done)
+                                    if start is not None and done is not None
+                                    else None), t0_pc=t_chain)
+        self._finish_cycle(batch, t0, t_neg, t_disp)
         return True
 
-    def _dispatch_batch(self, batch: list[TensorEntry]):
+    def _dispatch_batch(self, batch: list[TensorEntry]) -> float:
         """Group a ready batch into fusable allreduces and single ops, and
-        dispatch them on the comm stream, in the batch's order."""
+        dispatch them on the comm stream, in the batch's order; returns
+        the dispatch's seconds."""
         fusable: dict[tuple, list[TensorEntry]] = {}
         singles: list[TensorEntry] = []
         for e in batch:
@@ -639,11 +904,13 @@ class BackgroundRuntime:
         if singles:
             # a single op runs outside any chunk plan: not replayable
             self._mp_capture = None
+        t0 = time.perf_counter()
         with self._comm():
             for group in fusable.values():
                 self._run_fused_allreduce(group)
             for e in singles:
                 self._run_single(e)
+        return time.perf_counter() - t0
 
     def _negotiate(self, batch: list[TensorEntry]) -> list[TensorEntry]:
         """One round: post the pending set (and whether this rank has
@@ -656,12 +923,31 @@ class BackgroundRuntime:
         for e in batch:
             self._pending[self._wire_name(e)] = e
         sigs = {n: entry_signature(e) for n, e in self._pending.items()}
+        rec = self.recorder
+        if self.tracer is not None or rec is not None:
+            rnd = self.controller.round
+        if self.tracer is not None and self._pending:
+            now = time.time()
+            for e in self._pending.values():
+                # a tensor pending over rounds keeps its first round's
+                if e.span is not None \
+                        and e.span.t[tracing_mod.T_NEG_START] is None:
+                    e.span.t[tracing_mod.T_NEG_START] = now
+                    e.span.round = rnd
+        if rec is not None:
+            rec.note("negotiation_round", state="begin", round=rnd,
+                     tensors=len(sigs))
         try:
             resp = self.controller.negotiate(sigs, joined=self.joined)
         except Exception as exc:
+            if rec is not None:
+                rec.note("negotiation_round", state="end", round=rnd,
+                         ok=False)
             self._fail_negotiation(exc, list(self._pending.values()))
             self._pending.clear()
             return []
+        if rec is not None:
+            rec.note("negotiation_round", state="end", round=rnd, ok=True)
         return self._process_response(resp)
 
     def _fail_negotiation(self, exc: Exception, entries):
@@ -686,11 +972,30 @@ class BackgroundRuntime:
             e = self._pending.pop(n, None)
             if e is not None:
                 self._m_neg_errors.inc()
-                self._finish(e, None, HorovodInternalError(msg))
+                # the coordinator's stall shutdown names the missing ranks
+                cls = (StalledTensorError if is_stall_error(msg)
+                       else HorovodInternalError)
+                self._finish(e, None, cls(msg))
         out = []
+        strag = resp.get("strag") or {}
+        if strag and (self.ledger is not None or self.profiler is not None):
+            # the round's worst verdict goes into the cycle's records
+            self._perf_strag = max(
+                ((int(r), float(w)) for r, w in strag.values()),
+                key=lambda rw: rw[1])
+        neg_end = time.time() if self.tracer is not None else 0.0
         for n in resp["ready"]:
             e = self._pending.pop(n, None)
             if e is not None:
+                if e.span is not None:
+                    e.span.t[tracing_mod.T_NEG_END] = neg_end
+                    info = strag.get(n)
+                    if info:
+                        e.span.straggler_rank = int(info[0])
+                        e.span.straggler_wait_s = float(info[1])
+                        if self.stall:
+                            self.stall.note_straggler(
+                                e.name, int(info[0]), float(info[1]))
                 out.append(e)
             elif self.joined:
                 # joined ranks contribute zeros (reference
@@ -759,24 +1064,48 @@ class BackgroundRuntime:
 
     # -- execution -----------------------------------------------------------
     def _finish(self, entry: TensorEntry, result, exc=None, done=None):
+        """The one terminal of an entry: every path that ends one (a
+        result, a failed chunk, round or stall) comes here, so its span is
+        always finalized."""
         self.queue.release(entry.name)
+        if self.stall:
+            self.stall.record_done(entry.name)
+        if self.timeline:
+            self.timeline.negotiate_end(entry.name)
+        if entry.span is not None:
+            self.tracer.finish(entry.span, error=exc is not None)
+            entry.span = None
         self.handles.mark_done(entry.handle, result, exc, done)
 
     def _wait_ready(self, entries):
         _native.wait_ready(self.comm_stream, [e.ready for e in entries])
 
-    def _record_done(self, tensors):
+    def _record_done(self, tensors, timing: bool = False):
         """The event after the comm stream's last kernel on ``tensors``,
-        which are marked as used there (None on the CPU)."""
-        return _native.record_done(self.comm_stream, tensors)
+        which are marked as used there (None on the CPU); timed with
+        ``timing``."""
+        return _native.record_done(self.comm_stream, tensors, timing)
+
+    def _start_event(self):
+        """With the anatomy on the card, a timed event on the comm stream
+        before a dispatch's first kernel (an ``EventToken``'s start);
+        else None."""
+        if self.profiler is None or self.comm_stream is None:
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(self.comm_stream)
+        return start
 
     def _chunk_group(self, group: list[TensorEntry]) -> list[list]:
         """Split a fusable group into chunks of at most the fusion
-        threshold's bytes (a tensor larger than it is a chunk alone)."""
+        threshold's bytes (a tensor larger than it is a chunk alone) and,
+        with ``plan_chunk_tensors``, at most that many tensors."""
         chunks, chunk, nbytes = [], [], 0
+        cap = self.plan_chunk_tensors
         for e in group:
             sz = e.tensor.numel() * e.tensor.element_size()
-            if chunk and nbytes + sz > self.fusion_threshold:
+            if chunk and (nbytes + sz > self.fusion_threshold
+                          or (cap and len(chunk) >= cap)):
                 chunks.append(chunk)
                 chunk, nbytes = [], 0
             chunk.append(e)
@@ -847,19 +1176,38 @@ class BackgroundRuntime:
             [tuple(e.tensor.shape) for e in chunk], e0.tensor.dtype,
             self.device.type, quant=quant)
 
-    def _dispatch_chunk(self, chunk: list[TensorEntry], run):
+    def _dispatch_chunk(self, chunk: list[TensorEntry], run,
+                        activity: str = "FUSED_ALLREDUCE"):
         """Run one chunk's dispatch (``run``) on the comm stream after its
         entries are ready; fail the whole chunk if it raises, else count
-        it and finish its entries with their outputs."""
+        it and finish its entries with their outputs. ``activity`` names
+        the chunk's span on the timeline."""
         t0 = time.perf_counter()
         calls0 = C.dist_calls
+        tl, profiler = self.timeline, self.profiler
+        if tl:
+            for e in chunk:
+                tl.start_activity(e.name, activity)
+        nbytes = sum(e.tensor.numel() * e.tensor.element_size()
+                     for e in chunk)
+        if self.tracer is not None:
+            disp0 = time.time()
+            for e in chunk:
+                if e.span is not None:
+                    e.span.t[tracing_mod.T_DISPATCH_START] = disp0
+                    e.span.chunk_bytes = nbytes
+                    e.span.chunk_tensors = len(chunk)
         try:
             self._wait_ready(chunk)
+            start = self._start_event()
+            t_x = time.perf_counter()
             faults_mod.fault_point("plan.dispatch")
             run()
             done = self._record_done(
                 [e.tensor for e in chunk]
-                + [e.output for e in chunk if e.output is not e.tensor])
+                + [e.output for e in chunk if e.output is not e.tensor],
+                timing=start is not None)
+            exec_s = time.perf_counter() - t_x
         except Exception as exc:  # fail the whole chunk
             self._mp_capture = None
             self._m_op_errors.inc(len(chunk))
@@ -867,8 +1215,22 @@ class BackgroundRuntime:
             for e in chunk:
                 self._finish(e, None, err)
             return
-        nbytes = sum(e.tensor.numel() * e.tensor.element_size()
-                     for e in chunk)
+        finally:
+            if tl:
+                for e in chunk:
+                    tl.end_activity(e.name)
+        self._perf_exec_s += exec_s
+        if profiler is not None:
+            profiler.note_chunk(
+                [e.name for e in chunk], nbytes, len(chunk), exec_s,
+                token=(anatomy_mod.EventToken(start, done)
+                       if start is not None else None), t0_pc=t_x)
+        if self.tracer is not None:
+            disp1 = time.time()
+            for e in chunk:
+                if e.span is not None:
+                    e.span.t[tracing_mod.T_DISPATCH_END] = disp1
+        self.bytes_processed += nbytes
         self.chunks += 1
         self.collective_calls += C.dist_calls - calls0
         m_bytes, m_lat, m_ops = self._op_metrics(
@@ -887,6 +1249,7 @@ class BackgroundRuntime:
         if mark not in self._quant_noted:
             self._quant_noted.add(mark)
             comp.quant_fallback_counter(reason).inc()
+            flightrec_mod.note("quant_fallback", name=e.name, reason=reason)
 
     def _quant_split(self, group: list[TensorEntry], spec):
         """(the entries that go on the wire, those kept off it)."""
@@ -950,13 +1313,19 @@ class BackgroundRuntime:
                 # wire does not take): the plain plan
                 def run(plan=plan, inputs=inputs, outputs=outputs):
                     plan.execute(inputs, outputs, self.fusion_buffer)
-            self._dispatch_chunk(chunk, run)
+            self._dispatch_chunk(chunk, run, "QUANT_FUSED_ALLREDUCE")
 
     def _run_single(self, e: TensorEntry):
         t0 = time.perf_counter()
         calls0 = C.dist_calls
         group = self._group_of(e.process_set)
         ps = e.process_set or self.process_set
+        tl = self.timeline
+        if tl:
+            tl.start_activity(e.name, e.op.upper())
+        if e.span is not None:
+            e.span.t[tracing_mod.T_DISPATCH_START] = time.time()
+        start = None
         try:
             faults_mod.fault_point("plan.dispatch")
             if e.op == "allgather":
@@ -975,6 +1344,7 @@ class BackgroundRuntime:
                 done = self._record_done([e.tensor, r[0]])
             else:
                 self._wait_ready([e])
+                start = self._start_event()
                 if e.op == "allreduce":
                     r = C._eager_allreduce(
                         e.tensor, e.reduce_op, group, e.prescale_factor,
@@ -991,12 +1361,24 @@ class BackgroundRuntime:
                 else:
                     raise HorovodInternalError(f"unknown op {e.op}")
                 done = self._record_done([e.tensor] if r is e.tensor
-                                         else [e.tensor, r])
+                                         else [e.tensor, r],
+                                         timing=start is not None)
         except Exception as exc:
             self._m_op_errors.inc()
             self._finish(e, None, HorovodInternalError(str(exc)))
             return
+        finally:
+            if tl:
+                tl.end_activity(e.name)
         nbytes = e.tensor.numel() * e.tensor.element_size()
+        self.bytes_processed += nbytes
+        if self.profiler is not None:
+            self.profiler.note_chunk(
+                [e.name], nbytes, 1, time.perf_counter() - t0,
+                token=(anatomy_mod.EventToken(start, done)
+                       if start is not None else None), t0_pc=t0)
+        if e.span is not None:
+            e.span.t[tracing_mod.T_DISPATCH_END] = time.time()
         self.collective_calls += C.dist_calls - calls0
         m_bytes, m_lat, m_ops = self._op_metrics(
             e.op, dtype_name(e.tensor.dtype))

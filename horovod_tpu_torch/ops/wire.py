@@ -7,14 +7,17 @@ v1, byte for byte the JAX controller's (its ``KVController``/
 ``_Coordinator`` write these payloads inline):
 
     submission := JSON {"e": [[name, sig], ...], "j": joined,
-                        "sd": shutting down[, "wv": 2]}
-                  -- "wv" only in round 0 under HOROVOD_HIER_NEGOTIATION
-                | SAME_AS_LAST  -- the rank's last submission again
+                        "sd": shutting down[, "wv": 2][, "t": time]}
+                  -- "wv" only in round 0 under HOROVOD_HIER_NEGOTIATION,
+                     "t" the traced submit time under HOROVOD_TRACE
+                | SAME_AS_LAST [JSON {"t": time}]
+                  -- the rank's last submission again
     response   := JSON {"ready", "sigs", "errors", "join_done",
                         ["shutdown_done"], ["invalidate"], ["abort"],
-                        ["wv"], ["mp"]}
+                        ["wv"], ["mp"], ["strag"], ["params"]}
                   -- "wv" confirms v2 in round 0, "mp" grants the
-                     megaplan lease
+                     megaplan lease, "strag" the straggler verdicts by
+                     name ([rank, wait s]), "params" the tuned knobs
 
 Reference: Horovod's common/wire/message.fbs — the
 reference serializes controller messages with FlatBuffers precisely
@@ -99,13 +102,17 @@ class WireDecodeError(ValueError):
 # -- v1: JSON payloads -------------------------------------------------------
 
 def encode_submission_v1(entries, joined: bool, shutting_down: bool,
-                         wv: Optional[int] = None) -> bytes:
+                         wv: Optional[int] = None,
+                         t: Optional[float] = None) -> bytes:
     """One rank's v1 round submission; ``entries`` is an iterable of
-    ``(name, sig)``, ``wv`` the round-0 advert of wire v2."""
+    ``(name, sig)``, ``wv`` the round-0 advert of wire v2, ``t`` the traced
+    submit time (left out of the payload the marker is compared with)."""
     msg = {"e": [[n, sig] for n, sig in entries], "j": bool(joined),
            "sd": bool(shutting_down)}
     if wv is not None:
         msg["wv"] = wv
+    if t is not None:
+        msg["t"] = t
     return json.dumps(msg).encode()
 
 

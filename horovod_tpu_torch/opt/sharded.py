@@ -338,6 +338,13 @@ class ShardedUpdateEngine:
         self._layout = layout
         self._m_shard.set(layout.shard_elems)
         self._m_frac.set(round(layout.shard_fraction, 6))
+        from ..utils import flightrec
+
+        flightrec.note("reshard", generation=layout.generation,
+                       world=layout.world_size, rank=self._rank,
+                       digest=layout.digest[:12],
+                       groups=len(layout.groups),
+                       replicated_leaves=len(layout.replicated))
         return layout
 
     # -- state --------------------------------------------------------------

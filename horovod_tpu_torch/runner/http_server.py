@@ -12,11 +12,26 @@ every request carries an HMAC digest the store checks before acting (403
 otherwise), and every GET response carries a digest the client checks.
 
 The wire is the JAX package's, so either package's client talks to either
-package's server. Left out: the telemetry endpoints (``/metrics``,
-``/perf``, ``/anatomy``, ...), the binary KV shards and ``put_get``'s
-one-exchange shard verb (ROADMAP.md queue 1 items 16–17); ``put_get``
-here is a PUT followed by a blocking GET, as the JAX client does without
-shards.
+package's server. Left out: the ``/memory``, ``/checkpoint``, ``/history``,
+``/health``, ``/debug`` and ``/shards`` endpoints, the binary KV shards and
+``put_get``'s one-exchange shard verb (ROADMAP.md queue 1 items 16–17);
+``put_get`` here is a PUT followed by a blocking GET, as the JAX client
+does without shards.
+
+The telemetry endpoints (JAX :217-338, :368-400), read-only and exempt
+from the HMAC (a scraper cannot sign; a bare path has no slash, so it
+never collides with a ``scope/key``):
+
+- ``GET /metrics``: the Prometheus exposition of this process's registry
+  and of every snapshot the ranks pushed under ``metrics/``, labelled
+  ``rank="k"`` (only the newest elastic generation's; a rank whose push
+  lags is labelled ``stale="1"``);
+- ``GET /clock``: this server's wall clock, the tracer's common timebase;
+- ``GET /timeline``: one clock-aligned Chrome trace of the ranks' pushed
+  spans (pid = rank) with their anatomy lanes;
+- ``GET /perf`` and ``GET /anatomy``: the ranks' pushed perf-ledger and
+  anatomy snapshots by rank, each marked ``stale`` when its push lags the
+  newest by more than ``STALE_INTERVALS`` intervals (``_merged_snapshots``).
 """
 
 from __future__ import annotations
@@ -35,6 +50,68 @@ from urllib.parse import unquote
 from ..utils import faults as _faults
 from ..utils import retry as _retry
 from . import secret as _secret
+
+
+#: A pushed snapshot whose push time lags the newest push by more than this
+#: many publisher intervals is marked stale (the floor absorbs the dumper
+#: threads' jitter between healthy ranks).
+STALE_INTERVALS = 3
+STALE_FLOOR_S = 15.0
+
+
+def _stale_ranks(entries) -> set:
+    """Which of ``[(rank, snapshot), ...]`` are old news: their
+    ``push_ts`` lags the newest push by more than ``STALE_INTERVALS``
+    publisher intervals. A snapshot without a stamp is never marked."""
+    stamped = [(r, s) for r, s in entries
+               if isinstance(s.get("push_ts"), (int, float))]
+    if len(stamped) < 2:
+        return set()
+    newest = max(s["push_ts"] for _, s in stamped)
+    out = set()
+    for r, s in stamped:
+        interval = s.get("push_interval_s")
+        if not isinstance(interval, (int, float)) or interval <= 0:
+            interval = 30.0
+        if newest - s["push_ts"] > max(STALE_INTERVALS * interval,
+                                       STALE_FLOOR_S):
+            out.add(r)
+    return out
+
+
+def _pushed(server, kv_scope: str) -> list:
+    """``[(rank string, snapshot)]`` of every ``{kv_scope}/rank{k}`` push,
+    half-written ones skipped (the next poll catches up)."""
+    prefix = kv_scope + "/"
+    out = []
+    for k, v in sorted(server.scan_prefix(prefix).items()):
+        suffix = k[len(prefix):]  # "rank1"
+        try:
+            out.append((suffix[4:] if suffix.startswith("rank") else suffix,
+                        json.loads(v)))
+        except (ValueError, UnicodeDecodeError):
+            continue
+    return out
+
+
+def _merged_snapshots(server, kv_scope: str, local=None) -> dict:
+    """The per-rank merge ``/perf`` and ``/anatomy`` serve: every pushed
+    snapshot by rank string, each marked ``stale`` by :func:`_stale_ranks`
+    (marked, never dropped), and this process's own snapshot when it has
+    one (``local``: ``(rank, snapshot_fn)``) and no push shadows it."""
+    entries = _pushed(server, kv_scope)
+    stale = _stale_ranks(entries)
+    ranks = {}
+    for rank, snap in entries:
+        snap["stale"] = rank in stale
+        ranks[rank] = snap
+    if local is not None:
+        local_rank, snapshot_fn = local
+        if str(local_rank) not in ranks:
+            snap = snapshot_fn()
+            snap["stale"] = False
+            ranks[str(local_rank)] = snap
+    return ranks
 
 
 class KVAuthError(RuntimeError):
@@ -94,7 +171,94 @@ class _KVHandler(BaseHTTPRequestHandler):
         self.server.store.put(self._key(), body)  # type: ignore[attr-defined]
         self._reply(200)
 
+    def _send(self, body: bytes, ctype: str):
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _send_json(self, obj):
+        self._send(json.dumps(obj).encode(), "application/json")
+
+    def _do_metrics(self):
+        """``GET /metrics``: this process's registry and every rank's pushed
+        snapshot in one exposition. After a resize the ranks of an older
+        elastic generation keep their last push in the store, so only the
+        newest (epoch, generation) present is rendered."""
+        from ..utils import metrics as metrics_mod
+
+        worker = _pushed(self.server, metrics_mod.KV_SCOPE)
+
+        def gen(snap):
+            try:
+                return (int(snap.get("elastic_epoch", 0)),
+                        int(snap.get("elastic_gen", 0)))
+            except (TypeError, ValueError):
+                return (0, 0)
+
+        if worker:
+            newest = max(gen(s) for _, s in worker)
+            worker = [(r, s) for r, s in worker if gen(s) == newest]
+        stale = _stale_ranks(worker)
+        snaps = [({}, metrics_mod.get_registry().snapshot())]
+        snaps.extend(
+            ({"rank": r, "stale": "1"} if r in stale else {"rank": r}, s)
+            for r, s in worker)
+        self._send(metrics_mod.render_snapshots(snaps).encode(),
+                   "text/plain; version=0.0.4; charset=utf-8")
+
+    def _do_clock(self):
+        """``GET /clock``: this server's wall clock (utils/tracing.py probes
+        it, NTP-style)."""
+        self._send_json({"t": time.time()})
+
+    def _do_timeline(self):
+        """``GET /timeline``: the ranks' pushed span buffers (and this
+        process's tracer) merged into one clock-aligned Chrome trace, with
+        the anatomy's lanes and critical-path summary."""
+        from ..utils import anatomy as anatomy_mod
+        from ..utils import tracing as tracing_mod
+
+        def merged(scope, local):
+            bufs = [] if local is None else [local.snapshot()]
+            for _, buf in _pushed(self.server, scope):
+                # this process's own view is the fresher one
+                if local is None or buf.get("rank") != local.rank:
+                    bufs.append(buf)
+            return bufs
+
+        anatomy = merged(anatomy_mod.KV_SCOPE, anatomy_mod.get_profiler())
+        self._send_json(tracing_mod.merge_chrome_trace(
+            merged(tracing_mod.KV_SCOPE, tracing_mod.get_tracer()),
+            anatomy=anatomy or None))
+
+    def _do_perf(self):
+        """``GET /perf``: the ranks' perf-ledger snapshots by rank."""
+        from ..utils import perfledger as perfledger_mod
+
+        local = perfledger_mod.get_ledger()
+        self._send_json({"ranks": _merged_snapshots(
+            self.server, perfledger_mod.KV_SCOPE,
+            (local.rank, local.snapshot) if local is not None else None)})
+
+    def _do_anatomy(self):
+        """``GET /anatomy``: the ranks' anatomy snapshots by rank."""
+        from ..utils import anatomy as anatomy_mod
+
+        local = anatomy_mod.get_profiler()
+        self._send_json({"ranks": _merged_snapshots(
+            self.server, anatomy_mod.KV_SCOPE,
+            (local.rank, local.snapshot) if local is not None else None)})
+
+    _TELEMETRY = {"metrics": _do_metrics, "clock": _do_clock,
+                  "timeline": _do_timeline, "perf": _do_perf,
+                  "anatomy": _do_anatomy}
+
     def do_GET(self):
+        endpoint = self._TELEMETRY.get(self._key())
+        if endpoint is not None:
+            return endpoint(self)
         if not self._authorized():
             return self._reply(403)
         key = self._key()
@@ -213,6 +377,13 @@ class _KVServer(ThreadingHTTPServer):
     # backlog keeps accept cheap
     request_queue_size = 1024
     daemon_threads = True
+
+    def scan_prefix(self, prefix: str) -> dict:
+        """Every key under ``prefix`` and its value (the telemetry
+        endpoints' read)."""
+        st = self.store
+        with st.lock:
+            return {k: v for k, v in st.data.items() if k.startswith(prefix)}
 
     def handle_error(self, request, client_address):
         import sys

@@ -68,6 +68,8 @@ from ..common.context import (  # noqa: F401  (topology + lifecycle)
     remove_process_set,
     shutdown,
     size,
+    start_timeline,
+    stop_timeline,
 )
 from ..common.context import runtime as _runtime
 from ..common import env as _env
@@ -290,6 +292,40 @@ def megaplan_report() -> dict:
     from ..ops import megaplan as _megaplan
 
     return _megaplan.report()
+
+
+def metrics_snapshot() -> dict:
+    """The process's metrics registry as a JSON-able dict (what ``GET
+    /metrics`` renders); valid before ``init`` and after ``shutdown``."""
+    return _metrics.get_registry().snapshot()
+
+
+def trace_report() -> dict:
+    """This rank's spans (``utils/tracing.py``): phase latencies, span and
+    error counts, open spans and the coordinator's straggler verdicts;
+    ``{"enabled": False}`` without ``HOROVOD_TRACE``. ``GET /timeline`` on
+    the launcher merges every rank's."""
+    from ..utils import tracing as _tracing
+
+    return _tracing.report()
+
+
+def perf_report() -> dict:
+    """This rank's perf ledger (``utils/perfledger.py``): goodput stats,
+    the five-phase split of each working cycle and the SLO budgets'
+    states; ``{"enabled": False}`` without ``HOROVOD_PERFLEDGER``."""
+    from ..utils import perfledger as _perfledger
+
+    return _perfledger.report()
+
+
+def anatomy_report() -> dict:
+    """This rank's step anatomy (``utils/anatomy.py``): the entity table,
+    the critical path and the overlap and replay headroom;
+    ``{"enabled": False}`` without ``HOROVOD_ANATOMY``."""
+    from ..utils import anatomy as _anatomy
+
+    return _anatomy.report()
 
 
 def poll(handle: int) -> bool:
@@ -807,6 +843,12 @@ class _ShardedMixin:
         self._sharded_gen = _env.get_int(_env.HOROVOD_ELASTIC_GEN, 0)
         owned = sum(s for s, o in zip(sizes, owner_list) if o is not None)
         self._m_frac.set(owned / max(sum(sizes), 1))
+        from ..utils import flightrec
+
+        flightrec.note("reshard", generation=self._sharded_gen, world=ws,
+                       rank=ps.rank, mode="torch-whole-leaf",
+                       owned_leaves=sum(o is not None for o in owner_list),
+                       replicated_leaves=sum(o is None for o in owner_list))
 
     def step(self, closure=None):
         if self._should_sync:

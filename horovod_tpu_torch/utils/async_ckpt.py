@@ -70,7 +70,7 @@ import torch
 
 from ..common import env as env_schema
 from ..common.exceptions import FaultInjectedError
-from . import faults, lockcheck
+from . import faults, flightrec, lockcheck
 
 LOG = logging.getLogger("horovod_tpu_torch")
 
@@ -483,6 +483,8 @@ class AsyncCheckpointer:
             except Exception as e:
                 # opt-in durability: a failed commit is loud, never fatal
                 self._m_failures.inc()
+                flightrec.note("checkpoint", event="commit_failed",
+                               step=job["step"], error=type(e).__name__)
                 LOG.warning("async ckpt: commit of step %d failed: %s",
                             job["step"], e)
             finally:
@@ -526,6 +528,9 @@ class AsyncCheckpointer:
         self._m_bytes.inc(nbytes)
         self._m_write.observe(dt)
         self._m_last_step.set(job["step"])
+        flightrec.note("checkpoint", event="commit", step=job["step"],
+                       generation=job["generation"], bytes=nbytes,
+                       digest=(job["layout_digest"] or "")[:12])
 
     # -- flush (SIGTERM / shutdown path) ------------------------------------
 
@@ -720,6 +725,9 @@ def restore_sharded(directory: str, params, engine, *,
     if ckpt is not None:
         ckpt._m_restores.inc()
         ckpt.last_restore_s = time.perf_counter() - t0
+    flightrec.note("checkpoint", event="restore", step=manifest["step"],
+                   saved_world=manifest["world"],
+                   world=getattr(engine, "_world", None))
     return manifest, opt, payloads[0].get("replicated")
 
 
@@ -758,7 +766,12 @@ def install_preemption_handler(ckpt: AsyncCheckpointer) -> None:
             c = get_checkpointer()
             if c is not None:
                 # headroom inside the driver's window before its SIGKILL
-                c.flush(deadline_s=max(grace * 0.8, 1.0))
+                deadline = max(grace * 0.8, 1.0)
+                flightrec.note("checkpoint", event="preempt",
+                               deadline_s=round(deadline, 3))
+                ok = c.flush(deadline_s=deadline)
+                flightrec.note("checkpoint", event="preempt_flushed", ok=ok,
+                               step=c.last_step)
             if callable(prev):
                 prev(signum, frame)
             elif prev != signal.SIG_IGN:

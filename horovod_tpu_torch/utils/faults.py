@@ -1,8 +1,8 @@
 """Fault injection at the control plane's seams — a copy of
 ``horovod_tpu/utils/faults.py`` (the same grammar, the same seeded
 streams, so one ``HOROVOD_FAULT_SPEC`` fires the same hits in either
-package). A trigger counts on ``hvd_fault_injected_total{site,mode}``;
-the flight recorder's note is not ported (ROADMAP.md queue 1 item 6).
+package). A trigger counts on ``hvd_fault_injected_total{site,mode}``
+and notes ``fault_injected`` in the flight recorder.
 
     HOROVOD_FAULT_SPEC="kv.get:drop#1,controller.poll:delay=250ms@0.5,plan.dispatch:fail#1"
 
@@ -129,6 +129,9 @@ class _Rule:
                 "hvd_fault_injected_total", "chaos faults injected",
                 site=self.site, mode=self.mode)
         self._metric.inc()
+        from . import flightrec
+
+        flightrec.note("fault_injected", site=self.site, mode=self.mode)
 
     def fire(self):
         self.record()

@@ -169,5 +169,9 @@ class Retrier:
                     delay = min(delay, max(0.0, pol.deadline_s - elapsed))
                 LOG.debug("%s: attempt %d failed (%s); retrying in %.3fs",
                           self.site, attempt, e, delay)
+                from . import flightrec
+
+                flightrec.note("retry_attempt", site=self.site,
+                               attempt=attempt, delay_s=round(delay, 3))
                 if delay > 0:
                     self._sleep(delay)

@@ -37,6 +37,7 @@ _ISOLATED = textwrap.dedent("""
     from horovod_tpu_torch.parallel import ring_attention
     import resnet_probe
     import elastic_probe
+    import observe_probe
 
     cfg = PT.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
                                n_layers=2, d_ff=64, max_seq=16,
@@ -90,8 +91,18 @@ _ISOLATED = textwrap.dedent("""
                  "torch.sync_batch_norm", "elastic", "elastic.driver",
                  "elastic.executor", "elastic.state", "elastic.discovery",
                  "elastic.registration", "torch.elastic_sampler",
-                 "utils.faults", "utils.checkpoint", "utils.async_ckpt"):
+                 "utils.faults", "utils.checkpoint", "utils.async_ckpt",
+                 "utils.flightrec", "utils.timeline", "utils.stall",
+                 "utils.tracing", "utils.perfledger", "utils.anatomy",
+                 "utils.autotune"):
         assert "horovod_tpu_torch." + name in sys.modules, name
+    # the instruments' reports, off by default, and their entry points
+    assert hvd.perf_report() == {"enabled": False}
+    assert hvd.anatomy_report() == {"enabled": False}
+    assert hvd.trace_report() == {"enabled": False}
+    assert hvd.metrics_snapshot()["counters"]
+    assert observe_probe.ARMS == ("instruments", "timeline", "straggler",
+                                  "stall", "autotune")
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
     hvd.shutdown()
@@ -155,6 +166,7 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "sp_probe.py",
                                              "resnet_probe.py",
                                              "elastic_probe.py",
+                                             "observe_probe.py",
                                              "wire_probe.py",
                                              "zero_probe.py")]
     for root, _, names in os.walk(PKG):

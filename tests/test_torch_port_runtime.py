@@ -165,7 +165,8 @@ def test_chunk_boundaries_match_jax(threshold, sizes):
         types.SimpleNamespace(fusion_threshold=threshold,
                               plan_chunk_tensors=0), jx)
     pchunks = pqueue.BackgroundRuntime._chunk_group(
-        types.SimpleNamespace(fusion_threshold=threshold), pt)
+        types.SimpleNamespace(fusion_threshold=threshold,
+                              plan_chunk_tensors=0), pt)
     assert ([[e.name for e in c] for c in pchunks]
             == [[e.name for e in c] for c in jchunks])
 
@@ -574,20 +575,37 @@ def _hvdrun(package: str, script, timeout: float = 240.0):
     """``python -m <package>.runner -np 2 python <script>`` in a session of
     its own; at the timeout the whole session (launcher and workers) is
     killed. Returns (exit code, output)."""
+    return _hvdrun_all([(package, script)], timeout)[0]
+
+
+def _hvdrun_all(jobs, timeout: float = 240.0) -> list:
+    """``_hvdrun`` of every ``(package, script)`` in ``jobs``, all started
+    at once (each spends most of its time importing); their (exit code,
+    output) in order."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    p = subprocess.Popen(
+    procs = [(package, subprocess.Popen(
         [sys.executable, "-m", f"{package}.runner", "-np", "2",
          sys.executable, str(script)], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
+        start_new_session=True)) for package, script in jobs]
+    out = []
     try:
-        out = p.communicate(timeout=timeout)[0]
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        out = p.communicate()[0]
-        raise AssertionError(f"{package} hvdrun job timed out:\n{out}")
-    return p.returncode, out
+        for package, p in procs:
+            try:
+                log = p.communicate(timeout=timeout)[0]
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                log = p.communicate()[0]
+                raise AssertionError(
+                    f"{package} hvdrun job timed out:\n{log}")
+            out.append((p.returncode, log))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    return out
 
 
 RUNTIME_WORKER = textwrap.dedent("""
@@ -766,15 +784,17 @@ def test_slice_losses_match_jax_package_two_processes(tmp_path):
         np.asarray, T.init(jax.random.PRNGKey(0), cfg)))
     pfile = str(tmp_path / "params.npz")
     np.savez(pfile, **{k: v.numpy() for k, v in params.items()})
-    losses = {}
+    losses, jobs = {}, []
     for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
                               ("jax", JAX_HEAD, "horovod_tpu")):
         out = str(tmp_path / (pkg + ".{}.npy"))
         script = tmp_path / f"{pkg}_worker.py"
         script.write_text(textwrap.dedent(head) + textwrap.dedent(
             SLICE_BODY.format(params=pfile, out=out)))
-        rc, log = _hvdrun(runner, script)
+        jobs.append((runner, script))
+    for (rc, log), pkg in zip(_hvdrun_all(jobs), ("port", "jax")):
         assert rc == 0, log
+        out = str(tmp_path / (pkg + ".{}.npy"))
         losses[pkg] = [np.load(out.format(r)) for r in range(2)]
     for r in range(2):
         np.testing.assert_allclose(losses["port"][r], losses["jax"][r],
@@ -821,7 +841,7 @@ def test_bf16_average_matches_jax_package_two_processes(tmp_path):
     g = jax.numpy.asarray(np.stack(inputs))
     rule = np.asarray(body(g)).view(np.int16)
     jitted = np.asarray(jax.jit(body)(g)).view(np.int16)
-    got = {}
+    got, jobs = {}, []
     for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
                               ("jax", JAX_HEAD, "horovod_tpu")):
         out = str(tmp_path / (pkg + ".{}.npy"))
@@ -829,8 +849,10 @@ def test_bf16_average_matches_jax_package_two_processes(tmp_path):
         script.write_text(textwrap.dedent(head) + textwrap.dedent(
             AVG_BODY.format(sizes=AVG_SIZES, pre=AVG_PRE, post=AVG_POST,
                             out=out)))
-        rc, log = _hvdrun(runner, script)
+        jobs.append((runner, script))
+    for (rc, log), pkg in zip(_hvdrun_all(jobs), ("port", "jax")):
         assert rc == 0, log
+        out = str(tmp_path / (pkg + ".{}.npy"))
         got[pkg] = [np.load(out.format(r)) for r in range(2)]
     for r in range(2):
         np.testing.assert_array_equal(got["port"][r], rule)

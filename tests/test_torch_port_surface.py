@@ -418,38 +418,52 @@ CASES = """
 """
 
 
-def _hvdrun(package: str, script, timeout: float = 150.0):
+def _start(cmd: list):
+    """``cmd`` from the repository in a session of its own, over one
+    thread; stdout and stderr together."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    p = subprocess.Popen(
-        [sys.executable, "-m", f"{package}.runner", "-np", "2",
-         sys.executable, str(script)], cwd=REPO, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def _wait(p, what: str, timeout: float) -> str:
+    """``p``'s output; at the timeout its whole session is killed."""
     try:
-        out = p.communicate(timeout=timeout)[0]
+        return p.communicate(timeout=timeout)[0]
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
         out = p.communicate()[0]
-        raise AssertionError(f"{package} hvdrun job timed out:\n{out}")
-    return p.returncode, out
+        raise AssertionError(f"{what} timed out:\n{out}")
 
 
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
     """Each package's dump of ``CASES``, by rank: {"port": [...], "jax":
-    [...]}."""
+    [...]}; both packages' jobs run at once."""
     tmp = tmp_path_factory.mktemp("surface")
-    got = {}
+    got, procs = {}, {}
     for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
                               ("jax", JAX_HEAD, "horovod_tpu")):
         out = str(tmp / (pkg + ".{}.npz"))
         script = tmp / f"{pkg}_cases.py"
         script.write_text(textwrap.dedent(head) + f"OUT = {out!r}\n"
                           + textwrap.dedent(CASES))
-        rc, log = _hvdrun(runner, script)
-        assert rc == 0 and "CASES_OK 0" in log and "CASES_OK 1" in log, log
-        got[pkg] = [dict(np.load(out.format(r))) for r in range(2)]
+        procs[pkg] = _start([sys.executable, "-m", f"{runner}.runner",
+                             "-np", "2", sys.executable, str(script)])
+    try:
+        for pkg, p in procs.items():
+            log = _wait(p, f"{pkg} hvdrun job", 150.0)
+            assert (p.returncode == 0 and "CASES_OK 0" in log
+                    and "CASES_OK 1" in log), log
+            out = str(tmp / (pkg + ".{}.npz"))
+            got[pkg] = [dict(np.load(out.format(r))) for r in range(2)]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
     return got
 
 
