@@ -5,7 +5,7 @@ on ResNet (root script, not part of the package).
     python3 adasum_probe.py [-np 4] [-H localhost:2,127.0.0.1:2]
         [--device cpu] [--depth 50] [--batch 64] [--image 224] [--steps 6]
         [--arms average,average_hier,adasum,adasum_hier,average_syncbn]
-        [--timeout S]
+        [--timeout S] [--out PATH]
     hvdrun -np N [-H ...] python adasum_probe.py [same options]
 
 Run by itself, the script starts one ``hvdrun`` job of ``-np`` workers
@@ -40,9 +40,10 @@ for bit with rank 0's (outside the timed step); a difference fails the job.
 Rank 0 prints per arm the losses, the step ms (host clock, the device
 synchronized at the step's end), their median after the first step and
 img/s a GPU from it, and a step's K4 launches (by kernel), K1 launches,
-the runtime's collective calls and the calls into ``torch.distributed``
-by kind (counted by wrapping them in this script, every thread's, sync
-BN's included); then one JSON line. The parent fails unless every arm
+the runtime's chunks and collective calls and the calls into
+``torch.distributed`` by kind (counted by wrapping them in this script,
+every thread's, sync BN's included); then one JSON line, which the parent
+also writes to ``--out`` when given. The parent fails unless every arm
 held its parameters bitwise on every rank after every step, every loss is
 finite, the two Average arms' first losses are bitwise equal and the later
 ones within ``AVERAGE_LOSS_TOL`` (relative: their gradients add in another
@@ -115,6 +116,7 @@ def _counts(calls: CallCounter) -> dict:
     out = {f"dist.{k}": v for k, v in calls.snapshot().items()}
     out.update({k: v for k, v in adasum.kernel_launches.items()})
     out["K1 launches"] = sum(fp.kernel_launches.values())
+    out["chunks"] = context.runtime().chunks
     out["collective calls"] = context.runtime().collective_calls
     return out
 
@@ -266,6 +268,8 @@ def main() -> int:
     ap.add_argument("--arms", default=",".join(ARMS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timeout", type=float, default=900.0)
+    ap.add_argument("--out", default=None,
+                    help="write the job's JSON reading to this file")
     args = ap.parse_args()
     if set(args.arms.split(",")) - set(ARMS):
         raise SystemExit(f"--arms takes {tuple(ARMS)}")
@@ -273,11 +277,13 @@ def main() -> int:
     if "HOROVOD_RANK" in os.environ:
         sys.path.insert(0, root)
         return worker(args)
+    card = None
     if args.device != "cpu":
-        print(subprocess.run(
+        card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip(), flush=True)
+            check=True).stdout.strip()
+        print(card, flush=True)
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
            str(args.np)] + (["-H", args.hosts] if args.hosts else []) + [
         sys.executable, os.path.abspath(__file__)] + sys.argv[1:]
@@ -307,6 +313,11 @@ def main() -> int:
             reading = json.loads(line[at:])
     if reading is None:
         raise AssertionError("adasum_probe: the job printed no reading")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(reading, card=card), f)
     bad = check(reading, args.device != "cpu")
     if bad:
         raise AssertionError("adasum_probe: " + "; ".join(bad))

@@ -162,24 +162,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches, chunks, cycles) and host ms a working cycle
    (``hvd_cycle_seconds``) of each arm; then the megaplan's counters
    after one ``DistributedOptimizer`` hook step under the megaplan;
-12. K4 (``csrc/adasum.cu``, Adasum's two kernels): K4a (the fp32 dot and
-   squared norms of a pair of rows, no floating-point atomic) twice,
-   bitwise the same, and within ``K4_SUMS_TOL`` of its plain version's
-   sums; K4b (the scaled add) bitwise its plain version on the same sums;
-   at ResNet-50's 161 parameter shapes in fp32, its 25.6 million elements
-   in bf16 and fp16, rows off 16-byte alignment; a zero-norm side,
-   identical rows (the mean) and orthogonal rows (the sum) bit for bit; a
-   tree of four rows within ``K4_TREE_TOL`` of the plain tree; then each
-   kernel timed on one pair of 25.6 million fp32 rows by events and device
-   time beside its byte bound, its plain version and (K4a) three
-   ``torch.dot`` calls, and over the 161 parameters' pairs a launch each;
+12. K4 (``csrc/adasum.cu``, Adasum's two kernels over a table of items,
+   each item a pair of rows and its row of sums): K4a (the fp32 dot and
+   squared norms, no floating-point atomic) over ResNet-50's 161 pairs as
+   one table, in fp32 (the path's) and off 16-byte alignment in fp32, bf16
+   and fp16, twice bitwise the same, each item's sums bitwise K4a on that
+   pair alone and within ``K4_SUMS_TOL`` of its plain version's; K4b (the
+   scaled add) bitwise its plain version on the same sums, into a new
+   buffer and in place; as tables of one at the 161 shapes in fp32,
+   25.6 million elements in bf16 and fp16, rows off 16-byte alignment; a
+   zero-norm side, identical rows (the mean) and orthogonal rows (the sum)
+   bit for bit; a tree of four rows of one tensor, and packed rows of the
+   161 tensors at 4, 5 and 8 ranks (8: a first round of 644 items, two
+   launches of each kernel, checked), each tensor within ``K4_TREE_TOL``
+   of the plain tree's; then each kernel timed over the 161-pair table
+   (one launch) by events and device time beside its byte bound and its
+   plain version, and as a table of one pair of 25.6 million fp32 rows
+   beside (K4a) three ``torch.dot`` calls;
    the adasum path: four seeded batches of ResNet-50 at full width (64 at
    224², bf16 over fp32 weights), each one local SGD step from the same
-   weights, give 161 deltas as four virtual ranks, which go through
-   ``adasum_tree_reduce`` on K4 (the counts set to 0 just before: 483
-   launches of each kernel, checked) and on the plain version, within
-   ``K4_TREE_TOL``, and through the two-level Adasum as 2 hosts of 2 on K4
-   against the plain version on the CPU; at a world of one
+   weights, give 161 deltas a virtual rank, packed into four rows as the
+   runtime's Adasum chunk packs them, which go through
+   ``adasum_tree_reduce_`` on K4 (the counts set to 0 just before: two
+   rounds of 322 and 161 items, 2 launches of each kernel, checked) and on
+   the plain version, each tensor within ``K4_TREE_TOL``; the tree of a
+   step timed by events and device time beside its byte bound; the
+   two-level Adasum of the packed rows as 2 hosts of 2 on K4 against the
+   plain version on the CPU, per tensor; at a world of one
    ``DistributedOptimizer(op=hvd.Adasum)`` trains 3 steps bitwise equal to
    ``op=hvd.Average`` (the regular wrapper, as the JAX package's
    fallback), ``hvd.SyncBatchNorm`` agrees with ``nn.BatchNorm2d`` within
@@ -3019,13 +3028,91 @@ def _k4_case(a, b, name: str) -> tuple:
     return err, (sk - sp).abs().max().item(), out
 
 
+def _pair_table(sizes, dtype, device, g, shift_a=0, shift_b=0) -> tuple:
+    """ResNet-50's pairs as one K4 table: A and B hold the a rows and the
+    b rows back to back from elements ``shift_a`` and ``shift_b`` (a shift
+    that is no multiple of 16 bytes' elements puts items off alignment)."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.ops import adasum
+
+    total = sum(sizes)
+    A = torch.randn(total + shift_a, generator=g, device=device).to(dtype)
+    B = torch.randn(total + shift_b, generator=g, device=device).to(dtype)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    return A, B, adasum.Items(offs + shift_a, offs + shift_b, sizes)
+
+
+def _k4_table_case(A, B, items, name: str) -> tuple:
+    """K4a over the table twice (bitwise the same), each item's sums
+    bitwise K4a on that pair alone and within ``K4_SUMS_TOL`` of the plain
+    version's; K4b bitwise its plain version on the same sums, into a new
+    buffer and in place. Returns (K4a's relative error, its largest
+    absolute error)."""
+    import torch
+
+    from horovod_tpu_torch.ops import adasum
+
+    sums = adasum.dot_norms_table(items, A, B)
+    if not _same_bits(sums, adasum.dot_norms_table(items, A, B)):
+        raise AssertionError(f"K4a over a table is not bitwise the same "
+                             f"from run to run ({name})")
+    for k, (a0, b0, n) in enumerate(zip(items.a_off.tolist(),
+                                        items.b_off.tolist(),
+                                        items.n.tolist())):
+        alone = adasum.dot_norms(A[a0:a0 + n], B[b0:b0 + n])
+        if not _same_bits(sums[k], alone):
+            raise AssertionError(f"K4a's item {k} ({n} elements) in a "
+                                 f"table of {len(items)} is not bitwise K4a "
+                                 f"on the pair alone ({name}): "
+                                 f"{sums[k].tolist()} against "
+                                 f"{alone.tolist()}")
+    plain = adasum.dot_norms_table_plain(items, A, B)
+    err = max(_k4_sums_err(k, p) for k, p in zip(sums, plain))
+    if not err <= K4_SUMS_TOL:
+        raise AssertionError(f"K4a over a table against its plain version: "
+                             f"{err:.3g} (tol {K4_SUMS_TOL}) ({name})")
+    out = adasum.scaled_add_table(items, A, B, sums, torch.zeros_like(A))
+    want = adasum.scaled_add_table_plain(items, A, B, sums,
+                                         torch.zeros_like(A))
+    if not _same_bits(out, want):
+        raise AssertionError(f"K4b over a table differs from its plain "
+                             f"version on the same sums ({name})")
+    A2 = A.clone()
+    adasum.scaled_add_table(items, A2, B, sums, A2)
+    ends = (items.a_off + items.n).tolist()
+    for a0, e in zip(items.a_off.tolist(), ends):
+        if not _same_bits(A2[a0:e], out[a0:e]):
+            raise AssertionError(f"K4b in place differs from K4b into a new "
+                                 f"buffer ({name})")
+    return err, (sums - plain).abs().max().item()
+
+
+def _tree_err(got, want, sizes) -> float:
+    """The largest error of a packed tree's tensors, each against its own
+    largest magnitude."""
+    import numpy as np
+
+    offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    return max(((got[a:b] - want[a:b]).abs().max()
+                / want[a:b].abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(offs[:-1], offs[1:]) if b > a)
+
+
 def k4_check_phase(device) -> dict:
-    """K4 against its plain version on the card: ResNet-50's 161 parameter
-    shapes in fp32, one large shape (ResNet-50's 25.6 million elements) in
-    bf16 and fp16, rows off 16-byte alignment, the zero-norm sides
-    (coefficient 0: the other row, bitwise), identical rows (the mean: the
-    row, bitwise), orthogonal rows (the sum, bitwise), and a tree of four
-    rows against the plain tree. Returns the largest errors."""
+    """K4 against its plain version on the card. Tables: ResNet-50's 161
+    parameter pairs as one table in fp32 (the path's), and off 16-byte
+    alignment in fp32, bf16 and fp16, each item's K4a sums bitwise K4a on
+    the pair alone, K4b bitwise its plain version (into a new buffer and in
+    place). Tables of one: the 161 shapes in fp32, ResNet-50's 25.6 million
+    elements in bf16 and fp16, rows off 16-byte alignment, the zero-norm
+    sides (coefficient 0: the other row, bitwise), identical rows (the
+    mean: the row, bitwise), orthogonal rows (the sum, bitwise). Trees:
+    four rows of one tensor, and packed rows of the 161 tensors at 4, 5
+    (the odd row carried) and 8 ranks (a first round of 644 items, past a
+    launch's 512: two launches of each kernel), each tensor within
+    ``K4_TREE_TOL`` of the plain tree's. Returns the largest errors."""
     import torch
 
     from horovod_tpu_torch.ops import adasum
@@ -3034,13 +3121,23 @@ def k4_check_phase(device) -> dict:
     total = sum(sizes)
     g = torch.Generator(device=device).manual_seed(13)
     worst, worst_abs, n = 0.0, 0.0, 0
+    for dtype, sa, sb in ((torch.float32, 0, 0), (torch.float32, 1, 2),
+                          (torch.bfloat16, 1, 3), (torch.float16, 3, 0)):
+        A, B, items = _pair_table(sizes, dtype, device, g, sa, sb)
+        e, ea = _k4_table_case(A, B, items, f"{dtype} shifted {sa}/{sb}")
+        _log(f"  161 ResNet-50 pairs as one table, {dtype}, shifted "
+             f"{sa}/{sb}: each item's K4a bitwise the pair alone, within "
+             f"{e:.3g} of the plain sums (tol {K4_SUMS_TOL}); K4b bitwise "
+             f"the plain version, in place too")
+        worst, worst_abs, n = max(worst, e), max(worst_abs, ea), n + 1
+        del A, B
     for i, size in enumerate(sizes):
         a, b = torch.randn((2, size), generator=g, device=device)
         e, ea, _ = _k4_case(a, b, f"ResNet-50 shape {i}, {size}")
         worst, worst_abs, n = max(worst, e), max(worst_abs, ea), n + 1
-    _log(f"  161 ResNet-50 shapes in fp32: K4a within {worst:.3g} of the "
-         f"plain sums' scale (tol {K4_SUMS_TOL}), bitwise from run to run; "
-         f"K4b bitwise the plain version on the same sums")
+    _log(f"  161 ResNet-50 shapes in fp32, a table of one each: K4a within "
+         f"{worst:.3g} of the plain sums' scale (tol {K4_SUMS_TOL}), "
+         f"bitwise from run to run; K4b bitwise the plain version")
     for dtype in (torch.bfloat16, torch.float16):
         a, b = torch.randn((2, total), generator=g, device=device).to(dtype)
         e, ea, _ = _k4_case(a, b, f"{dtype} at {total}")
@@ -3077,22 +3174,47 @@ def k4_check_phase(device) -> dict:
         raise AssertionError(f"the K4 tree of four rows against the plain "
                              f"tree: {tree_err:.3g} (tol {K4_TREE_TOL})")
     _log(f"  a tree of 4 rows of {total}: within {tree_err:.3g} of the "
-         f"plain tree's largest magnitude (tol {K4_TREE_TOL}); {n} cases")
-    del rows, tree, plain, a, b, zero
+         f"plain tree's largest magnitude (tol {K4_TREE_TOL})")
+    del rows, tree, plain
+    for nrows in (4, 5, 8):
+        rows = torch.randn((nrows, total), generator=g, device=device)
+        rounds = adasum.tree_items(nrows, sizes)
+        want = {"adasum_dot_norms": sum(
+            -(-len(it) // adasum.MAX_ITEMS) for it in rounds)}
+        want["adasum_scaled_add"] = want["adasum_dot_norms"]
+        before = dict(adasum.kernel_launches)
+        tree = adasum.adasum_tree_reduce(rows, sizes)
+        made = {k: adasum.kernel_launches[k] - before[k] for k in want}
+        plain = adasum.adasum_tree_reduce_plain(rows, sizes)
+        err = _tree_err(tree, plain, sizes)
+        _log(f"  packed rows of the 161 tensors at {nrows} ranks: "
+             f"{len(rounds)} rounds, items {[len(it) for it in rounds]}, "
+             f"launches {made}; each tensor within {err:.3g} of the plain "
+             f"tree's (tol {K4_TREE_TOL})")
+        if made != want:
+            raise AssertionError(f"the packed tree at {nrows} ranks launched "
+                                 f"{made}, not {want}")
+        if not err <= K4_TREE_TOL:
+            raise AssertionError(f"the packed tree at {nrows} ranks against "
+                                 f"the plain tree: {err:.3g}")
+        tree_err = max(tree_err, err)
+        n += 1
+        del rows, tree, plain
+    del a, b, zero
     torch.cuda.empty_cache()
     return {"sums_rel_err": worst, "sums_abs_err": worst_abs,
             "tree_rel_err": tree_err, "cases": n}
 
 
 def k4_time_phase(device) -> list:
-    """K4a and K4b timed on one pair of rows of ResNet-50's 25.6 million
-    fp32 elements (a flat gradient a rank), by events and device time, in
-    turns with the library yardstick (K4a: three ``torch.dot`` calls over
-    the same rows; K4b: none, the composite is the plain version), beside
-    the byte bound and the plain version; and one combine of each of the
-    161 parameters' pairs (161 launches of each kernel, as a tree's round
-    at four ranks makes two of them), by events, beside its byte bound.
-    Returns the two kernel entries."""
+    """K4a and K4b over the adasum path's table, ResNet-50's 161 pairs of
+    fp32 deltas in one launch, by events and device time, beside the byte
+    bound and the plain version (no one PyTorch call computes a ragged
+    table's sums); and as a table of one pair of ResNet-50's 25.6 million
+    fp32 elements (a flat gradient a rank), in turns with the library
+    yardstick (K4a: three ``torch.dot`` calls over the same rows; K4b:
+    none, the composite is the plain version). Returns the two kernel
+    entries; the adasum path adds the tree of a step."""
     import torch
 
     from horovod_tpu_torch.ops import adasum
@@ -3100,63 +3222,70 @@ def k4_time_phase(device) -> list:
     sizes = resnet50_grad_sizes()
     total = sum(sizes)
     g = torch.Generator(device=device).manual_seed(17)
-    a, b = torch.randn((2, total), generator=g, device=device)
-    sums = adasum.dot_norms(a, b)
-    sp = adasum.dot_norms_plain(a, b)
-    errs = {"adasum_dot_norms": (sums - sp).abs().max().item(),
-            "adasum_scaled_add": (adasum.scaled_add(a, b, sums)
-                                  - adasum.scaled_add_plain(a, b, sums))
+    A, B, items = _pair_table(sizes, torch.float32, device, g)
+    sums = adasum.dot_norms_table(items, A, B)
+    out = torch.empty_like(A)
+    errs = {"adasum_dot_norms": (sums - adasum.dot_norms_table_plain(
+                items, A, B)).abs().max().item(),
+            "adasum_scaled_add": (
+                adasum.scaled_add_table(items, A, B, sums, out)
+                - adasum.scaled_add_table_plain(items, A, B, sums,
+                                                torch.empty_like(A)))
             .abs().max().item()}
-    out = torch.empty_like(a)
-    pairs = [torch.randn((2, s), generator=g, device=device) for s in sizes]
-    pair_sums = [adasum.dot_norms(x, y) for x, y in pairs]
+    a, b = torch.randn((2, total), generator=g, device=device)
+    pair_sums = adasum.dot_norms(a, b)
+    pair_out = torch.empty_like(a)
+    sums_bytes = len(items) * 12
     fns = {
         "adasum_dot_norms": (
+            lambda: adasum.dot_norms_table(items, A, B, sums),
+            lambda: adasum.dot_norms_table_plain(items, A, B, sums),
+            2 * total * 4 + sums_bytes,
             lambda: adasum.dot_norms(a, b),
-            lambda: adasum.dot_norms_plain(a, b),
-            lambda: (torch.dot(a, b), torch.dot(a, a), torch.dot(b, b)),
-            lambda: [adasum.dot_norms(x, y) for x, y in pairs],
-            2 * total * 4 + 12),
+            lambda: (torch.dot(a, b), torch.dot(a, a), torch.dot(b, b))),
         "adasum_scaled_add": (
-            lambda: adasum.scaled_add(a, b, sums, out),
-            lambda: adasum.scaled_add_plain(a, b, sums, out),
-            None,
-            lambda: [adasum.scaled_add(x, y, s) for (x, y), s in
-                     zip(pairs, pair_sums)],
-            3 * total * 4 + 12)}
+            lambda: adasum.scaled_add_table(items, A, B, sums, out),
+            lambda: adasum.scaled_add_table_plain(items, A, B, sums, out),
+            3 * total * 4 + sums_bytes,
+            lambda: adasum.scaled_add(a, b, pair_sums, pair_out),
+            None)}
     entries = []
-    for name, (kern, plain, lib, step, nbytes) in fns.items():
-        timed = {"kernel": kern} if lib is None else {"kernel": kern,
-                                                      "library": lib}
+    for name, (kern, plain, nbytes, pair, lib) in fns.items():
+        timed = {"table": kern, "pair": pair}
+        if lib is not None:
+            timed["library"] = lib
         ev = in_turns(timed, lambda fn: time_ms(fn, iters=50))
         dev = in_turns(timed, lambda fn: device_ms(fn, iters=50))
-        plain_ms = time_ms(plain, iters=10)
-        step_ms = time_ms(step, iters=5)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        step_bound = (nbytes - 12) / HBM_BYTES_PER_S * 1e3  # the same bytes
-        sh, sh_by = share_of(bound_ms, dev["kernel"], ev["kernel"])
-        _log(f"  {name} at {total} fp32: {ev['kernel']:.4f} ms by events, "
-             f"{dev['kernel']:.4f} device; bound {bound_ms:.4f} ms (bytes); "
-             f"share {sh:.3f} ({sh_by}); plain {plain_ms:.4f} ms; "
-             + (f"three torch.dot calls {ev['library']:.4f} ms, "
-                f"{dev['library']:.4f} device" if lib else
-                "library none (composite)")
-             + f"; the 161 parameters' pairs one launch each "
-             f"{step_ms:.4f} ms by events (bound {step_bound:.4f})")
+        pair_bound = (nbytes - sums_bytes + 12) / HBM_BYTES_PER_S * 1e3
+        sh, sh_by = share_of(bound_ms, dev["table"], ev["table"])
+        psh, psh_by = share_of(pair_bound, dev["pair"], ev["pair"])
+        _log(f"  {name} over the 161-pair table ({total} fp32 a side), one "
+             f"launch: {ev['table']:.4f} ms by events, {dev['table']:.4f} "
+             f"device; bound {bound_ms:.4f} ms (bytes); share {sh:.3f} "
+             f"({sh_by}); plain {plain_ms:.4f} ms; as one pair: "
+             f"{ev['pair']:.4f} ms, {dev['pair']:.4f} device, bound "
+             f"{pair_bound:.4f}, share {psh:.3f} ({psh_by})"
+             + (f"; three torch.dot calls {ev['library']:.4f} ms, "
+                f"{dev['library']:.4f} device" if lib else ""))
         entries.append({
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/csrc/adasum.cu",
             "replaces": "horovod_tpu/ops/adasum.py:26",
             "launches": None, "max_abs_err": errs[name],
-            "ms": ev["kernel"], "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": ev.get("library"),
-            "library_note": ("three torch.dot calls" if lib else
-                             "none (composite)"),
-            "device_ms": dev["kernel"],
-            "library_device_ms": dev.get("library"), "share": sh,
-            "share_by": sh_by, "per_161_pairs_ms": step_ms,
-            "per_161_pairs_bound_ms": step_bound})
-    del a, b, out, pairs, pair_sums
+            "ms": ev["table"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "none for a ragged table",
+            "device_ms": dev["table"], "share": sh, "share_by": sh_by,
+            "table_items": len(items),
+            "pair_ms": ev["pair"], "pair_device_ms": dev["pair"],
+            "pair_bound_ms": pair_bound, "pair_share": psh,
+            "pair_library_ms": ev.get("library"),
+            "pair_library_device_ms": dev.get("library"),
+            "pair_library_note": ("three torch.dot calls" if lib else
+                                  "none (composite)")})
+    del A, B, out, a, b, pair_out
     torch.cuda.empty_cache()
     return entries
 
@@ -3316,49 +3445,63 @@ def adasum_path_phase(device) -> tuple:
     deltas = _local_deltas(device, model, params, ADASUM_RANKS)
     del model, params
     gc.collect()
-    rows = [torch.stack(d) for d in deltas]
+    # each virtual rank's row: its 161 deltas packed back to back, as the
+    # runtime's Adasum chunk packs them
+    sizes = [d[0].numel() for d in deltas]
+    rows = torch.stack([torch.cat([d[r] for d in deltas])
+                        for r in range(ADASUM_RANKS)])
     del deltas
+    rounds = adasum.tree_items(ADASUM_RANKS, sizes)
+    orig, plain_rows, work = rows.clone(), rows.clone(), rows.clone()
     _zero_launch_counts()  # just before the path runs
     t0 = time.perf_counter()
-    got = [adasum.adasum_tree_reduce(r) for r in rows]
+    got = adasum.adasum_tree_reduce_(rows, rounds=rounds)
     torch.cuda.synchronize()
     tree_host_ms = (time.perf_counter() - t0) * 1e3
     launches = _launch_counts()
-    want_launches = len(rows) * (ADASUM_RANKS - 1)
-    _log(f"  161 deltas of {ADASUM_RANKS} virtual ranks through "
-         f"adasum_tree_reduce on K4: {tree_host_ms:.2f} ms (first pass, "
-         f"host clock); launches {launches}")
+    want_launches = sum(-(-len(it) // adasum.MAX_ITEMS) for it in rounds)
+    _log(f"  161 deltas of {ADASUM_RANKS} virtual ranks, packed, through "
+         f"adasum_tree_reduce_ on K4: {len(rounds)} rounds of "
+         f"{[len(it) for it in rounds]} items, {tree_host_ms:.2f} ms (first "
+         f"pass, host clock); launches {launches}")
     if not (launches["adasum_dot_norms"] == want_launches
             and launches["adasum_scaled_add"] == want_launches):
         raise AssertionError(f"K4 launched {launches} times, not "
                              f"{want_launches} of each kernel")
-    tree_err = max(((k - p).abs().max() / p.abs().max().clamp_min(1e-30))
-                   .item() for k, p in zip(
-                       got, [adasum.adasum_tree_reduce_plain(r)
-                             for r in rows]))
+    plain = adasum.adasum_tree_reduce_(plain_rows, rounds=rounds, plain=True)
+    tree_err = _tree_err(got, plain, sizes)
     _log(f"  against the plain tree: within {tree_err:.3g} of each "
          f"tensor's largest magnitude (tol {K4_TREE_TOL})")
     if tree_err > K4_TREE_TOL:
         raise AssertionError("the K4 tree disagrees with the plain tree")
-    tree_ms = time_ms(lambda: [adasum.adasum_tree_reduce(r) for r in rows],
-                      iters=3, warmup=1)
-    _log(f"  the tree of all 161 tensors a step (966 launches): "
-         f"{tree_ms:.3f} ms by events")
-    # the two-level Adasum of the same deltas as 2 hosts of 2, on K4,
-    # against the same arithmetic on the CPU (the plain version)
+    # the tree of a step: every byte of its four launches once
+    tree_bytes = sum(5 * it.elements * 4 + 2 * len(it) * 12
+                     for it in rounds)
+    tree_bound = tree_bytes / HBM_BYTES_PER_S * 1e3
+
+    def step_tree():
+        adasum.adasum_tree_reduce_(work, rounds=rounds)
+
+    tree_ms = time_ms(step_tree, iters=20)
+    tree_dev = device_ms(step_tree, iters=20)
+    tree_share, tree_share_by = share_of(tree_bound, tree_dev, tree_ms)
+    _log(f"  the tree of all 161 tensors a step ({2 * want_launches} "
+         f"launches): {tree_ms:.4f} ms by events, {tree_dev:.4f} device; "
+         f"bound {tree_bound:.4f} ms (bytes); share {tree_share:.3f} "
+         f"({tree_share_by})")
+    del plain_rows, work, plain
+    # the two-level Adasum of the same packed deltas as 2 hosts of 2, on
+    # K4, against the same arithmetic on the CPU (the plain version)
     hier = adasum.simulated_hierarchical
-    hier_err = 0.0
-    for r in rows:
-        k = hier(list(r), 2)[0]
-        p = hier([x.cpu() for x in r], 2)[0]
-        hier_err = max(hier_err, ((k.cpu() - p).abs().max()
-                                  / p.abs().max().clamp_min(1e-30)).item())
-    _log(f"  two levels (2 hosts of 2) on K4 against the plain version: "
-         f"within {hier_err:.3g} (tol {K4_TREE_TOL})")
+    k = hier(list(orig), 2, sizes)[0]
+    p = hier([x.cpu() for x in orig], 2, sizes)[0]
+    hier_err = _tree_err(k.cpu(), p, sizes)
+    _log(f"  two levels (2 hosts of 2) over the packed chunk on K4 against "
+         f"the plain version: within {hier_err:.3g} (tol {K4_TREE_TOL})")
     if hier_err > K4_TREE_TOL:
         raise AssertionError("the two-level Adasum on K4 disagrees with the "
                              "plain version")
-    del rows, got
+    del rows, got, orig, k, p
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3390,6 +3533,10 @@ def adasum_path_phase(device) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     readings = {"tree_rel_err": tree_err, "tree_ms": tree_ms,
+                "tree_device_ms": tree_dev, "tree_bound_ms": tree_bound,
+                "tree_share": tree_share, "tree_share_by": tree_share_by,
+                "tree_items": [len(it) for it in rounds],
+                "tree_launches_each": want_launches,
                 "tree_first_host_ms": tree_host_ms,
                 "hier_rel_err": hier_err,
                 "world_one_losses": a["losses"], "sync_bn": sync_bn,
@@ -3977,8 +4124,8 @@ def main() -> int:
     t_m = time.perf_counter()
     mp_launches, mp_readings = megaplan_path_phase(device)
     _log(f"  megaplan path: {time.perf_counter() - t_m:.1f} s")
-    _phase("[K4] Adasum's two kernels against their plain versions, then "
-           "timed at ResNet-50's flat gradient")
+    _phase("[K4] Adasum's two kernels over tables against their plain "
+           "versions, then timed over ResNet-50's 161 pairs as one table")
     t_k4 = time.perf_counter()
     k4_check = k4_check_phase(device)
     k4_entries = k4_time_phase(device)
@@ -3989,6 +4136,10 @@ def main() -> int:
     t_a = time.perf_counter()
     ada_launches, ada_readings = adasum_path_phase(device)
     ada_readings["k4_check"] = k4_check
+    for entry in k4_entries:  # the tree of a step: both kernels, 2 rounds
+        entry.update({f"step_tree_{k}": ada_readings[f"tree_{k}"] for k in (
+            "ms", "device_ms", "bound_ms", "share", "items",
+            "launches_each")})
     _log(f"  adasum path: {time.perf_counter() - t_a:.1f} s")
     _phase("[elastic path] ResNet-50 under hvd.elastic.run: an in-process "
            "recovery and a relaunch from the store, each bitwise an "

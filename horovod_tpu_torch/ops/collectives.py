@@ -47,7 +47,13 @@
   prescaled and postscaled identity; otherwise one ``all_gather`` of every
   rank's prescaled row and ``adasum_tree_reduce`` over K4
   (``ops/adasum.py``) on every rank, then the postscale. The factors follow
-  K1's rule (a half-precision factor is rounded to the dtype first).
+  K1's rule (a half-precision factor is rounded to the dtype first). The
+  runtime groups Adasum tensors into chunks (``AdasumChunkPlan``, cached
+  by ``fused_chunk_plan`` under the fused plans' key with the op): one
+  K1 pack, one ``all_gather`` and one K4a and one K4b launch a round of
+  the tree for the whole chunk, each tensor with its own coefficients.
+  The JAX package reduces Adasum tensors one at a time; a tensor's
+  result agrees with its per-tensor result within fp32 rounding.
 - The two-level data plane (``HOROVOD_HIERARCHICAL_ALLREDUCE``/
   ``_ALLGATHER``, :551-648, :1360-1400) over the global set's
   ``Hierarchy`` (``common/context.py``), where ``allreduce_hierarchy`` and
@@ -263,7 +269,7 @@ def _eager_adasum(x: torch.Tensor, group, pre: float, post: float,
                            device=buf.device)
         _count_call()
         _all_gather(rows.view(-1), buf.view(-1), group=group)
-        red = adasum.adasum_tree_reduce(rows)
+        red = adasum.adasum_tree_reduce_(rows)
     red = red.view(x.shape)
     return red if post == 1.0 else _k1_scaled(red, post)
 
@@ -573,6 +579,73 @@ class FusedChunkPlan:
         fused_pack.unpack(flat, outputs, self.unpack_factor)
 
 
+class AdasumChunkPlan:
+    """One chunk of Adasum allreduces of one dtype, factors and set
+    (the reference fuses Adasum tensors into one buffer and keeps each
+    tensor's own coefficients, ``adasum.h:101``, ``:124``). Flat: K1 packs
+    the prescaled tensors into this rank's row, one ``all_gather`` fills
+    the ``[nproc, total]`` rows, the tree's rounds run on them (one K4a and
+    one K4b launch a round over every (pair, tensor) item, into the left
+    row, ``adasum.tree_items``), and K1 unpacks row 0 with the postscale.
+    With ``hier`` (a ``Hierarchy``, a power-of-two number of hosts) the
+    two-level path over the same packed chunk
+    (``adasum.hierarchical_allreduce``: one reduce-scatter over the host,
+    a ``batch_isend_irecv`` pair, K4a, one allreduce of an fp32[tensors,
+    3] and K4b a cross round, one allgather over the host). Each tensor's
+    result is the per-tensor Adasum within fp32 rounding (a tensor sits
+    at another alignment in the packed row than alone), bitwise the same
+    on every rank."""
+
+    __slots__ = ("group", "nproc", "pre", "post", "sizes", "dtype", "total",
+                 "hier", "rounds", "items", "padded")
+
+    def __init__(self, group, nproc: int, pre: float, post: float,
+                 sizes: tuple, dtype: torch.dtype, hier=None):
+        self.group = group
+        self.nproc = nproc
+        self.pre = pre
+        self.post = post
+        self.sizes = sizes
+        self.dtype = dtype
+        self.total = sum(sizes)
+        self.hier = hier
+        self.rounds = self.items = None
+        if hier is None:
+            self.padded = self.total
+            self.rounds = adasum.tree_items(nproc, sizes)
+        else:
+            nl = hier.local_size
+            self.padded = self.total + (-self.total) % nl
+            cs = self.padded // nl
+            self.items = adasum.slice_items(sizes, hier.local_rank * cs,
+                                            (hier.local_rank + 1) * cs)
+
+    def _flat(self, fusion_buffer, device) -> torch.Tensor:
+        nbytes = self.padded * torch.empty((), dtype=self.dtype
+                                           ).element_size()
+        if fusion_buffer is not None and nbytes <= fusion_buffer.capacity:
+            return fusion_buffer.lease(self.dtype, self.padded)
+        return torch.empty(self.padded, dtype=self.dtype, device=device)
+
+    def execute(self, inputs: list, outputs: list, fusion_buffer=None):
+        """Reduce ``inputs`` into ``outputs`` (which may be the inputs
+        themselves) on PyTorch's current stream."""
+        flat = self._flat(fusion_buffer, inputs[0].device)
+        fused_pack.pack(inputs, flat, self.pre)
+        if self.hier is not None:
+            if self.padded > self.total:
+                flat[self.total:].zero_()
+            red = adasum.hierarchical_allreduce(flat, self.hier, _count_call,
+                                                self.sizes, self.items)
+        else:
+            rows = torch.empty((self.nproc, self.total), dtype=self.dtype,
+                               device=flat.device)
+            _count_call()
+            _all_gather(rows.view(-1), flat, group=self.group)
+            red = adasum.adasum_tree_reduce_(rows, rounds=self.rounds)
+        fused_pack.unpack(red, outputs, self.post)
+
+
 _PLANS: "collections.OrderedDict[tuple, FusedChunkPlan]" = \
     collections.OrderedDict()
 _PLAN_CAPACITY = 1024
@@ -650,6 +723,10 @@ def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
            tuple(names), tuple(shapes), str(dtype), int(op),
            float(prescale_factor), float(postscale_factor), device_type,
            hier is not None)
+    if op == ReduceOp.ADASUM:
+        return _insert_plan(key, lambda: AdasumChunkPlan(
+            group, nproc, float(prescale_factor), float(postscale_factor),
+            sizes, dtype, hier))
     if wire:
         key = key + (quant.signature(),)
         return _insert_plan(key, lambda: _wire_plan(

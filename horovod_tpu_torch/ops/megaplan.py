@@ -27,9 +27,9 @@ rank enters and leaves replay at the same round (``ops/controller.py``).
 
 With ``HOROVOD_MEGAPLAN`` unset no manager exists, the cycle pays one
 ``is None`` check, and no ``hvd_megaplan_*`` series is registered: the
-series are made in ``MegaplanManager.__init__``. The JAX module's
-flight-recorder notes wait for the port's recorder (ROADMAP.md queue 1
-item 16).
+series are made in ``MegaplanManager.__init__``. A capture and an
+invalidation each leave a ``megaplan`` note in the flight recorder
+(``utils/flightrec.py``), as the JAX module's do.
 """
 
 from __future__ import annotations

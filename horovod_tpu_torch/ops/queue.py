@@ -13,9 +13,13 @@ a cycle thread — counterpart of ``horovod_tpu/ops/queue.py``.
   Same-dtype SUM/AVERAGE allreduces fuse into chunks of at most
   ``fusion_threshold_bytes`` (``_chunk_group`` :1183), each reduced by one
   fused-chunk plan (``ops/collectives.py``: pack → collective → unpack in
-  the K1 kernel, through the device fusion buffer of ``_native``); every
-  other op (allgather, alltoall, reducescatter, broadcast, the other
-  reductions) runs alone (``_run_single`` :1454).
+  the K1 kernel, through the device fusion buffer of ``_native``).
+  Adasum allreduces of one dtype, factors and set chunk the same way
+  (``_run_adasum_allreduce``; the JAX package runs them one at a time),
+  each chunk one ``AdasumChunkPlan``: one gather of the packed rows and
+  one launch of each K4 kernel a round of the tree, a tensor's own
+  coefficients kept. Every other op (allgather, alltoall, reducescatter,
+  broadcast, the other reductions) runs alone (``_run_single``).
 - The compressed wire (``_quant_split`` :1132-1181,
   ``_run_quant_allreduce`` :1331-1420): with ``HOROVOD_COMPRESSION`` set
   or a ``Compression.int8``/``int4`` marker on the entries (a marker wins;
@@ -80,8 +84,9 @@ The megaplan (``HOROVOD_MEGAPLAN``, ``ops/megaplan.py``; the JAX cycle's
 ``HOROVOD_MEGAPLAN_STABLE_ROUNDS`` working cycles, with every entry in a
 ``FusedChunkPlan``, nothing pending, no join and, at more than one rank,
 the coordinator's lease, the cycle records its chunk chain
-(``_mp_capture``: dropped by a single op, a chunk with no plan or one that
-failed, and a quantized group, whose residuals change every step), and
+(``_mp_capture``: dropped by a single op, an Adasum group, a chunk with
+no plan or one that failed, and a quantized group, whose residuals change
+every step), and
 later cycles with that signature replay it (``_megaplan_cycle``): one
 lease round (the 1-byte marker) instead of a negotiation, and
 ``_native.chain_dispatch`` instead of grouping and plan lookups, under the
@@ -145,6 +150,7 @@ from ..utils import metrics as metrics_mod
 from ..utils import perfledger as perfledger_mod
 from ..utils import tracing as tracing_mod
 from .. import _native
+from . import adasum as adasum_mod
 from . import collectives as C
 from . import compression as comp
 from . import fused_pack
@@ -889,25 +895,33 @@ class BackgroundRuntime:
         dispatch them on the comm stream, in the batch's order; returns
         the dispatch's seconds."""
         fusable: dict[tuple, list[TensorEntry]] = {}
+        adasums: dict[tuple, list[TensorEntry]] = {}
         singles: list[TensorEntry] = []
         for e in batch:
+            ps_name = getattr(e.process_set, "name", None) or "global"
             if e.op == "allreduce" and e.reduce_op in (C.ReduceOp.SUM,
                                                        C.ReduceOp.AVERAGE):
                 # entries with different wires never share a chunk
                 key = (e.tensor.dtype, int(e.reduce_op), e.prescale_factor,
-                       e.postscale_factor,
-                       getattr(e.process_set, "name", None) or "global",
+                       e.postscale_factor, ps_name,
                        None if e.quant is None else e.quant.signature())
                 fusable.setdefault(key, []).append(e)
+            elif e.op == "allreduce" and e.reduce_op == C.ReduceOp.ADASUM:
+                key = (e.tensor.dtype, e.prescale_factor, e.postscale_factor,
+                       ps_name)
+                adasums.setdefault(key, []).append(e)
             else:
                 singles.append(e)
-        if singles:
-            # a single op runs outside any chunk plan: not replayable
+        if singles or adasums:
+            # a single op and an Adasum chunk run outside the replayable
+            # chain
             self._mp_capture = None
         t0 = time.perf_counter()
         with self._comm():
             for group in fusable.values():
                 self._run_fused_allreduce(group)
+            for group in adasums.values():
+                self._run_adasum_allreduce(group)
             for e in singles:
                 self._run_single(e)
         return time.perf_counter() - t0
@@ -1165,6 +1179,33 @@ class BackgroundRuntime:
                                  plan.execute([e.tensor for e in chunk],
                                               [e.output for e in chunk],
                                               self.fusion_buffer))
+
+    def _run_adasum_allreduce(self, group: list[TensorEntry]):
+        """Adasum allreduces of one dtype, factors and set, in chunks of at
+        most the fusion threshold, each through its Adasum chunk plan: one
+        allgather (flat) or one reduce-scatter (two levels) for the whole
+        chunk, and one K4a and one K4b launch a round. A tensor of no
+        elements or of a dtype K4 does not take, a world of one and a
+        chunk of one go one by one to ``_run_single``
+        (``_eager_adasum``)."""
+        ps = group[0].process_set or self.process_set
+        chunked = []
+        for e in group:
+            if (ps.size <= 1 or e.tensor.numel() == 0
+                    or e.tensor.dtype not in adasum_mod.DTYPES):
+                self._run_single(e)
+            else:
+                chunked.append(e)
+        for chunk in self._chunk_group(chunked):
+            if len(chunk) == 1:
+                self._run_single(chunk[0])
+                continue
+            plan = self._chunk_plan(chunk)
+            self._dispatch_chunk(chunk, lambda plan=plan, chunk=chunk:
+                                 plan.execute([e.tensor for e in chunk],
+                                              [e.output for e in chunk],
+                                              self.fusion_buffer),
+                                 "ADASUM_FUSED_ALLREDUCE")
 
     def _chunk_plan(self, chunk: list[TensorEntry], quant=None):
         e0 = chunk[0]

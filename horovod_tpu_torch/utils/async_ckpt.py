@@ -47,9 +47,11 @@ wrote holds an optax state: its ``trace`` (SGD's momentum) and Adam's
 checkpointer (``HOROVOD_ASYNC_CKPT_DIR``, default ``./horovod_ckpt``) and
 install a SIGTERM handler that flushes it within the grace window
 (``HOROVOD_PREEMPT_GRACE_S``), then dies of the signal as before. Unset,
-no checkpointer exists and no ``hvd_ckpt_*`` series is registered. Not
-ported yet (ROADMAP.md queue 1 item 6): the flight recorder's
-``checkpoint`` notes and the launcher's ``/checkpoint`` endpoint.
+no checkpointer exists and no ``hvd_ckpt_*`` series is registered. A
+commit, a failed commit, a restore and a preemption each leave a
+``checkpoint`` note in the flight recorder (``utils/flightrec.py``). Not
+ported yet (ROADMAP.md queue 1 item 6): the launcher's ``/checkpoint``
+endpoint.
 """
 
 from __future__ import annotations

@@ -83,11 +83,13 @@ def _ulp(x: np.ndarray, dtype: str) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(mag)) - mant)
 
 
-def _assert_close(got, want, dtype, exact_dots=False):
+def _assert_close(got, want, dtype, exact_dots=False, scale=None,
+                  carried=0):
     g = np.asarray(got).astype(np.float64)
     w = np.asarray(want).astype(np.float64)
     assert g.shape == w.shape
-    scale = np.abs(w).max() if w.size else 0.0
+    if scale is None:
+        scale = np.abs(w).max() if w.size else 0.0
     err = np.abs(g - w)
     if dtype == "float32":
         assert err.max(initial=0.0) <= F32_TOL * scale, (err.max(), scale)
@@ -95,6 +97,8 @@ def _assert_close(got, want, dtype, exact_dots=False):
     bound = _ulp(np.maximum(np.abs(g), np.abs(w)), dtype)
     if not exact_dots:
         bound = bound + HALF_FLOOR * scale
+    if carried:  # one ulp of the largest magnitude a later round
+        bound = bound + carried * _ulp(np.float64(scale), dtype)
     assert (err <= bound).all(), (err.max(), scale)
 
 
@@ -193,7 +197,195 @@ def test_dot_norms_and_scaled_add_are_the_jax_arithmetic(dtype):
                   exact_dots=True)
 
 
+# --- the table: a packed chunk of tensors, each its own coefficients -------
+
+TABLE_SIZES = (0, 1, 7, 4099, 2 ** 16 + 3)
+SPECIAL = ("zero_side", "identical", "orthogonal")
+SPECIAL_SIZE = 257
+
+
+def _chunk_rows(n, dtype, seed):
+    """``n`` rows of a packed chunk: the random tensors of ``TABLE_SIZES``,
+    then one whose row 1 is zero, one whose rows are all equal and one
+    whose rows have disjoint supports; the tensors as [n, size] arrays."""
+    grid = dtype != "float32"
+    tensors = [_rows(n, size, dtype, seed + i, grid=grid)
+               for i, size in enumerate(TABLE_SIZES)]
+    zero = _rows(n, SPECIAL_SIZE, dtype, seed + 10, grid=grid)
+    zero[1] = 0
+    same = np.repeat(_rows(1, SPECIAL_SIZE, dtype, seed + 11, grid=grid), n,
+                     axis=0)
+    orth = _rows(n, SPECIAL_SIZE, dtype, seed + 12, grid=grid)
+    owner = np.arange(SPECIAL_SIZE) % n
+    orth[np.arange(n)[:, None] != owner[None, :]] = 0
+    tensors += [zero, same, orth]
+    return tensors, np.concatenate(tensors, axis=1)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 5])
+def test_table_tree_is_the_jax_tree_per_tensor(n, dtype):
+    """One packed chunk of eight tensors through the table plain versions
+    (a round: one dot/norms table and one scaled-add table over every
+    (pair, tensor) item): each tensor's slice of the result is JAX's
+    ``adasum_tree_reduce`` of that tensor's rows, within the file's
+    tolerances of the largest magnitude of its rows and result (a
+    combine's products round at the magnitude of its terms, and a short
+    tensor's result can cancel far below them: at one element a combine
+    is (a + b) / 2, which XLA computes with an FMA). In bf16 and fp16
+    each round after the first may add one ulp of that magnitude: the
+    2^16 + 3 products' fp32 dots add in another order than XLA's, an
+    output may round the other way, and the next round's coefficients
+    carry that difference. Each tensor is bitwise the port's tree of that
+    tensor alone; the special tensors are exact (a zero side the other
+    row at two rows, identical rows the row, disjoint supports the
+    sum)."""
+    tensors, packed = _chunk_rows(n, dtype, seed=20 * n)
+    sizes = [t.shape[1] for t in tensors]
+    rounds = pada.tree_items(n, sizes)
+    assert len(rounds) == int(np.ceil(np.log2(n)))
+    # every non-empty tensor is an item of every pair of the first round
+    assert len(rounds[0]) == (n // 2) * sum(1 for s in sizes if s)
+    got = pada.adasum_tree_reduce(_torch(packed), sizes)
+    assert got.shape == (packed.shape[1],)
+    # the same arithmetic on a list of rows, and through the plain entry
+    assert torch.equal(pada.adasum_tree_reduce_plain(
+        [_torch(r) for r in packed], sizes), got)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    for i, t in enumerate(tensors):
+        part = _np(got[offs[i]:offs[i + 1]])
+        if t.shape[1] == 0:
+            assert part.size == 0
+            continue
+        alone = pada.adasum_tree_reduce_plain(_torch(t))
+        assert np.array_equal(part.view(np.uint8), _np(alone).view(np.uint8))
+        want = np.asarray(_jtree(t))
+        scale = max(np.abs(t.astype(np.float64)).max(),
+                    np.abs(want.astype(np.float64)).max())
+        _assert_close(part, want, dtype, scale=scale,
+                      carried=len(rounds) - 1)
+    zero, same, orth = (_np(got[offs[k]:offs[k + 1]]) for k in (5, 6, 7))
+    assert np.array_equal(same.view(np.uint8), tensors[6][0].view(np.uint8))
+    s = tensors[7].astype(np.float32).sum(0).astype(tensors[7].dtype)
+    assert np.array_equal(orth.view(np.uint8), s.view(np.uint8))
+    if n == 2:  # combine(a, 0) is a, bit for bit
+        assert np.array_equal(zero.view(np.uint8),
+                              tensors[5][0].view(np.uint8))
+
+
+def test_table_items_are_each_their_own_pair():
+    """A table's sums are each item's own: the same as a table of that
+    item alone, whatever else the table holds; slices of one buffer and
+    of two, a shared row of sums refused, and offsets checked."""
+    rs = np.random.RandomState(5)
+    A = torch.from_numpy(rs.randn(300).astype(np.float32))
+    B = torch.from_numpy(rs.randn(200).astype(np.float32))
+    items = pada.Items([0, 17, 100], [5, 50, 0], [10, 0, 90], slot=[2, 0, 1])
+    sums = pada.dot_norms_table(items, A, B)
+    assert sums.shape == (3, 3)
+    for a0, b0, n, s in ((0, 5, 10, 2), (17, 50, 0, 0), (100, 0, 90, 1)):
+        alone = pada.dot_norms(A[a0:a0 + n], B[b0:b0 + n])
+        assert torch.equal(sums[s], alone)
+    out = torch.zeros(300)
+    pada.scaled_add_table(pada.Items([0, 100], [5, 0], [10, 90],
+                                     slot=[2, 1]), A, B, sums, out)
+    assert torch.equal(out[0:10], pada.adasum_combine(A[0:10], B[5:15]))
+    assert torch.equal(out[100:190], pada.adasum_combine(A[100:190],
+                                                         B[0:90]))
+    assert torch.count_nonzero(out[10:100]) == 0
+    with pytest.raises(ValueError, match="share a row"):
+        pada.Items([0, 1], [0, 1], [1, 1], slot=[0, 0])
+    with pytest.raises(ValueError, match="reaches element"):
+        pada.dot_norms_table(pada.Items([0], [190], [20]), A, B)
+    with pytest.raises(ValueError, match="rows >= 3"):
+        pada.dot_norms_table(items, A, B, torch.zeros(2, 3))
+
+
+@pytest.mark.parametrize("nl,lo,hi", [(2, 0, 2186), (2, 2186, 4372),
+                                      (4, 3279, 4372)])
+def test_slice_items_cut_the_tensors_at_the_slice(nl, lo, hi):
+    """The items where a rank's slice meets each tensor: offsets into the
+    slice, empty meets dropped, each tensor's row of sums its index."""
+    sizes = (0, 1, 7, 4099, 265)
+    it = pada.slice_items(sizes, lo, hi)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    want = [(t, max(offs[t], lo), min(offs[t + 1], hi))
+            for t in range(len(sizes)) if min(offs[t + 1], hi)
+            > max(offs[t], lo)]
+    assert it.rows == len(sizes)
+    assert it.slot.tolist() == [t for t, _, _ in want]
+    assert it.a_off.tolist() == [s - lo for _, s, _ in want]
+    assert it.n.tolist() == [e - s for _, s, e in want]
+    assert it.elements == min(hi, offs[-1]) - lo
+
+
+def test_a_chunk_plan_key_carries_the_generation_and_the_verdict(
+        port, monkeypatch):
+    """An Adasum chunk's plan is cached under the fused plans' key: the
+    same chunk hits, a new elastic generation and a two-level verdict
+    each build another plan (ROADMAP.md queue 3's contract)."""
+    import types
+
+    from horovod_tpu_torch.ops import collectives as C
+
+    ps = hvd.global_process_set()
+    args = (ps, ps.runtime_group, hvd.Adasum, 1.0, 1.0, ["t.0", "t.1"],
+            [3, 5], [(3,), (5,)], torch.float32, "cpu")
+    monkeypatch.setenv("HOROVOD_ELASTIC_GEN", "40")
+    plan = C.fused_chunk_plan(*args)
+    assert isinstance(plan, C.AdasumChunkPlan) and plan.hier is None
+    assert C.fused_chunk_plan(*args) is plan
+    monkeypatch.setenv("HOROVOD_ELASTIC_GEN", "41")
+    newer = C.fused_chunk_plan(*args)
+    assert newer is not plan and isinstance(newer, C.AdasumChunkPlan)
+    hier = types.SimpleNamespace(local_size=2, local_rank=1, cross_size=2)
+    monkeypatch.setattr(C, "allreduce_hierarchy", lambda ps, op: hier)
+    two = C.fused_chunk_plan(*args)
+    assert two is not newer and two.hier is hier
+    # rank 1 of two slices [4, 8) of the padded 8: tensor 1's last four
+    assert two.items.slot.tolist() == [1]
+    assert two.items.n.tolist() == [4] and two.padded == 8
+    monkeypatch.setattr(C, "allreduce_hierarchy", lambda ps, op: None)
+    assert C.fused_chunk_plan(*args) is newer
+
+
 # --- two levels: the hosts' means, then the hypercube across hosts ----------
+
+def _jax_hier(g, local, cross):
+    devs = np.array(jax.devices()[:local * cross]).reshape(cross, local)
+    mesh = Mesh(devs, ("cross", "local"))
+    spec = P(("cross", "local"))
+    f = jax.jit(jax.shard_map(
+        lambda x: jada.adasum_allreduce_hierarchical(x, "local", "cross"),
+        mesh=mesh, in_specs=spec, out_specs=spec, check_vma=False))
+    return np.asarray(f(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("local,cross", [(2, 2), (4, 2)])
+def test_simulated_hierarchical_chunk_is_jax_per_tensor(local, cross):
+    """Two levels over a packed chunk of five tensors (slices that cut
+    tensors, a tensor of no elements): each tensor's slice of every rank's
+    result is JAX's ``adasum_allreduce_hierarchical`` of that tensor,
+    within the file's fp32 tolerance, and every rank holds the same
+    bits."""
+    n_ranks = local * cross
+    sizes = (7, 0, 1001, 1, 300)
+    tensors = [_rows(n_ranks, s, "float32", seed=60 + i)
+               for i, s in enumerate(sizes)]
+    packed = np.concatenate(tensors, axis=1)
+    got = pada.simulated_hierarchical([_torch(r) for r in packed], local,
+                                      sizes)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    for i, t in enumerate(tensors):
+        if not sizes[i]:
+            continue
+        want = _jax_hier(t, local, cross)
+        for r in range(n_ranks):
+            _assert_close(_np(got[r][offs[i]:offs[i + 1]]), want[r],
+                          "float32")
+    for r in range(n_ranks):
+        assert torch.equal(got[r], got[0])
+
 
 @pytest.mark.parametrize("local,cross", [(2, 2), (2, 4), (4, 2)])
 def test_simulated_hierarchical_matches_jax_shard_map(local, cross):

@@ -24,6 +24,13 @@ through each package's ``hvdrun``. Three jobs start at once:
   ``adasum_allreduce_hierarchical`` under ``shard_map`` (2 x 2 on four
   CPU devices) and flat Adasum JAX's ``adasum_tree_reduce``, within 1e-6
   of the largest magnitude.
+- A grouped case in both: twelve Adasum tensors of mixed sizes
+  (``GROUP_SIZES``) enqueued together with ``grouped_allreduce``. The
+  port runs them as one chunk: one allgather (flat), or one
+  reduce-scatter, one send/recv pair and one allreduce of an fp32[12, 3]
+  a cross round, then one allgather (two levels); each tensor agrees
+  with the JAX package's per-tensor Adasum within ``TOL`` and every rank
+  holds rank 0's bits.
 - ``adasum_probe.py -np 4 -H localhost:2,127.0.0.1:2 --device cpu`` at
   the tiny ResNet, every arm: the probe's own checks (parameters bitwise
   on every rank after every step, the Average arms' losses, the two-level
@@ -68,7 +75,12 @@ JAX_HEAD = """
     hvd.init()
 """
 
-ADASUM_CASES = """
+# the grouped Adasum case's tensor sizes
+GROUP_SIZES = (1, 3, 7, 64, 100, 257, 1000, 1024, 2, 33, 4097, 5000)
+
+ADASUM_CASES = f"""
+    GROUP_SIZES = {GROUP_SIZES!r}
+""" + """
     import numpy as np
 
     r = hvd.rank()
@@ -80,6 +92,23 @@ ADASUM_CASES = """
     res["scaled"] = hvd.allreduce(x, op=hvd.Adasum, name="ada.scaled",
                                   prescale_factor=0.5,
                                   postscale_factor=2.0).numpy()
+    # twelve Adasum tensors of mixed sizes enqueued together: the port
+    # runs them as one chunk (one allgather), the JAX package one by one
+    grp = [torch.from_numpy(np.random.RandomState(400 + 10 * i + r)
+                            .randn(n).astype(np.float32))
+           for i, n in enumerate(GROUP_SIZES)]
+    port = hvd.__name__ == "horovod_tpu_torch"
+    if port:
+        from horovod_tpu_torch.common import context
+        rt = context.runtime()
+        c0, k0 = rt.chunks, rt.collective_calls
+    outs = hvd.grouped_allreduce(grp, op=hvd.Adasum, name="ada.group",
+                                 prescale_factor=0.5, postscale_factor=4.0)
+    # the JAX package's runtime has no such counters: -1
+    res["group.chunks"] = np.array(rt.chunks - c0 if port else -1)
+    res["group.calls"] = np.array(rt.collective_calls - k0 if port else -1)
+    for i, o in enumerate(outs):
+        res[f"group.{i}"] = o.numpy()
     torch.manual_seed(0)
     model = torch.nn.Sequential(torch.nn.Linear(6, 5), torch.nn.Tanh(),
                                 torch.nn.Linear(5, 2))
@@ -106,7 +135,9 @@ ADASUM_CASES = """
     print("CASES_OK", r)
 """
 
-HIER_CASES = """
+HIER_CASES = f"""
+    GROUP_SIZES = {GROUP_SIZES!r}
+""" + """
     import numpy as np
     from horovod_tpu_torch.common import context
     from horovod_tpu_torch.ops import collectives as C
@@ -123,7 +154,25 @@ HIER_CASES = """
           for n in (1, 7, 1000, 4097)]
     even = torch.from_numpy(rs.randn(3, 5).astype(np.float32))
     ragged = torch.from_numpy(rs.randn(r + 1, 3).astype(np.float32))
+    grp = [torch.from_numpy(np.random.RandomState(500 + 10 * i + r)
+                            .randn(n).astype(np.float32))
+           for i, n in enumerate(GROUP_SIZES)]
     res = {f"in.{i}": x.numpy() for i, x in enumerate(xs)}
+    seen = []  # (kind, shape) of the runtime's calls into the communicator
+    _dist = torch.distributed
+
+    def _spy(fn, kind):
+        def spied(*a, **kw):
+            t = a[0] if a and isinstance(a[0], torch.Tensor) else None
+            seen.append((kind, tuple(t.shape) if t is not None else ()))
+            return fn(*a, **kw)
+        return spied
+
+    _dist.all_reduce = _spy(_dist.all_reduce, "all_reduce")
+    _dist.batch_isend_irecv = _spy(_dist.batch_isend_irecv,
+                                   "batch_isend_irecv")
+    C._all_gather = _spy(C._all_gather, "all_gather")
+    C._reduce_scatter = _spy(C._reduce_scatter, "reduce_scatter")
 
     def run(tag, hier):
         calls0 = context.runtime().collective_calls
@@ -147,6 +196,22 @@ HIER_CASES = """
                                              name=f"ada.{tag}").numpy()
         res[f"{tag}.calls"] = np.array(context.runtime().collective_calls
                                        - calls0)
+        # the grouped Adasum chunk: the calls into torch.distributed by
+        # kind, and the shapes of its allreduces
+        seen.clear()
+        rt = context.runtime()
+        c0 = rt.chunks
+        outs = hvd.grouped_allreduce(grp, op=hvd.Adasum,
+                                     name=f"ada.group.{tag}")
+        res[f"{tag}.group.chunks"] = np.array(rt.chunks - c0)
+        for kind in ("reduce_scatter", "all_gather", "all_reduce",
+                     "batch_isend_irecv"):
+            res[f"{tag}.group.{kind}"] = np.array(
+                sum(1 for k, _ in seen if k == kind))
+        res[f"{tag}.group.allreduce_shapes"] = np.array(
+            [shape for k, shape in seen if k == "all_reduce"]).reshape(-1, 2)
+        for i, o in enumerate(outs):
+            res[f"{tag}.group.{i}"] = o.numpy()
 
     run("hier", True)
     plans = [p for p in C._PLANS.values() if isinstance(p, C.FusedChunkPlan)]
@@ -271,6 +336,30 @@ def test_two_processes_adasum_eager_against_the_tree(jobs):
     _close(jobs["port"][0]["scaled"], scaled, TOL)
 
 
+_jtree = jax.jit(jada.adasum_tree_reduce)
+
+
+def _group_rows(seed0, nranks):
+    return [np.stack([np.random.RandomState(seed0 + 10 * i + r).randn(n)
+                      .astype(np.float32) for r in range(nranks)])
+            for i, n in enumerate(GROUP_SIZES)]
+
+
+def test_two_processes_grouped_adasum_is_one_chunk(jobs):
+    """Twelve Adasum tensors enqueued together: one chunk, one allgather
+    in the port; each tensor JAX's per-tensor Adasum (the JAX package's
+    job and ``adasum_tree_reduce`` of the prescaled rows, postscaled)
+    within ``TOL``, bitwise the same on both ranks."""
+    p0, p1 = jobs["port"]
+    assert int(p0["group.chunks"]) == 1 and int(p0["group.calls"]) == 1
+    for i, rows in enumerate(_group_rows(400, 2)):
+        key = f"group.{i}"
+        assert _bitwise(p0[key], p1[key]), key
+        _close(p0[key], jobs["jax"][0][key], TOL)
+        want = np.asarray(_jtree(rows * 0.5))
+        _close(p0[key], want * 4.0, TOL)
+
+
 HIER_KEYS = ["fused.sum.0", "fused.sum.1", "fused.sum.2", "fused.sum.3",
              "fused.avg.0", "fused.avg.1", "fused.avg.2", "fused.avg.3",
              "one", "eager.sum", "eager.avg"]
@@ -329,6 +418,44 @@ def test_two_level_adasum_matches_jax_hierarchical(jobs):
     tree = np.asarray(jada.adasum_tree_reduce(jnp.asarray(g)))
     _close(ranks[0]["flat.adasum"], tree, TOL)
     assert not np.allclose(ranks[0]["flat.adasum"], want[0])
+
+
+@pytest.mark.parametrize("tag", ["hier", "flat"])
+def test_grouped_adasum_chunk_at_four_ranks(jobs, tag):
+    """Twelve Adasum tensors enqueued together as one chunk. Two levels:
+    one reduce-scatter, one send/recv pair and one allreduce of an
+    fp32[12, 3] (the round across the two hosts), one allgather; each
+    tensor JAX's ``adasum_allreduce_hierarchical`` within ``TOL``. Flat:
+    one allgather; each tensor JAX's ``adasum_tree_reduce`` within
+    ``TOL``. Every rank holds rank 0's bits."""
+    ranks = jobs["hier"]
+    r0 = ranks[0]
+    calls = {k: int(r0[f"{tag}.group.{k}"]) for k in (
+        "reduce_scatter", "all_gather", "all_reduce", "batch_isend_irecv")}
+    assert int(r0[f"{tag}.group.chunks"]) == 1
+    if tag == "hier":
+        assert calls == {"reduce_scatter": 1, "all_gather": 1,
+                         "all_reduce": 1, "batch_isend_irecv": 1}, calls
+        assert r0["hier.group.allreduce_shapes"].tolist() == [
+            [len(GROUP_SIZES), 3]]
+    else:
+        assert calls == {"reduce_scatter": 0, "all_gather": 1,
+                         "all_reduce": 0, "batch_isend_irecv": 0}, calls
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
+                ("cross", "local"))
+    spec = P(("cross", "local"))
+    hier = jax.jit(jax.shard_map(
+        lambda x: jada.adasum_allreduce_hierarchical(x, "local", "cross"),
+        mesh=mesh, in_specs=spec, out_specs=spec, check_vma=False))
+    for i, rows in enumerate(_group_rows(500, 4)):
+        key = f"{tag}.group.{i}"
+        for r in ranks[1:]:
+            assert _bitwise(r[key], r0[key]), key
+        if tag == "hier":
+            want = np.asarray(hier(jnp.asarray(rows)))[0]
+        else:
+            want = np.asarray(_jtree(rows))
+        _close(r0[key], want, TOL)
 
 
 def test_adasum_probe_at_four_ranks_on_the_cpu(jobs):

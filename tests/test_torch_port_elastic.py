@@ -41,6 +41,7 @@ from horovod_tpu import elastic as jelastic
 from horovod_tpu.elastic import driver as jdriver
 from horovod_tpu.utils import checkpoint as jckpt
 from horovod_tpu.utils import faults as jfaults
+from horovod_tpu.utils import metrics as jmetrics
 from horovod_tpu_torch import elastic as pelastic
 from horovod_tpu_torch.common import context
 from horovod_tpu_torch.common import env as penv
@@ -65,9 +66,20 @@ def _clean_env(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     jfaults.reset()
     pfaults.reset()
+    # a firing of a JAX fault point registers its series in the JAX
+    # package's process-wide registry; the ones a test adds go with it, so
+    # the JAX package's own tests that follow in this process find none
+    reg = jmetrics.get_registry()
+    with reg._lock:
+        before = set(reg._metrics)
     yield
     jfaults.reset()
     pfaults.reset()
+    with reg._lock:
+        for key in [k for k in reg._metrics
+                    if k[0] == "hvd_fault_injected_total"
+                    and k not in before]:
+            del reg._metrics[key]
 
 
 # --- fault injection ---------------------------------------------------------
