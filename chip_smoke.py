@@ -80,6 +80,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fp32 flash launch per layer and step (the bf16 kernel's none), finite
    and falling losses, the first loss within 1e-4 (relative) of the same
    step with ``use_flash=False``; median step, tokens/s and peak memory;
+   then the parallel path (``parallel/``, the counts set to 0 just
+   before it): the same LM through ``create_mesh({"dp": 1, "tp": 1})``,
+   ``data_parallel_step``, the tp-aware model and
+   ``DistributedOptimizer(process_set=step.process_set)`` for the main
+   path's 5 steps, its losses bit for bit the main path's; ``moe_layer``
+   at the LM's widths (d 2048, 8 experts of its gelu MLP, top-2, capacity
+   factor 1.25, 2048 tokens, bf16) for 3 SGD steps, each step's dispatch
+   bitwise the plain router's (``parallel_probe.plain_gating``, written
+   apart from the layer) and its output, aux and gradients within
+   ``MOE_TOL`` of the plain loop over the experts; ``pipeline_loss`` with the 12 blocks as one stage over 8
+   microbatches of 1 x 1024 bitwise the sequential model (loss and
+   gradients) and within ``PP_WHOLE_TOL`` of the batch in one call; the
+   bf16 flash kernel and K1 must have launched on it (the flash phase also
+   times the kernel at a tp rank's heads, B 64 and 32);
 7. the slice against plain: a 2-layer model of the same widths, one loss and
    its gradients through the kernel path and through ``causal_attention``;
 8. collectives path: the same LM at full width and ``hvd.init()``,
@@ -541,6 +555,14 @@ def kernel_phase(device) -> list:
                                 10)):
         kernels.append(time_flash(name, B, s, d, dtype, iters, device))
     kernels[0]["long_context_shape"] = time_flash_long_context(device)
+    # a tensor-parallel rank's local heads: B = batch * heads / tp
+    kernels[0]["tp_shapes"] = {
+        f"tp{tp}": {k: v for k, v in time_flash(
+            f"flash_attention_fwd at tp {tp}", B // tp, s, d, torch.bfloat16,
+            50, device).items() if k in ("ms", "device_ms", "bound_ms",
+                                         "share", "library_ms",
+                                         "library_device_ms", "max_abs_err")}
+        for tp in (2, 4)}
     return kernels
 
 
@@ -606,8 +628,9 @@ def time_flash(name, B, s, d, dtype, iters, device) -> dict:
         fma_ms = flash_bound(B, s, s, d, dt, True, route="fma")[0]
         extra = (f"; on the fp32 FMA pipes the bound would be {fma_ms:.4f} "
                  f"ms ({fma_ms / dev['kernel']:.3f} of it)")
-    _log(f"  {name} at the slice shape ({dt}): kernel {ev['kernel']:.4f} ms "
-         f"a call back to back, {dev['kernel']:.4f} ms of device time "
+    _log(f"  {name} at B {B}, s {s}, d {d} ({dt}): kernel "
+         f"{ev['kernel']:.4f} ms a call back to back, "
+         f"{dev['kernel']:.4f} ms of device time "
          f"({flops / dev['kernel'] / 1e9:.1f} TFLOP/s of the kept pairs, "
          f"{bound_ms / dev['kernel']:.3f} of its bound); sdpa "
          f"{ev['sdpa']:.4f} ms a call, {dev['sdpa']:.4f} ms of device time; "
@@ -1341,7 +1364,7 @@ def _log_profile(prof: dict):
         _log(f"    {ms:9.3f}  {name}")
 
 
-def main_path_phase(device) -> dict:
+def main_path_phase(device) -> tuple:
     import torch
 
     import horovod_tpu_torch as hvd
@@ -1431,7 +1454,7 @@ def main_path_phase(device) -> dict:
     if bare["losses"][0] != losses[0]:
         raise AssertionError("the bare loop's first loss differs")
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses
 
 
 # --- phase 6: the fp32 path ------------------------------------------------
@@ -1529,6 +1552,183 @@ def slice_vs_plain_phase(device, n_layers: int = 2):
         raise AssertionError("kernel path disagrees with plain attention")
     del model, g_k, g_p
     torch.cuda.empty_cache()
+
+
+# --- the parallel path ------------------------------------------------------
+
+# the MoE layer against its plain loop, relative in norm: bf16 expert
+# products in one batched call against one call an expert; one H100 read
+# 5.5e-5
+MOE_TOL = 1e-3
+# a microbatch of 1 x 1024 against the batch of 8 in one call: bf16
+# products at other shapes round elsewhere
+PP_WHOLE_TOL = 1e-3
+
+
+def _parallel_lm(device, main_losses: list) -> dict:
+    """The full-width LM through ``create_mesh({"dp": 1, "tp": 1})``,
+    ``data_parallel_step``, the tp-aware model and the runtime's hooks on
+    the dp set: the main path's model, tokens and optimizer, so its losses
+    must be the main path's bit for bit."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.parallel import (create_mesh, data_parallel_step,
+                                            ring_attention)
+
+    cfg = full_width_config(12)
+    mesh = create_mesh({"dp": 1, "tp": 1})
+    model = TransformerLM(cfg, device=device, seed=0,
+                          tp_group=mesh.group("tp"))
+    tokens = tokens_for(cfg, 8, 0, device)
+
+    def step_fn(model, opt, tokens):
+        opt.zero_grad()
+        loss = lm_loss(model, tokens, attn_fn=ring_attention)
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    step = data_parallel_step(step_fn, mesh=mesh, axis_name="dp")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        process_set=step.process_set)
+    losses, ms = [], []
+    for _ in range(len(main_losses)):
+        t0 = time.perf_counter()
+        losses.append(step(model, opt, tokens))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _log(f"  dp1 x tp1 LM: losses {losses}; step ms "
+         f"{[round(x, 1) for x in ms]}")
+    if losses != main_losses:
+        raise AssertionError(f"the mesh's LM losses {losses} differ from the "
+                             f"main path's {main_losses}")
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lm_losses": losses, "lm_step_ms": ms}
+
+
+def _parallel_moe(device, steps: int = 3) -> dict:
+    """``moe_layer`` at the LM's widths at a world of one (d_model 2048, 8
+    experts of the LM's gelu MLP, top-2, capacity factor 1.25, 2048 tokens,
+    bf16) trains ``steps`` SGD steps; each step the layer's dispatch must
+    equal the plain router's bit for bit, and its output, aux and gradients
+    are held against the plain loop over the experts on the same
+    weights."""
+    import torch
+
+    import parallel_probe as pprobe
+    from horovod_tpu_torch.parallel import moe_layer
+
+    m = pprobe.MOE["full"]
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(m["tokens"], m["d"], generator=gen,
+                    device=device).to(torch.bfloat16)
+    tgt = torch.randn(m["tokens"], m["d"], generator=gen, device=device)
+    params = [w.requires_grad_() for w in pprobe.moe_weights(m, device, 0)]
+    opt = torch.optim.SGD(params, lr=1e-3, momentum=0.9)
+
+    def run(fn):
+        opt.zero_grad()
+        y, aux = fn()
+        loss = ((y.float() - tgt) ** 2).mean() + pprobe.AUX_WEIGHT * aux
+        loss.backward()
+        return y.detach(), aux.item(), loss.item(), [
+            p.grad.clone() for p in params]
+
+    gate, w1, w2 = params
+    errs, losses, ms = [], [], []
+    for _ in range(steps):
+        pprobe.check_routing(x, gate, m)
+        y_p, aux_p, _, g_p = run(lambda: pprobe.plain_moe(x, gate, w1, w2, m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux, loss, g = run(lambda: moe_layer(
+            x, gate, pprobe.expert_mlp, (w1, w2),
+            capacity_factor=m["factor"], k=m["k"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        err = {"y": pprobe.rel_err(y, y_p), "aux": abs(aux - aux_p),
+               **{n: pprobe.rel_err(a, b) for n, a, b in
+                  zip(("gate_w", "w1", "w2"), g, g_p)}}
+        errs.append(err)
+        losses.append(loss)
+        opt.step()
+    worst = max(max(e.values()) for e in errs)
+    _log(f"  moe_layer against the plain loop (dispatch bitwise the plain "
+         f"router's): losses {losses}, worst "
+         f"relative error {worst:.3g} (tol {MOE_TOL}); step ms "
+         f"{[round(x, 2) for x in ms]}")
+    if not (all(math.isfinite(v) for v in losses) and worst <= MOE_TOL):
+        raise AssertionError(f"moe_layer against its plain loop: {errs}")
+    del params, opt, gate, w1, w2
+    torch.cuda.empty_cache()
+    return {"moe_losses": losses, "moe_errors": errs, "moe_step_ms": ms}
+
+
+def _parallel_pp(device, n_micro: int = 8) -> dict:
+    """``pipeline_loss`` at one stage: the full-width LM's 12 blocks as one
+    stage over 8 microbatches of 1 x 1024 must equal the sequential model
+    on the same microbatches (the stage applied to each in turn) bit for
+    bit, loss and gradients, and the model on the whole batch in one call
+    within ``PP_WHOLE_TOL``."""
+    import torch
+    import torch.nn.functional as F
+
+    import parallel_probe as pprobe
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.parallel import ring_attention
+
+    cfg = full_width_config(12)
+    model = TransformerLM(cfg, device=device, seed=0)
+    toks = tokens_for(cfg, n_micro, 0, device)
+    stage = pprobe.lm_stage_fn(cfg, ring_attention)
+
+    def grads():
+        out = {n: p.grad.clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    loss_pp = pprobe.lm_pipeline_loss(model, model.blocks, toks, n_micro,
+                                      None, ring_attention)
+    loss_pp.backward()
+    g_pp = grads()
+    b, s = toks.shape[0], toks.shape[1] - 1
+    inputs = model.embed_tokens(toks[:, :-1]).reshape(n_micro, 1, s, -1)
+    outs = torch.stack([stage(model.blocks, inputs[t])
+                        for t in range(n_micro)])
+    logits = model.head(outs.reshape(b, s, -1))
+    loss_seq = F.cross_entropy(logits.reshape(b * s, -1),
+                               toks[:, 1:].reshape(-1))
+    loss_seq.backward()
+    g_seq = grads()
+    with torch.no_grad():
+        whole = lm_loss(model, toks, attn_fn=ring_attention).item()
+    same = loss_pp.item() == loss_seq.item() and all(
+        torch.equal(g_pp[n], g_seq[n]) for n in g_seq)
+    gap = abs(loss_pp.item() - whole) / whole
+    _log(f"  pipeline_loss at one stage {loss_pp.item()!r}, the sequential "
+         f"model {loss_seq.item()!r} (gradients bitwise: {same}); the "
+         f"whole batch in one call {whole!r} (relative gap {gap:.3g}, tol "
+         f"{PP_WHOLE_TOL})")
+    if not same or gap > PP_WHOLE_TOL:
+        raise AssertionError("pipeline_loss at one stage differs from the "
+                             "sequential model")
+    del model, g_pp, g_seq, outs, logits, inputs
+    torch.cuda.empty_cache()
+    return {"pp_loss": loss_pp.item(), "pp_whole_batch_loss": whole}
+
+
+def parallel_path_phase(device, main_losses: list) -> dict:
+    """The parallelism strategies at a world of one on the card."""
+    out = _parallel_lm(device, main_losses)
+    out.update(_parallel_moe(device))
+    out.update(_parallel_pp(device))
+    return out
 
 
 # --- phase 8: the collectives path ---------------------------------------
@@ -4069,9 +4269,23 @@ def main() -> int:
     _log(f"  wire phase: {time.perf_counter() - t_wire:.1f} s")
 
     _phase("[main path] 12 layers at full width, 5 steps, through the runtime")
-    launches = main_path_phase(device)
+    launches, main_losses = main_path_phase(device)
     _phase("[fp32 path] the same LM in fp32, 3 steps, through the runtime")
     fp32_launches = fp32_path_phase(device)
+    _phase("[parallel path] the LM at dp 1 x tp 1 through the mesh and "
+           "data_parallel_step (bitwise the main path), moe_layer against "
+           "its plain loop, pipeline_loss at one stage against the "
+           "sequential model")
+    t_par = time.perf_counter()
+    _zero_launch_counts()  # just before the path runs
+    par_readings = parallel_path_phase(device, main_losses)
+    par_launches = _launch_counts()
+    if not (par_launches["flash_attention_fwd"] > 0
+            and par_launches["fused_pack"] > 0
+            and par_launches["fused_unpack"] > 0):
+        raise AssertionError(f"the parallel path launched {par_launches}")
+    _log(f"  launches {par_launches}; parallel path: "
+         f"{time.perf_counter() - t_par:.1f} s")
 
     _phase("[slice vs plain]")
     slice_vs_plain_phase(device)
@@ -4170,6 +4384,7 @@ def main() -> int:
         entry["launches_by_path"] = {
             "main": launches[entry["name"]],
             "fp32": fp32_launches[entry["name"]],
+            "parallel": par_launches[entry["name"]],
             "collectives": coll_launches[entry["name"]],
             "sp": sp_launches[entry["name"]],
             "long_context": lc_launches[entry["name"]],
@@ -4192,6 +4407,7 @@ def main() -> int:
             "adasum": entry["launches"],
             **{path: counts[entry["name"]] for path, counts in (
                 ("main", launches), ("fp32", fp32_launches),
+                ("parallel", par_launches),
                 ("collectives", coll_launches), ("sp", sp_launches),
                 ("long_context", lc_launches), ("zero1", zero_launches),
                 ("resnet", resnet_launches), ("megaplan", mp_launches),
@@ -4203,6 +4419,7 @@ def main() -> int:
     launcher_phase(root)
 
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"parallel": par_readings}))
     print(json.dumps({"collectives": readings}))
     print(json.dumps({"zero1": zero_arms}))
     print(json.dumps({"resnet": resnet_readings}))

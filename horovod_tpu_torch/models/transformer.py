@@ -20,6 +20,19 @@ backward (``torch.utils.checkpoint``, as ``jax.checkpoint(_block)``), and
 chunks (``ops/xent.py``, K5) instead of materializing fp32 logits
 ``[tokens, vocab]``. The matrix products of the model are plain
 ``torch.einsum``, as XLA computed them outside any kernel.
+
+Tensor parallelism (``TransformerLM(cfg, tp_group=mesh.group("tp"))``):
+each block holds its ``h/tp`` heads of wq/wk/wv/wo and its ``d_ff/tp``
+slice of w1/w2, sharded on the dims of the JAX package's ``param_specs``
+(``transformer.py:85-104``; here ``param_specs(cfg)``, the shard dim of
+each ``state_dict`` key). The attention output and w2 close with
+``parallel.tp``'s sum over the group; the norms' output enters the
+column-parallel products through its conjugate (the identity, whose
+backward sums the gradient), so every rank's gradients are the dense
+model's: its slice of a sharded leaf's, the whole of a replicated one's.
+The attention runs on the local heads. The weights are drawn as the
+dense model's from ``seed`` and sliced, so a tp rank holds its slice of
+the tp-1 model's. Without a group (tp 1) the model is the dense one.
 """
 
 from __future__ import annotations
@@ -34,6 +47,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..common.context import default_device
+from ..parallel._comm import copy_to_group, group_size_rank
+from ..parallel.tp import (column_parallel_dense, parallel_attention_output,
+                           row_parallel_dense)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +81,15 @@ class _Scale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, tp_group=None):
         super().__init__()
-        d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+        tp, _ = group_size_rank(tp_group)
+        if cfg.n_heads % tp or cfg.d_ff % tp:
+            raise ValueError(f"n_heads ({cfg.n_heads}) and d_ff ({cfg.d_ff}) "
+                             f"must divide by tp={tp}")
+        d, h, hd, f = cfg.d_model, cfg.n_heads // tp, cfg.head_dim, \
+            cfg.d_ff // tp
+        self.tp_group = tp_group
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, device=device))
@@ -80,26 +102,31 @@ class Block(nn.Module):
         self.w2 = p(f, d)
 
     def forward(self, x, dtype, attn_fn):
-        h = _rmsnorm(x, self.ln1.scale)
+        g = self.tp_group
+        h = copy_to_group(_rmsnorm(x, self.ln1.scale), g)
         q = torch.einsum("bsd,dhk->bshk", h, self.wq.to(dtype))
         k = torch.einsum("bsd,dhk->bshk", h, self.wk.to(dtype))
         v = torch.einsum("bsd,dhk->bshk", h, self.wv.to(dtype))
         o = attn_fn(q, k, v)
-        x = x + torch.einsum("bshk,hkd->bsd", o, self.wo.to(dtype))
+        x = x + parallel_attention_output(o, self.wo.to(dtype), g)
         h = _rmsnorm(x, self.ln2.scale)
         # jax.nn.gelu defaults to the tanh approximation
-        ff = F.gelu(torch.einsum("bsd,df->bsf", h, self.w1.to(dtype)),
+        ff = F.gelu(column_parallel_dense(h, self.w1.to(dtype), group=g),
                     approximate="tanh")
-        return x + torch.einsum("bsf,fd->bsd", ff, self.w2.to(dtype))
+        return x + row_parallel_dense(ff, self.w2.to(dtype), g)
 
 
 class TransformerLM(nn.Module):
     """The LM with random weights drawn from ``seed`` on ``device``
     (normal, std 0.02; norm scales 1, as ``transformer.init``).
     ``device=None`` is ``hvd.device()``, or ``cuda:<local_rank>`` before
-    ``hvd.init()``; without CUDA it raises unless ``device="cpu"``."""
+    ``hvd.init()``; without CUDA it raises unless ``device="cpu"``.
+    ``tp_group``: the tensor-parallel group (``None``: tp 1); a rank holds
+    its slice of each sharded leaf of the dense model drawn from
+    ``seed``."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0,
+                 tp_group=None):
         super().__init__()
         self.cfg = cfg
         device = (torch.device(device) if device is not None
@@ -109,13 +136,25 @@ class TransformerLM(nn.Module):
         self.pos = nn.Parameter(torch.empty(cfg.max_seq, cfg.d_model,
                                             device=device))
         self.ln_f = _Scale(cfg.d_model, device)
-        self.blocks = nn.ModuleList(Block(cfg, device)
+        self.blocks = nn.ModuleList(Block(cfg, device, tp_group)
                                     for _ in range(cfg.n_layers))
+        tp, tp_rank = group_size_rank(tp_group)
+        specs = param_specs(cfg)
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         with torch.no_grad():
             for name, prm in self.named_parameters():
-                if not name.endswith(".scale"):
+                if name.endswith(".scale"):
+                    continue
+                dim = specs[name]
+                if tp == 1 or dim is None:
                     prm.normal_(0.0, 0.02, generator=gen)
+                    continue
+                # the dense leaf's draw, then this rank's slice of it
+                shape = list(prm.shape)
+                shape[dim] *= tp
+                full = torch.empty(shape, device=prm.device)
+                full.normal_(0.0, 0.02, generator=gen)
+                prm.copy_(tp_slice(full, dim, tp_rank, tp))
 
     def forward(self, tokens, attn_fn=None, positions=None,
                 return_hidden: bool = False):
@@ -125,9 +164,7 @@ class TransformerLM(nn.Module):
         tokens' global position ids (a rank's shard under sequence
         parallelism); by default 0..s-1."""
         dtype = self.cfg.dtype
-        if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self.embed[tokens].to(dtype) + self.pos[positions].to(dtype)[None]
+        x = self.embed_tokens(tokens, positions)
         attn_fn = attn_fn or causal_attention
         for blk in self.blocks:
             if self.cfg.remat and torch.is_grad_enabled():
@@ -137,6 +174,20 @@ class TransformerLM(nn.Module):
                                early_stop=False)
             else:
                 x = blk(x, dtype, attn_fn)
+        return self.head(x, return_hidden)
+
+    def embed_tokens(self, tokens, positions=None):
+        """The blocks' input: token and position embeddings in
+        ``cfg.dtype`` (a pipeline's first stage input)."""
+        dtype = self.cfg.dtype
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        return (self.embed[tokens].to(dtype)
+                + self.pos[positions].to(dtype)[None])
+
+    def head(self, x, return_hidden: bool = False):
+        """The final norm and the tied classifier: fp32 logits, or the
+        normed hidden states with ``return_hidden``."""
         x = _rmsnorm(x, self.ln_f.scale)
         if return_hidden:
             return x
@@ -178,9 +229,35 @@ def lm_loss(model: TransformerLM, tokens, **kw):
                            tokens[:, 1:].reshape(-1))
 
 
-def params_from_jax(params) -> dict:
+# the dim tensor parallelism shards a block's leaves on (None: replicated)
+_BLOCK_SPECS = {"ln1.scale": None, "ln2.scale": None, "wq": 1, "wk": 1,
+                "wv": 1, "wo": 0, "w1": 1, "w2": 0}
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The dim tensor parallelism shards each ``state_dict`` key on, or
+    None for a replicated leaf: the JAX package's ``param_specs``
+    (``P(None, tp, None)`` for wq/wk/wv is dim 1, and so on)."""
+    out = {"embed": None, "pos": None, "ln_f.scale": None}
+    for i in range(cfg.n_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in _BLOCK_SPECS.items()})
+    return out
+
+
+def tp_slice(x, dim, tp_rank: int, tp_size: int):
+    """Rank ``tp_rank``'s slice of a dense leaf sharded on ``dim`` over
+    ``tp_size`` ranks (the whole leaf where ``dim`` is None)."""
+    if dim is None or tp_size == 1:
+        return x
+    n = x.shape[dim] // tp_size
+    return x.narrow(dim, tp_rank * n, n)
+
+
+def params_from_jax(params, tp_rank: int = 0, tp_size: int = 1) -> dict:
     """A ``state_dict`` for ``TransformerLM`` from the JAX package's
-    parameter pytree (``transformer.init``), given as numpy arrays."""
+    parameter pytree (``transformer.init``), given as numpy arrays; with
+    ``tp_size`` > 1, rank ``tp_rank``'s slices of the leaves
+    ``param_specs`` shards."""
     out = {"embed": params["embed"], "pos": params["pos"],
            "ln_f.scale": params["ln_f"]["scale"]}
     for i, blk in enumerate(params["blocks"]):
@@ -188,5 +265,11 @@ def params_from_jax(params) -> dict:
             out[f"blocks.{i}.{key}"] = blk[key]
         for key in ("ln1", "ln2"):
             out[f"blocks.{i}.{key}.scale"] = blk[key]["scale"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+
+    def dim(key):
+        return (_BLOCK_SPECS[key.split(".", 2)[2]]
+                if key.startswith("blocks.") else None)
+
+    return {k: tp_slice(torch.from_numpy(np.array(v, dtype=np.float32)),
+                        dim(k), tp_rank, tp_size).contiguous()
             for k, v in out.items()}

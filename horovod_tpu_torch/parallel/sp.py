@@ -21,13 +21,14 @@ sequence split over the ranks of a ``torch.distributed`` group:
   core and back.
 
 The ring's rotation is an argument of the scaffold: across ranks it is a
-differentiable neighbour exchange (``_RingShift``: ``batch_isend_irecv``
+differentiable neighbour exchange (``_comm.shift``: ``batch_isend_irecv``
 on the caller's group; its backward is the same exchange in reverse, the
 transpose of JAX's ``ppermute``); ``_simulated_ring`` runs all ``n``
 ranks' shards in one process with the rotation a list roll, through the
 same round and combine code (the CPU tests and the one-card phase of
 ``chip_smoke.py`` drive it). Ulysses' exchange is likewise an argument
-(``_AllToAll`` over ``all_to_all_single``, or ``_simulated_all_to_all``).
+(``_comm.all_to_all`` over ``all_to_all_single``, or
+``_simulated_all_to_all``).
 
 Groups: ``group=None`` is a ring of one, whatever the world size (a
 data-parallel job that passes ``ring_attention`` as ``attn_fn`` stays data
@@ -42,20 +43,16 @@ round nothing rotates (JAX's scan rotates once more and drops the result);
 Ulysses' default core on the card is the flash kernel through
 ``ring_attention`` at a ring of one, since no plain path runs there (JAX
 takes ``causal_attention`` everywhere; the port does on the CPU).
-``exchanges`` counts the exchanges made over ``torch.distributed`` by kind,
-forward and backward.
+``_comm.exchanges`` counts the exchanges made over ``torch.distributed``
+by kind, forward and backward.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from ..ops.flash_attention import NEG_INF, attention_stats, scan_stats
-
-# exchanges over torch.distributed, by kind, forward and backward (read and
-# reset by chip_smoke.py and sp_probe.py)
-exchanges = {"ppermute": 0, "all_to_all": 0}
+from ._comm import all_to_all, anchor, group_size_rank, shift
 
 
 def _to_flat(x):  # kernel layout: [B=b*h, s, d]
@@ -162,87 +159,23 @@ def _striped_rounds(stats):
     return round_stats
 
 
-def _group_ring(group):
-    """(n, i): the ring's size and this rank's position. ``None`` is a ring
-    of one; a process set's runtime group is refused."""
-    if group is None:
-        return 1, 0
-    from ..common.context import is_runtime_group
-
-    if is_runtime_group(group):
-        raise ValueError(
-            "sequence parallelism runs on a process set's `group`, not its "
-            "`runtime_group`: that communicator belongs to the background "
-            "runtime's cycle thread")
-    return dist.get_world_size(group), dist.get_rank(group)
-
-
-def _shift(tensors, group, step: int):
-    """Each tensor to the rank ``step`` places on in the ring, the
-    neighbour's from ``step`` places back, in one ``batch_isend_irecv``."""
-    n, i = dist.get_world_size(group), dist.get_rank(group)
-    dst = dist.get_global_rank(group, (i + step) % n)
-    src = dist.get_global_rank(group, (i - step) % n)
-    tensors = [t.contiguous() for t in tensors]
-    outs = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for t, o in zip(tensors, outs):
-        ops += [dist.P2POp(dist.isend, t, dst, group),
-                dist.P2POp(dist.irecv, o, src, group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    exchanges["ppermute"] += 1
-    return outs
-
-
-class _RingShift(torch.autograd.Function):
-    """K and V to the next rank, from the previous one; the backward sends
-    their cotangents the other way (the transpose of ``ppermute``)."""
-
-    @staticmethod
-    def forward(ctx, group, kf, vf):
-        ctx.group = group
-        return tuple(_shift([kf, vf], group, 1))
-
-    @staticmethod
-    def backward(ctx, gk, gv):
-        return (None, *_shift([gk, gv], ctx.group, -1))
-
-
-class _Anchor(torch.autograd.Function):
-    """The identity on ``out`` that ties the last rotation's K/V into the
-    graph with zero cotangents. Autograd runs only the nodes the loss
-    reaches, and a rank whose last rounds were skipped uses no rotated
-    block: without this it would skip its rotations' backward exchanges
-    while its neighbours wait in theirs (JAX's scan transposes every
-    ``ppermute`` whatever its cotangent)."""
-
-    @staticmethod
-    def forward(ctx, out, kf, vf):
-        ctx.kv = [(t.shape, t.dtype, t.device) for t in (kf, vf)]
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g, *[torch.zeros(s, dtype=dt, device=dv)
-                     for s, dt, dv in ctx.kv])
-
-
 def _distributed_ring(q, k, v, group, round_stats):
-    n, i = _group_ring(group)
+    n, i = group_size_rank(group)
     if n == 1:
         outs, _ = _ring_scan([q], [k], [v], [0], 1, None, round_stats)
         return outs[0]
 
     def rotate(kfs, vfs):
-        kf, vf = _RingShift.apply(group, kfs[0], vfs[0])
+        kf, vf = shift([kfs[0], vfs[0]], group)
         return [kf], [vf]
 
     outs, (kfs, vfs) = _ring_scan([q], [k], [v], [i], n, rotate,
                                   round_stats)
     out = outs[0]
     if torch.is_grad_enabled() and kfs[0].requires_grad:
-        out = _Anchor.apply(out, kfs[0], vfs[0])
+        # a rank whose last rounds were skipped uses no rotated block: tie
+        # the last rotation in, so its backward exchanges still run
+        out = anchor(out, kfs[0], vfs[0])
     return out
 
 
@@ -320,38 +253,6 @@ def unstripe_tokens(x, n: int, axis: int = 1):
     return torch.index_select(x, axis, idx.to(x.device))
 
 
-def _a2a(x, split_axis: int, concat_axis: int, group):
-    """A tiled all-to-all of ``x`` (``lax.all_to_all(..., tiled=True)``):
-    ``split_axis`` cut into n pieces, piece r to rank r, the pieces
-    received concatenated along ``concat_axis`` in source-rank order."""
-    n = dist.get_world_size(group)
-    xs = x.movedim(split_axis, 0)
-    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:]).contiguous()
-    out = torch.empty_like(xs)
-    dist.all_to_all_single(out, xs, group=group)
-    exchanges["all_to_all"] += 1
-    out = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
-    shape = list(x.shape)
-    shape[split_axis] //= n
-    shape[concat_axis] *= n
-    return out.reshape(shape)
-
-
-class _AllToAll(torch.autograd.Function):
-    """The tiled all-to-all; its backward is the inverse exchange (the
-    axes swapped)."""
-
-    @staticmethod
-    def forward(ctx, x, split_axis, concat_axis, group):
-        ctx.axes = (split_axis, concat_axis, group)
-        return _a2a(x, split_axis, concat_axis, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        split_axis, concat_axis, group = ctx.axes
-        return _a2a(g, concat_axis, split_axis, group), None, None, None
-
-
 def _simulated_all_to_all(xs, split_axis: int, concat_axis: int):
     """The tiled all-to-all among the ``len(xs)`` ranks of one process."""
     n = len(xs)
@@ -397,12 +298,12 @@ def ulysses_attention(q, k, v, group=None, attn_fn=None):
     rank computes full-sequence attention for its head shard — good when
     the sequence is long but heads are plentiful; ring attention covers the
     opposite regime."""
-    n, _ = _group_ring(group)
+    n, _ = group_size_rank(group)
 
     def exchange(xs, split_axis, concat_axis):
         if n == 1:
             return xs
-        return [_AllToAll.apply(xs[0], split_axis, concat_axis, group)]
+        return [all_to_all(xs[0], group, split_axis, concat_axis)]
 
     return _ulysses([q], [k], [v], n, exchange, attn_fn)[0]
 

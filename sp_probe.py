@@ -36,7 +36,7 @@ peak memory a rank (``max_memory_allocated`` over the steps, the
 parameter check left out), each rank's host ms to enqueue a forward and
 backward (median; where it nears the step, the host bounds it), the
 exchanges a step
-(``parallel.sp.exchanges``: neighbour exchanges and all-to-alls, forward,
+(``parallel._comm.exchanges``: neighbour exchanges and all-to-alls, forward,
 remat's recompute and backward), the flash kernel's launches a step by
 mask summed over the ranks (``mask_launches``: diagonal, full, strict),
 K5's launches and the runtime's chunks a step, then one JSON line. On the
@@ -110,9 +110,10 @@ def attention(layout: str, group):
 def _counts(rt) -> dict:
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import xent
-    from horovod_tpu_torch.parallel import sp
+    from horovod_tpu_torch.parallel import _comm
 
-    return {**sp.exchanges, **fa.mask_launches,
+    return {"ppermute": _comm.exchanges["ppermute"],
+            "all_to_all": _comm.exchanges["all_to_all"], **fa.mask_launches,
             "K5 launches": sum(xent.kernel_launches.values()),
             "chunks": rt.chunks}
 

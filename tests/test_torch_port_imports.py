@@ -38,6 +38,7 @@ _ISOLATED = textwrap.dedent("""
     import resnet_probe
     import elastic_probe
     import observe_probe
+    import parallel_probe
 
     cfg = PT.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
                                n_layers=2, d_ff=64, max_seq=16,
@@ -167,6 +168,7 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "resnet_probe.py",
                                              "elastic_probe.py",
                                              "observe_probe.py",
+                                             "parallel_probe.py",
                                              "wire_probe.py",
                                              "zero_probe.py")]
     for root, _, names in os.walk(PKG):

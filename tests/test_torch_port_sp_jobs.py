@@ -36,7 +36,7 @@ JOB = """
     import numpy as np
     import torch
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.parallel import sp
+    from horovod_tpu_torch.parallel import _comm, sp
     torch.set_num_threads(1)
     hvd.init(device="cpu")
     r, n = hvd.rank(), hvd.size()
@@ -70,8 +70,8 @@ JOB = """
         for name, g, s in zip("qkv", grads, sim_grads):
             res[layout + ".d" + name] = g.numpy()
             res[layout + ".sim_d" + name] = s[:, sl].numpy()
-    res["exchanges"] = np.array([sp.exchanges["ppermute"],
-                                 sp.exchanges["all_to_all"]])
+    res["exchanges"] = np.array([_comm.exchanges["ppermute"],
+                                 _comm.exchanges["all_to_all"]])
     np.savez(OUT.format(r), **res)
     hvd.shutdown()
     print("JOB_OK", r)
