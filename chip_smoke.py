@@ -254,7 +254,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    samples, their scores and the settled configuration; then the default
    and the settled configuration as fixed knobs, 8 steps each, in turns
    for 2 rounds. K1's launches over the path are the ``observe`` path's;
-15. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+15. the zoo path (after a fresh ``init``): VGG-16 at 224² and Inception V3
+   at 299² (``bench.py:114-119``), 64 images, and ViT-B/16 at 224², 64
+   images, at their published widths, 1000 classes, bf16 compute over
+   fp32 weights, ``channels_last``, through ``resnet_probe``'s arms
+   (``--model``): ``hooks`` (``broadcast_parameters`` and
+   ``DistributedOptimizer(SGD(0.05, momentum=0.9))``) for 6 steps and
+   ``bare`` for 4, one step of each in every round (ViT-B/16: 5 hook
+   steps alone; VGG-16, which has no batch norm, diverges at this rate
+   from its eighth step on, as flax's VGG-16 does from the same weights
+   under the same SGD: ``tests/test_torch_port_zoo.py``); losses finite
+   and falling, the arms' first
+   losses equal (the dropout masks come from each model's own
+   generator, seeded alike); img/s, MFU, peak memory, the runtime's
+   counters a step (chunks, K1 launches, gradient and wire bytes), one
+   traced hook step each; then VGG-16's hook steps fed from seeded host
+   numpy through ``ShardedLoader(prefetch=2)`` against the same steps
+   with a synchronous ``.to(device)``, 6 steps an arm in turns for 2
+   rounds, every device batch bitwise its host batch, and one more
+   prefetched turn traced with its losses read at its end: the H2D
+   copies' stream and the share of their time under kernels on another
+   stream, and for each copy the card's idle time before it and where the
+   host's next kernel launch lands. K1 must have launched on the path. (K1 at the three models'
+   gradient chunks, cut at 128 MiB as one cycle would, every packed chunk
+   bitwise against the plain version and VGG-16's chunks timed,
+   ``vgg16_chunks`` in the K1 entries, runs in the K1 phase, where the
+   profiler still records every kernel.) Then the two examples under
+   ``examples/torch_port`` run once each through the launcher on the
+   card (MNIST over ``ShardedLoader``, the synthetic benchmark on
+   VGG-16), each must exit 0 and print its result;
+16. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -265,7 +294,7 @@ The line before the last is one JSON object with the kernels' launches
 K2's and K3's on the compression path, K5's on the long-context path,
 K4's on the adasum path, the others' on the main path;
 ``launches_by_path`` gives every path's count, the resnet, megaplan,
-adasum, elastic and observe paths' included), errors, times, bounds
+adasum, elastic, observe and zoo paths' included), errors, times, bounds
 and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -777,8 +806,14 @@ def slice_chunks(cfg, threshold: int = FUSION_THRESHOLD) -> list:
     cycle takes every fp32 gradient of a step: in the order the backward
     makes them ready (the reverse of ``named_parameters``), cut at the
     fusion threshold."""
+    return chunks_of(lm_param_shapes(cfg), threshold)
+
+
+def chunks_of(shapes, threshold: int = FUSION_THRESHOLD) -> list:
+    """``slice_chunks`` of any fp32 parameter shapes, given in
+    ``named_parameters`` order."""
     chunks, chunk, nbytes = [], [], 0
-    for s in reversed(lm_param_shapes(cfg)):
+    for s in reversed(list(shapes)):
         sz = math.prod(s) * 4
         if chunk and nbytes + sz > threshold:
             chunks.append(chunk)
@@ -811,7 +846,20 @@ def k1_time_phase(device, cfg) -> list:
          f"{sum(t.numel() for t in grads) * 4 / 1e9:.3f} GB, "
          f"{len(chunks)} chunks at {FUSION_THRESHOLD >> 20} MiB, "
          f"{len(packed)} packed ({moved / 1e9:.3f} GB)")
-    # every packed chunk, both directions, bitwise against the plain version
+    k1_check_chunks(packed, flats)
+    out = k1_timings(packed, flats)
+    del chunks, grads, packed, flats
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_check_chunks(packed, flats):
+    """Every packed chunk, both directions, bitwise against the plain
+    version (and the unpack restores every gradient)."""
+    import torch
+
+    from horovod_tpu_torch.ops import fused_pack as fp
+
     for i, (c, f) in enumerate(zip(packed, flats)):
         ref = torch.empty_like(f)
         fp.pack(c, f)
@@ -828,6 +876,18 @@ def k1_time_phase(device, cfg) -> list:
         del ref, outs_k, outs_p
     _log(f"  K1: the {len(packed)} packed chunks, pack and unpack, bitwise "
          "equal to the plain version (and unpack restores every gradient)")
+
+
+def k1_timings(packed, flats) -> list:
+    """K1's pack and unpack entries over ``packed`` chunks into ``flats``:
+    events and device time in turns with ``torch.cat``/``split`` +
+    ``copy_`` (a yardstick only), beside the byte bound and the plain
+    version. Factor 1."""
+    import torch
+
+    from horovod_tpu_torch.ops import fused_pack as fp
+
+    moved = sum(f.numel() * f.element_size() for f in flats)
 
     def pack():
         for c, f in zip(packed, flats):
@@ -866,13 +926,17 @@ def k1_time_phase(device, cfg) -> list:
         ev = in_turns(fns, lambda fn: time_ms(fn, iters=10))
         dev = in_turns(fns, lambda fn: device_ms(fn, iters=5, warmup=1))
         plain = time_ms(pfn, iters=5)
+        # the profiler may record no kernel time (share_of reads events)
+        rate = (f"{2 * moved / dev['kernel'] / 1e6:.0f} GB/s, "
+                f"{bound_ms / dev['kernel']:.3f} of its bound"
+                if dev["kernel"] > 0 else "bound")
+        ratio = (f"{dev['kernel'] / dev['library']:.4f}"
+                 if dev["library"] > 0 else "not measured")
         _log(f"  {name}: {ev['kernel']:.4f} ms a step by events, "
-             f"{dev['kernel']:.4f} ms of device time "
-             f"({2 * moved / dev['kernel'] / 1e6:.0f} GB/s, "
-             f"{bound_ms / dev['kernel']:.3f} of its bound {bound_ms:.4f} "
-             f"ms); torch.cat/split + copy_ {ev['library']:.4f} ms "
-             f"({dev['library']:.4f} device, kernel/library "
-             f"{dev['kernel'] / dev['library']:.4f}); plain {plain:.4f} ms")
+             f"{dev['kernel']:.4f} ms of device time ({rate} "
+             f"{bound_ms:.4f} ms); torch.cat/split + copy_ "
+             f"{ev['library']:.4f} ms ({dev['library']:.4f} device, "
+             f"kernel/library {ratio}); plain {plain:.4f} ms")
         out.append({"name": name, "route": "cuda",
                     "source": "horovod_tpu_torch/csrc/fused_pack.cu",
                     "replaces": src, "launches": None, "max_abs_err": 0.0,
@@ -886,8 +950,6 @@ def k1_time_phase(device, cfg) -> list:
     _log(f"  pack + unpack a step: {out[0]['ms'] + out[1]['ms']:.4f} ms by "
          f"events, {out[0]['device_ms'] + out[1]['device_ms']:.4f} ms of "
          f"device time; bound {2 * bound_ms:.4f} ms")
-    del chunks, grads, packed, flats
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3744,7 +3806,393 @@ def adasum_path_phase(device) -> tuple:
     return launches, readings
 
 
-# --- phase 14: the launcher ------------------------------------------------
+# --- phase 15: the zoo path ------------------------------------------------
+
+ZOO_BATCH = 64          # bench.py:114-119: VGG-16 and Inception V3 at 64
+ZOO_STEPS = {"vgg16": {"hooks": 6, "bare": 4},
+             "inception3": {"hooks": 6, "bare": 4},
+             "vit_b16": {"hooks": 5}}
+LOADER_STEPS, LOADER_ROUNDS = 6, 2  # VGG-16 steps an arm a turn; rounds
+
+
+def zoo_k1_phase(device) -> tuple:
+    """K1 at the zoo models' gradient chunks: each model's fp32 gradients,
+    as one cycle that takes them all cuts them at the fusion threshold
+    (``chunks_of``); every packed chunk bitwise against the plain version,
+    both directions; VGG-16's chunks timed (``k1_timings``). Returns the
+    cases checked and VGG-16's two timed entries."""
+    import torch
+
+    from horovod_tpu_torch import models
+
+    timed, n = [], 0
+    for name, make in (("vgg16", models.VGG16),
+                       ("inception3", models.InceptionV3),
+                       ("vit_b16", models.ViT_B16)):
+        shapes = [tuple(p.shape) for p in make(device="meta").parameters()]
+        chunks = [[torch.randn(s, device=device) for s in c]
+                  for c in chunks_of(shapes)]
+        packed = [c for c in chunks if len(c) > 1]
+        flats = [torch.empty(sum(t.numel() for t in c), device=device)
+                 for c in packed]
+        _log(f"  {name}: {len(shapes)} fp32 gradients, "
+             f"{sum(math.prod(s) for s in shapes) * 4 / 1e9:.3f} GB, "
+             f"{len(chunks)} chunks at {FUSION_THRESHOLD >> 20} MiB, "
+             f"{len(packed)} packed "
+             f"({sum(f.numel() for f in flats) * 4 / 1e9:.3f} GB)")
+        k1_check_chunks(packed, flats)
+        n += len(packed)
+        if name == "vgg16":
+            timed = k1_timings(packed, flats)
+        del chunks, packed, flats
+        torch.cuda.empty_cache()
+    return n, timed
+
+
+def _zoo_arms(model: str, device, steps: dict, batch: int,
+              image=None) -> dict:
+    """``resnet_probe``'s arms on ``model`` (its published side unless
+    ``image``), ``steps[arm]`` steps each in turns on one synthetic
+    batch: losses finite and falling, the arms' first losses equal; img/s,
+    MFU, peak memory and the runtime's counters a step; on the card one
+    traced hook step. Returns the readings."""
+    import torch
+
+    import resnet_probe as rp
+
+    image = rp.image_of(model, image)
+    images, labels = rp.synthetic_batch(0, 1, batch, image,
+                                        rp.ZOO_CLASSES, 0, device)
+    arms = {name: rp.Arm(name, "50", device, 0, images, labels, model)
+            for name in steps}
+    n_params = sum(p.numel() for p in arms["hooks"].params)
+    rd = rp.run_in_turns(arms, steps, compare_ranks=False)
+    cuda = device.type == "cuda"
+    for name, r in rd.items():
+        r.update(rp.summarize(r, batch, "50", image, cuda, model))
+        losses = r["losses"]
+        _log(f"  {model} {name}: losses {losses}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{model} {name}: non-finite loss: "
+                                 f"{losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{model} {name}: loss did not fall: "
+                                 f"{losses}")
+        mfu = "not computed" if r["mfu"] is None else f"{r['mfu']:.4f}"
+        _log(f"  {model} {name}: step ms "
+             f"{[round(x * 1e3, 2) for x in r['step_s']]}; median after the "
+             f"first {r['median_step_ms']:.2f} ms, {r['img_s_per_rank']:.1f} "
+             f"img/s, MFU {mfu}; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+        for i, c in enumerate(r["per_step"]):
+            _log(f"  {model} {name} step {i}: " + ", ".join(
+                f"{k} {v}" for k, v in c.items()))
+    firsts = {name: r["losses"][0] for name, r in rd.items()}
+    if len(set(firsts.values())) != 1:
+        raise AssertionError(f"{model}: the arms' first losses differ: "
+                             f"{firsts}")
+    readings = {name: {k: r[k] for k in (
+        "losses", "step_s", "median_step_ms", "img_s_per_rank", "mfu",
+        "peak_bytes", "per_step")} for name, r in rd.items()}
+    readings.update(image=image, batch=batch, parameters=n_params)
+    if "bare" in rd:
+        readings["hooks_minus_bare_ms"] = (rd["hooks"]["median_step_ms"]
+                                           - rd["bare"]["median_step_ms"])
+        _log(f"  {model}: hooks - bare {readings['hooks_minus_bare_ms']:.2f}"
+             " ms a step")
+    if cuda:
+        prof = profile_step(arms["hooks"].step)
+        _log_profile(prof)
+        readings["traced_step"] = {k: prof[k] for k in (
+            "wall_ms", "device_ms", "union_ms", "categories")}
+    for arm in arms.values():
+        arm.close()
+    del arms, images, labels
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return readings
+
+
+def _copy_overlap(prof) -> dict:
+    """From a trace (its Chrome JSON, which carries each event's stream,
+    bytes and host-to-device correlation): every host-to-device copy with
+    its bytes, stream, device start and length, the share of it under
+    kernels on another stream, the card's idle time before it (since the
+    last kernel ended), and where the host's next kernel launch after the
+    copy's lands (that kernel's name, stream and device start, from the
+    copy's start) and how long after the copy's call (itself ``call_ms``
+    long) the host made it."""
+    import json
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_loader_", suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            evs = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    copies = sorted((e for e in evs if e.get("cat") == "gpu_memcpy"
+                     and "HtoD" in e["name"]), key=lambda e: e["ts"])
+    kernels = [e for e in evs if e.get("cat") == "kernel"]
+    by_corr = {e["args"].get("correlation"): e for e in kernels}
+    calls = sorted((e for e in evs if e.get("cat") == "cuda_runtime"),
+                   key=lambda e: e["ts"])
+    call_of = {e["args"].get("correlation"): e for e in calls}
+    launches = [e for e in calls if e["name"].startswith("cudaLaunchKernel")
+                and e["args"].get("correlation") in by_corr]
+    t0 = min((e["ts"] for e in copies + kernels), default=0.0)
+    rows = []
+    for c in copies:
+        s, t, stream = c["ts"], c["ts"] + c["dur"], c["args"].get("stream")
+        spans = sorted((max(s, k["ts"]), min(t, k["ts"] + k["dur"]))
+                       for k in kernels if k["args"].get("stream") != stream
+                       and k["ts"] < t and k["ts"] + k["dur"] > s)
+        covered, end = 0.0, s
+        for x, y in spans:
+            x = max(x, end)
+            if y > x:
+                covered += y - x
+                end = y
+        before = [k["ts"] + k["dur"] for k in kernels
+                  if k["ts"] + k["dur"] <= s]
+        row = {"bytes": c["args"].get("bytes"), "stream": stream,
+               "start_ms": (s - t0) / 1e3, "ms": c["dur"] / 1e3,
+               "under_kernels_ms": covered / 1e3,
+               "idle_before_ms": (s - max(before)) / 1e3 if before else None}
+        call = call_of.get(c["args"].get("correlation"))
+        nxt = next((e for e in launches if call and e["ts"] > call["ts"]),
+                   None)
+        if nxt is not None:
+            k = by_corr[nxt["args"]["correlation"]]
+            row.update(call_ms=call["dur"] / 1e3,
+                       next_launch_after_call_ms=(nxt["ts"] - call["ts"])
+                       / 1e3, next_kernel=k["name"][:60],
+                       next_kernel_stream=k["args"].get("stream"),
+                       next_kernel_from_copy_start_ms=(k["ts"] - s) / 1e3)
+        rows.append(row)
+    copy_ms = sum(r["ms"] for r in rows)
+    under_ms = sum(r["under_kernels_ms"] for r in rows)
+    copy_streams = sorted({r["stream"] for r in rows}, key=str)
+    kernel_streams = sorted({k["args"].get("stream") for k in kernels},
+                            key=str)
+    return {"copies": len(rows), "per_copy": rows,
+            "kinds": sorted({c["name"] for c in copies}),
+            "copy_streams": copy_streams, "kernel_streams": kernel_streams,
+            "streams_differ": not set(copy_streams) & set(kernel_streams),
+            "copy_ms": copy_ms, "overlapped_ms": under_ms,
+            "overlap_share": under_ms / copy_ms if copy_ms else 0.0}
+
+
+def _loader_phase(device, batch: int, image=None, steps: int = LOADER_STEPS,
+                  rounds: int = LOADER_ROUNDS) -> dict:
+    """VGG-16's hook steps fed from host numpy: through
+    ``ShardedLoader(prefetch=2)`` (pinned copies on a side stream, the
+    step's stream waiting on each batch's event) against a synchronous
+    ``.to(device)`` inside the step, ``steps`` steps an arm, in turns
+    (prefetch, sync, sync, prefetch for two rounds), each turn a fresh
+    epoch of the same seeded arrays. Every prefetched batch is held bit for
+    bit against its host batch; step ms of both arms (host clock from
+    drawing the batch to ``loss.item()``); on the card one more prefetched
+    turn traced: the H2D copies, their stream and the share of their time
+    that overlaps the step's kernels, each copy's idle card before it and
+    the host's next kernel launch after it (``_copy_overlap``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import resnet_probe as rp
+    from horovod_tpu_torch.utils.data import ShardedLoader, batch_iterator
+
+    image = rp.image_of("vgg16", image)
+    n = batch * steps
+    rs = np.random.RandomState(0)
+    arrays = (rs.randn(n, 3, image, image).astype(np.float32),
+              rs.randint(0, rp.ZOO_CLASSES, n).astype(np.int64))
+    probe_images = torch.from_numpy(arrays[0][:batch]).to(device)
+    arm = rp.Arm("hooks", "50", device, 0, probe_images,
+                 torch.from_numpy(arrays[1][:batch]).to(device), "vgg16")
+    loader = ShardedLoader(arrays, batch_size=batch, shuffle=True, seed=0,
+                           prefetch=2, device=device)
+    cuda = device.type == "cuda"
+
+    def step(bx, by):
+        arm.opt.zero_grad()
+        loss = F.cross_entropy(arm.model(bx), by)
+        loss.backward()
+        arm.opt.step()
+        return loss.detach()
+
+    def turn(kind: str, epoch: int, wait: bool = True) -> dict:
+        """``steps`` steps of one arm on epoch ``epoch``; with ``wait``
+        each step ends in ``loss.item()`` and is timed, else only the
+        turn's end waits (a loop that reads its losses later)."""
+        it = (loader.epoch(epoch) if kind == "prefetch" else
+              batch_iterator(loader.arrays, batch, True,
+                             loader.seed + epoch))
+        out = {"step_s": [], "losses": []}
+        seen = []
+        if cuda:
+            torch.cuda.synchronize(device)
+        t_turn = time.perf_counter()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            bx, by = next(it)
+            if kind == "sync":
+                bx = torch.from_numpy(bx).to(device)
+                by = torch.from_numpy(by).to(device)
+            loss = step(bx, by)
+            if wait:
+                out["losses"].append(loss.item())  # waits for the step
+                out["step_s"].append(time.perf_counter() - t0)
+            else:
+                out["losses"].append(loss)
+            seen.append((bx, by))
+        out["losses"] = [float(x) for x in out["losses"]]
+        out["turn_s"] = time.perf_counter() - t_turn
+        host = batch_iterator(loader.arrays, batch, True, loader.seed + epoch)
+        for (bx, by), (hx, hy) in zip(seen, host):
+            if not (_same_bits(bx.cpu(), torch.from_numpy(hx))
+                    and _same_bits(by.cpu(), torch.from_numpy(hy))):
+                raise AssertionError(f"the {kind} arm's device batch "
+                                     "differs from its host batch")
+        return out
+
+    runs = {"prefetch": [], "sync": []}
+    epoch = 0
+    for r in range(rounds):
+        for kind in (("prefetch", "sync") if r % 2 == 0 else
+                     ("sync", "prefetch")):
+            runs[kind].append(turn(kind, epoch))
+            epoch += 1
+    readings = {}
+    for kind, turns in runs.items():
+        # every turn's first step pays the epoch's first batch in full
+        later = [s for t in turns for s in t["step_s"][1:]]
+        firsts = [t["step_s"][0] for t in turns]
+        losses = [x for t in turns for x in t["losses"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"loader {kind}: non-finite loss {losses}")
+        readings[kind] = {"median_step_ms": statistics.median(later) * 1e3,
+                          "first_steps_ms": [x * 1e3 for x in firsts],
+                          "step_ms": [[x * 1e3 for x in t["step_s"]]
+                                      for t in turns]}
+        _log(f"  loader {kind}: step ms {readings[kind]['step_ms']}; median "
+             f"after each turn's first {readings[kind]['median_step_ms']:.2f}")
+    readings["batches_checked"] = 2 * rounds * steps
+    readings["batch_bytes"] = int(arrays[0][:batch].nbytes
+                                  + arrays[1][:batch].nbytes)
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        # a loop that reads its losses at its end: no loss.item() holds
+        # the host between steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = turn("prefetch", epoch, wait=False)
+        readings["trace"] = ov = _copy_overlap(prof)
+        ov["turn_ms"] = traced["turn_s"] * 1e3
+        _log(f"  loader trace ({steps} prefetched steps, no wait a step: "
+             f"{ov['turn_ms']:.1f} ms): {ov['copies']} "
+             f"H2D copies {ov['kinds']} on streams {ov['copy_streams']}, "
+             f"kernels on {ov['kernel_streams']} (streams differ: "
+             f"{ov['streams_differ']}); {ov['copy_ms']:.3f} ms of "
+             f"copies, {ov['overlapped_ms']:.3f} ms of it under kernels of "
+             f"another stream (share {ov['overlap_share']:.3f})")
+        for i, r in enumerate(ov["per_copy"]):
+            _log(f"  loader copy {i}: " + ", ".join(
+                f"{k} {round(v, 4) if isinstance(v, float) else v}"
+                for k, v in r.items()))
+        if not ov["copies"]:
+            raise AssertionError("the trace shows no host-to-device copy")
+    _log(f"  loader: {readings['batches_checked']} device batches bitwise "
+         f"their host batches ({readings['batch_bytes']} bytes a batch); "
+         f"prefetch - sync "
+         f"{readings['prefetch']['median_step_ms'] - readings['sync']['median_step_ms']:.2f}"
+         " ms a step")
+    arm.close()
+    del arm, loader, arrays, probe_images
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return readings
+
+
+EXAMPLES = {"mnist": ["pytorch_mnist.py", "--epochs", "1"],
+            "synthetic": ["pytorch_synthetic_benchmark.py", "--model",
+                          "vgg16", "--num-iters", "2",
+                          "--num-warmup-batches", "1",
+                          "--num-batches-per-iter", "2"]}
+
+
+def examples_phase(root: str) -> dict:
+    """The two examples under ``examples/torch_port``, one rank each through
+    the port's launcher on the card, started together: each must exit 0
+    and print its result (the MNIST epoch's loss, the synthetic
+    benchmark's img/sec)."""
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MASTER_PORT", None)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
+         sys.executable, os.path.join(root, "examples", "torch_port",
+                                      script), *args],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+        for name, (script, *args) in EXAMPLES.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            text = p.communicate(timeout=600)[0]
+            out[name] = {"rc": p.returncode,
+                         "seconds": time.perf_counter() - t0,
+                         "tail": text.strip().splitlines()[-3:]}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for name, r in out.items():
+        _log(f"  example {name}: exit {r['rc']} after {r['seconds']:.1f} s: "
+             f"{r['tail']}")
+    if (out["mnist"]["rc"] or not any("loss=" in x
+                                      for x in out["mnist"]["tail"])):
+        raise AssertionError("the MNIST example failed")
+    if (out["synthetic"]["rc"] or not any(
+            "Total img/sec" in x for x in out["synthetic"]["tail"])):
+        raise AssertionError("the synthetic benchmark example failed")
+    return out
+
+
+def zoo_path_phase(device, batch: int = ZOO_BATCH, images=None) -> tuple:
+    """The zoo path (module docstring, phase 15) after a fresh ``init``:
+    VGG-16, Inception V3 (hooks against bare) and ViT-B/16 (hooks) at
+    their published widths; VGG-16 fed through the loader against a
+    synchronous copy. A CPU rehearsal passes ``device`` the CPU, a small
+    ``batch``, and ``images`` mapping each model to a small side; K1 launches only on the card, so there the path ends at
+    its K1 check. Returns the path's launches and its readings."""
+    import horovod_tpu_torch as hvd
+
+    images = images or {}
+    hvd.shutdown()
+    hvd.init(device=device)
+    _zero_launch_counts()  # just before the path runs
+    readings = {model: _zoo_arms(model, device, steps, batch,
+                                 images.get(model))
+                for model, steps in ZOO_STEPS.items()}
+    readings["loader"] = _loader_phase(device, batch, images.get("vgg16"))
+    launches = _launch_counts()
+    _log(f"  zoo path launches {launches}")
+    if not (launches["fused_pack"] and launches["fused_unpack"]):
+        raise AssertionError(f"K1 never launched on the zoo path: "
+                             f"{launches}")
+    return launches, readings
+
+
+# --- phase 16: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -4263,6 +4711,9 @@ def main() -> int:
     k1_check_phase(device)
     kernels += k1_time_phase(device, full_width_config(12))
     kernels[-2].update(k1_compaction_phase(device))  # the pack's entry
+    _phase("[zoo K1] K1 at the zoo models' gradient chunks against its plain "
+           "version; VGG-16's chunks timed")
+    zoo_k1_checked, zoo_k1 = zoo_k1_phase(device)
     _phase("[K2/K3] the compressed wire against its plain version")
     t_wire = time.perf_counter()
     wire_check_phase(device)
@@ -4370,13 +4821,24 @@ def main() -> int:
     ob_launches, ob_readings = observe_path_phase(
         device, resnet_readings["hooks"]["median_step_ms"])
     _log(f"  observe path: {time.perf_counter() - t_o:.1f} s")
+    _phase("[zoo path] VGG-16 at 224^2 and Inception V3 at 299^2, 64 "
+           "images, bf16, channels_last: 6 hook steps and 4 bare ones in "
+           "turns; ViT-B/16 at 224^2, 5 hook steps; VGG-16 fed through "
+           "ShardedLoader(prefetch=2) against a synchronous copy, in turns")
+    t_zoo = time.perf_counter()
+    zoo_launches, zoo_readings = zoo_path_phase(device)
+    _log(f"  zoo path: {time.perf_counter() - t_zoo:.1f} s")
+    zoo_readings["k1_chunks_checked"] = zoo_k1_checked
+    _phase("[examples] examples/torch_port on the card, one rank each")
+    zoo_readings["examples"] = examples_phase(root)
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
     for entry in wire_entries:
         entry["launches_by_path"] = {
             "compression": entry["launches"],
-            "observe": ob_launches.get(entry["name"], 0)}
+            "observe": ob_launches.get(entry["name"], 0),
+            "zoo": zoo_launches.get(entry["name"], 0)}
     for entry in kernels:
         path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
                 else launches)
@@ -4393,14 +4855,20 @@ def main() -> int:
             "megaplan": mp_launches[entry["name"]],
             "adasum": ada_launches[entry["name"]],
             "elastic": el_launches[entry["name"]],
-            "observe": ob_launches[entry["name"]]}
+            "observe": ob_launches[entry["name"]],
+            "zoo": zoo_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
+            timed = next(t for t in zoo_k1 if t["name"] == entry["name"])
+            entry["vgg16_chunks"] = {k: timed[k] for k in (
+                "ms", "device_ms", "bound_ms", "share", "share_by",
+                "plain_ms", "library_ms", "library_device_ms")}
     for entry in k5_entries:  # K5's path is the long-context one
         entry["launches"] = lc_launches[entry["name"]]
         entry["launches_by_path"] = {
             "long_context": entry["launches"],
-            "observe": ob_launches.get(entry["name"], 0)}
+            "observe": ob_launches.get(entry["name"], 0),
+            "zoo": zoo_launches.get(entry["name"], 0)}
     for entry in k4_entries:  # K4's path is the adasum one
         entry["launches"] = ada_launches[entry["name"]]
         entry["launches_by_path"] = {
@@ -4411,7 +4879,8 @@ def main() -> int:
                 ("collectives", coll_launches), ("sp", sp_launches),
                 ("long_context", lc_launches), ("zero1", zero_launches),
                 ("resnet", resnet_launches), ("megaplan", mp_launches),
-                ("elastic", el_launches), ("observe", ob_launches))}}
+                ("elastic", el_launches), ("observe", ob_launches),
+                ("zoo", zoo_launches))}}
 
     kernels += wire_entries + k5_entries + k4_entries
 
@@ -4427,6 +4896,7 @@ def main() -> int:
     print(json.dumps({"adasum": ada_readings}))
     print(json.dumps({"elastic": el_readings}))
     print(json.dumps({"observe": ob_readings}))
+    print(json.dumps({"zoo": zoo_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -37,20 +37,21 @@ Pallas kernel.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..common.context import default_device
+from ._layers import (as_state_dict, batch_norm_params, conv_kernel,
+                      dense_kernel, lecun_normal_)
 
 MOMENTUM = 0.9    # flax's decay of the running statistics (resnet.py:146)
 EPSILON = 1e-5
 IN_CHANNELS = 3   # RGB images
+IMAGE = 224       # the published input side (ImageNet's crop)
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple:
@@ -60,41 +61,41 @@ def _same_pads(size: int, k: int, s: int) -> tuple:
     return total // 2, total - total // 2
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
-    """flax's default kernel init: a normal truncated at two standard
-    deviations, widened so that its variance is 1/fan_in. Drawn by
-    rejection: a standard normal, its draws beyond ±2 drawn again."""
-    w.normal_(generator=gen)
-    while True:
-        out = w.abs() > 2.0
-        n = int(out.sum())
-        if not n:
-            break
-        w[out] = torch.randn(n, generator=gen, device=w.device)
-    w.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
-
-
 class Conv(nn.Module):
-    """A bias-free k×k convolution, flax's ``nn.Conv`` with ``"SAME"``
-    padding unless ``pads`` ((top, bottom), (left, right)) are given."""
+    """A k×k (or kh×kw) convolution, flax's ``nn.Conv`` with ``"SAME"``
+    padding unless ``pads`` ((top, bottom), (left, right)) are given;
+    bias-free unless ``bias``."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int, device,
-                 pads=None):
+    def __init__(self, cin: int, cout: int, k, stride, device, pads=None,
+                 bias: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k,
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw,
                                                device=device))
-        self.k, self.stride, self.pads = k, stride, pads
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device)) if bias
+                     else None)
+        self.k = (kh, kw)
+        self.stride = (stride, stride) if isinstance(stride, int) else stride
+        self.pads = pads
 
     def forward(self, x, dtype):
-        ph, pw = self.pads or (_same_pads(x.shape[2], self.k, self.stride),
-                               _same_pads(x.shape[3], self.k, self.stride))
+        (kh, kw), (sh, sw) = self.k, self.stride
+        ph, pw = self.pads or (_same_pads(x.shape[2], kh, sh),
+                               _same_pads(x.shape[3], kw, sw))
         if ph[0] == ph[1] and pw[0] == pw[1]:
             padding = (ph[0], pw[0])
         else:  # cuDNN pads both sides alike: pad first, then none
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             padding = 0
         w = self.weight.to(dtype=dtype, memory_format=torch.channels_last)
-        return F.conv2d(x, w, stride=self.stride, padding=padding)
+        b = self.bias.to(dtype) if self.bias is not None else None
+        return F.conv2d(x, w, b, stride=self.stride, padding=padding)
+
+    def init_(self, gen: torch.Generator):
+        """flax's default: lecun-normal kernel, zero bias."""
+        lecun_normal_(self.weight, self.weight[0].numel(), gen)
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 class _GroupMean(torch.autograd.Function):
@@ -119,7 +120,8 @@ class _GroupMean(torch.autograd.Function):
 
 
 class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=eps)`` over NCHW
+    (``eps`` 1e-5 by default, ResNet's; Inception V3 takes 1e-3).
 
     Training normalizes with the batch's biased variance and updates the
     running statistics as ``0.9·running + 0.1·batch`` with it: not
@@ -134,9 +136,9 @@ class BatchNorm(nn.Module):
     ``group`` the statistics are the group's (``_synced``)."""
 
     def __init__(self, c: int, device, zero_scale: bool = False,
-                 group=None):
+                 group=None, eps: float = EPSILON):
         super().__init__()
-        self.group = group
+        self.group, self.eps = group, eps
         init = torch.zeros if zero_scale else torch.ones
         self.weight = nn.Parameter(init(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
@@ -146,13 +148,13 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, EPSILON)
+                                self.weight, self.bias, False, 0.0, self.eps)
         if self.group is not None:
             return self._synced(x)
         y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, EPSILON)
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
-            var = (invstd.pow(-2) - EPSILON).clamp_min(0.0)
+            var = (invstd.pow(-2) - self.eps).clamp_min(0.0)
             self.running_mean.copy_(MOMENTUM * self.running_mean
                                     + (1.0 - MOMENTUM) * mean)
             self.running_var.copy_(MOMENTUM * self.running_var
@@ -168,7 +170,7 @@ class BatchNorm(nn.Module):
         mean, meansq = _GroupMean.apply(moments, self.group).unbind(0)
         var = (meansq - mean * mean).clamp_min(0.0)
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + EPSILON) * self.weight
+        mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         with torch.no_grad():
             self.running_mean.copy_(MOMENTUM * self.running_mean
@@ -214,15 +216,18 @@ class ResNet(nn.Module):
     ``cuda:<local_rank>`` before ``hvd.init()``; without CUDA it raises
     unless ``device="cpu"`` (or ``"meta"``, for the shapes alone).
     ``train()``/``eval()`` is flax's ``train``; ``sync_bn_group`` is flax's
-    ``axis_name`` (the module docstring)."""
+    ``axis_name`` (the module docstring). ``image`` is the input's side
+    (default ``IMAGE``), kept as ``self.image``: the global mean pool
+    takes any."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 device=None, seed: int = 0, sync_bn_group=None):
+                 device=None, seed: int = 0, sync_bn_group=None,
+                 image: int = None):
         super().__init__()
         device = (torch.device(device) if device is not None
                   else default_device())
-        self.dtype = dtype
+        self.dtype, self.image = dtype, image or IMAGE
         self.conv_init = Conv(IN_CHANNELS, num_filters, 7, 2, device,
                               pads=((3, 3), (3, 3)))
         self.bn_init = BatchNorm(num_filters, device, group=sync_bn_group)
@@ -241,8 +246,8 @@ class ResNet(nn.Module):
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Conv):
-                    _lecun_normal_(m.weight, m.weight[0].numel(), gen)
-            _lecun_normal_(self.head.weight, cin, gen)
+                    m.init_(gen)
+            lecun_normal_(self.head.weight, cin, gen)
             self.head.bias.zero_()
 
     def forward(self, x):
@@ -285,16 +290,11 @@ def params_from_jax(params, batch_stats) -> dict:
     out = {}
 
     def conv(prefix, p):
-        out[f"{prefix}.weight"] = np.transpose(p["kernel"], (3, 2, 0, 1))
-
-    def norm(prefix, p, s):
-        out[f"{prefix}.weight"] = p["scale"]
-        out[f"{prefix}.bias"] = p["bias"]
-        out[f"{prefix}.running_mean"] = s["mean"]
-        out[f"{prefix}.running_var"] = s["var"]
+        out[f"{prefix}.weight"] = conv_kernel(p["kernel"])
 
     conv("conv_init", params["conv_init"])
-    norm("bn_init", params["bn_init"], batch_stats["bn_init"])
+    batch_norm_params(out, "bn_init", params["bn_init"],
+                      batch_stats["bn_init"])
     n_blocks = sum(k.startswith("BottleneckBlock_") for k in params)
     for i in range(n_blocks):
         p, s = params[f"BottleneckBlock_{i}"], batch_stats[
@@ -305,8 +305,8 @@ def params_from_jax(params, batch_stats) -> dict:
             if ours.startswith("conv"):
                 conv(f"blocks.{i}.{ours}", p[theirs])
             else:
-                norm(f"blocks.{i}.{ours}", p[theirs], s[theirs])
-    out["head.weight"] = np.transpose(params["head"]["kernel"])
+                batch_norm_params(out, f"blocks.{i}.{ours}", p[theirs],
+                                  s[theirs])
+    out["head.weight"] = dense_kernel(params["head"]["kernel"])
     out["head.bias"] = params["head"]["bias"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+    return as_state_dict(out)

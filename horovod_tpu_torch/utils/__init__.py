@@ -2,4 +2,5 @@
 metrics registry, the control plane's retry policy, fault injection,
 pickle checkpoints, the async sharded checkpointer, the runtime's
 instruments (flight recorder, timeline, stall inspector, tracing, perf
-ledger, step anatomy) and the autotuner."""
+ledger, step anatomy), the autotuner and the input pipeline
+(``data``)."""

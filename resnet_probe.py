@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""ResNet synthetic training through the port's ``DistributedOptimizer``,
-Horovod's ``pytorch_synthetic_benchmark`` shape (root script, not part of
-the package).
+"""Synthetic image-model training through the port's
+``DistributedOptimizer``, Horovod's ``pytorch_synthetic_benchmark`` shape
+(root script, not part of the package).
 
-    python3 resnet_probe.py [-np N] [--depth 50] [--batch 64] [--steps 10]
-        [--image 224] [--wires off,bf16] [--arms hooks,bare]
-        [--device cpu] [--seed 0] [--dump PATH]
+    python3 resnet_probe.py [-np N] [--model resnet] [--depth 50]
+        [--batch 64] [--steps 10] [--image 224]
+        [--wires off,bf16] [--arms hooks,bare] [--device cpu] [--seed 0]
+        [--dump PATH] [--out PATH]
     hvdrun -np N python resnet_probe.py [same options]
 
 Run by itself, the script starts one ``hvdrun`` job of ``-np`` workers for
-each wire in ``--wires`` (``HOROVOD_COMPRESSION`` set to it; the default is
-``off`` at one rank, ``off,bf16`` at more) and checks what they report;
-started by a launcher (``HOROVOD_RANK`` set) it is one worker of a job, the
-wire being what ``HOROVOD_COMPRESSION`` says. One GPU a worker; ``--device
-cpu`` runs the workers over gloo.
+each model in ``--model`` (a comma-separated list) and each wire in
+``--wires`` (``HOROVOD_COMPRESSION`` set to it; the default is ``off`` at
+one rank, ``off,bf16`` at more) and checks what they report; ``--out``
+writes every job's reading and the summary to one JSON file. Started by a
+launcher (``HOROVOD_RANK`` set) it is one worker of a job, the wire being
+what ``HOROVOD_COMPRESSION`` says. One GPU a worker; ``--device cpu`` runs
+the workers over gloo.
 
-Every worker builds ``horovod_tpu_torch.models.resnet`` at ``--depth``
-(50, 101 or 152 at full width, 1000 classes; ``tiny``: one block a stage
-of 8 filters, 10 classes), bf16 compute over fp32 weights on the card and
-fp32 on the CPU, and trains on one synthetic batch, ``--batch`` images a
-rank of ``--image``² (numpy from ``--seed``: the global batch, each rank
-its slice, the same batch every step, as ``bench.py:177-181``), with
-``SGD(lr=0.05, momentum=0.9)`` (``bench.py:201``) and cross-entropy. The
-arms take their steps in turns, one step each in every round, in one
-process:
+Every worker builds ``--model`` from ``horovod_tpu_torch.models``:
+``resnet`` at ``--depth`` (50, 101 or 152 at full width, 1000 classes;
+``tiny``: one block a stage of 8 filters, 10 classes), or ``vgg16``,
+``inception3`` or ``vit_b16`` at their published widths and 1000 classes;
+``--image`` defaults to the model's published side (its module's
+``IMAGE``: 299 for Inception V3, 224 else). VGG-16 is the
+communication-heavy one:
+138,357,544 parameters, 553 MB of fp32 gradients a step. Compute is bf16
+over fp32 weights on the card and fp32 on the CPU. Each trains on one
+synthetic batch, ``--batch`` images a rank of ``--image``² (numpy from
+``--seed``: the global batch, each rank its slice, the same batch every
+step, as ``bench.py:177-181``), with ``SGD(lr=0.05, momentum=0.9)``
+(``bench.py:201``) and cross-entropy; dropout (VGG-16, Inception V3) draws
+from each model's own generator, seeded from its seed. The arms take their
+steps in turns, one step each in every round, in one process:
 
 - ``hooks``: ``hvd.init()``, a model from seed ``--seed + rank``,
   ``hvd.broadcast_parameters(model.state_dict())`` (parameters and BN
@@ -41,8 +50,12 @@ for the step's device work), img/s a rank and, on the card, MFU from the
 median of the steps after the first, peak memory (``max_memory_allocated`` over the
 arm's steps; the other arm's model stays resident) and, for ``hooks``, the
 runtime's counters a step (cycles, chunks, collective calls, fused-plan
-hits and misses, K1 and wire-kernel launches), then one JSON line. MFU is
-img/s x 3 x the forward FLOPs of an image over 989 TFLOP/s (bf16).
+hits and misses, K1 and wire-kernel launches, the gradient bytes the
+allreduces took and the bytes they put on the wire: the bf16 wire's
+chunks at two bytes an element, the rest at their own width), then one
+JSON line. MFU is img/s x 3 x the forward FLOPs of an image over 989
+TFLOP/s (bf16); for VGG-16 and Inception V3 it is given at the published
+side only (their modules' figures).
 ``--dump PATH`` makes each rank save its ``hooks`` model's ``state_dict``
 after the last step to ``PATH`` with ``.rank<r>`` before the suffix.
 
@@ -76,6 +89,46 @@ PEAK_BF16_FLOPS = 989e12       # H100 SXM, dense tensor cores
 LR, MOMENTUM = 0.05, 0.9       # bench.py:201
 ARMS = ("hooks", "bare")
 WIRES = ("off", "bf16")
+# the model zoo beside ResNet: module and constructor in
+# horovod_tpu_torch.models, and the module's forward FLOPs of an image at
+# its published side (2 x MACs, the JAX package's figures; ViT-B/16's
+# counted from its shapes by vit_fwd_flops at any side)
+ZOO = {"vgg16": ("vgg", "VGG16", "VGG16_FWD_FLOP_PER_IMG"),
+       "inception3": ("inception", "InceptionV3",
+                      "INCEPTION3_FWD_FLOP_PER_IMG"),
+       "vit_b16": ("vit", "ViT_B16", None)}
+MODELS = ("resnet",) + tuple(ZOO)
+ZOO_CLASSES = 1000
+
+
+def vit_fwd_flops(image: int = 224, classes: int = 1000, p: int = 16,
+                  d: int = 768, layers: int = 12, mlp: int = 3072) -> float:
+    """Forward FLOPs of one image through ViT-B/16 (2 x the MACs of the
+    patch embedding, the projections, attention's two products, the MLP
+    and the head)."""
+    n = (image // p) ** 2
+    t = n + 1
+    macs = n * 3 * p * p * d
+    macs += layers * (t * (4 * d * d + 2 * d * mlp) + 2 * t * t * d)
+    return 2.0 * (macs + d * classes)
+
+
+def _module(model: str):
+    """``model``'s module in ``horovod_tpu_torch.models``."""
+    import importlib
+
+    name = ZOO[model][0] if model in ZOO else "resnet"
+    return importlib.import_module(f"horovod_tpu_torch.models.{name}")
+
+
+def image_of(model: str, image) -> int:
+    """``image``, or the model's published side (its module's ``IMAGE``)."""
+    return image or _module(model).IMAGE
+
+
+def classes_of(model: str, depth: str) -> int:
+    """ResNet's classes by depth; 1000 for the zoo."""
+    return ZOO_CLASSES if model in ZOO else CONFIGS[depth][2]
 
 
 def fwd_flops(depth: str, image: int) -> float:
@@ -98,24 +151,37 @@ def fwd_flops(depth: str, image: int) -> float:
     return 2.0 * (macs + cin * classes)
 
 
-def flop_per_img(depth: str, image: int) -> float:
+def flop_per_img(depth: str, image: int, model: str = "resnet"):
+    """Forward FLOPs of an image; a zoo model's at its published side
+    only (else None)."""
+    if model in ZOO:
+        flops = ZOO[model][2]
+        if flops is None:
+            return vit_fwd_flops(image)
+        mod = _module(model)
+        return getattr(mod, flops) if image == mod.IMAGE else None
     if image == 224 and depth in FWD_FLOP_PER_IMG_224:
         return FWD_FLOP_PER_IMG_224[depth]
     return fwd_flops(depth, image)
 
 
-def build(depth: str, device, seed: int, sync_bn_group=None):
-    """The model at ``depth``; ``sync_bn_group`` synchronizes its batch
-    norms over that group (``models/resnet.py``)."""
+def build(depth: str, device, seed: int, sync_bn_group=None,
+          model: str = "resnet", image: int = None):
+    """``model`` (ResNet at ``depth``, or a zoo model) for ``image``² inputs
+    (default: its published side); ``sync_bn_group`` synchronizes a
+    ResNet's batch norms over that group (``models/resnet.py``)."""
     import torch
 
     from horovod_tpu_torch.models.resnet import ResNet
 
-    stages, filters, classes = CONFIGS[depth]
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    return ResNet(stages, num_classes=classes, num_filters=filters,
-                  dtype=dtype, device=device, seed=seed,
-                  sync_bn_group=sync_bn_group)
+    kw = dict(num_classes=classes_of(model, depth), image=image,
+              dtype=torch.bfloat16 if device.type == "cuda" else
+              torch.float32, device=device, seed=seed)
+    if model == "resnet":
+        stages, filters, _ = CONFIGS[depth]
+        return ResNet(stages, num_filters=filters,
+                      sync_bn_group=sync_bn_group, **kw)
+    return getattr(_module(model), ZOO[model][1])(**kw)
 
 
 def synthetic_batch(seed: int, ranks: int, batch: int, image: int,
@@ -138,7 +204,7 @@ class Arm:
     """One arm's model, optimizer and training step."""
 
     def __init__(self, name: str, depth: str, device, seed: int,
-                 images, labels):
+                 images, labels, model: str = "resnet"):
         import torch
 
         import horovod_tpu_torch as hvd
@@ -146,7 +212,8 @@ class Arm:
         self.name, self.images, self.labels = name, images, labels
         self.synced = name == "hooks"
         rank = hvd.rank() if self.synced else 0
-        self.model = build(depth, device, seed + rank)
+        self.model = build(depth, device, seed + rank, model=model,
+                           image=images.shape[-1])
         self.params = list(self.model.parameters())
         self.opt = torch.optim.SGD(self.params, lr=LR, momentum=MOMENTUM)
         if self.synced:
@@ -177,13 +244,19 @@ def runtime_counts() -> dict:
 
     rt = context.runtime()
     reg = metrics.get_registry()
+    payload = int(reg.counter_value("hvd_allreduce_bytes_total"))
     return {"cycles": rt.cycles, "chunks": rt.chunks,
             "collective calls": rt.collective_calls,
             "plan hits": int(reg.counter_value("hvd_fused_plan_hits_total")),
             "plan misses": int(reg.counter_value(
                 "hvd_fused_plan_misses_total")),
             "K1 launches": sum(fp.kernel_launches.values()),
-            "wire kernel launches": sum(qw.kernel_launches.values())}
+            "wire kernel launches": sum(qw.kernel_launches.values()),
+            "allreduce bytes": payload,
+            "wire bytes": payload - int(reg.counter_value(
+                "hvd_compression_bytes_total", stage="pre")) + int(
+                    reg.counter_value("hvd_compression_bytes_total",
+                                      stage="post"))}
 
 
 def same_as_rank0(params, group) -> bool:
@@ -240,14 +313,15 @@ def run_in_turns(arms: dict, steps: dict, compare_ranks: bool) -> dict:
 
 
 def summarize(rd: dict, batch: int, depth: str, image: int,
-              cuda: bool) -> dict:
+              cuda: bool, model: str = "resnet") -> dict:
     """Median step after the first (the only one if there is one), img/s
-    a rank and, on the card, MFU."""
+    a rank and, on the card, MFU (where the FLOPs are known)."""
     later = rd["step_s"][1:] or rd["step_s"]
     steady = statistics.median(later)
     img_s = batch / steady
-    mfu = (img_s * TRAIN_FLOP_MULT * flop_per_img(depth, image)
-           / PEAK_BF16_FLOPS) if cuda else None
+    flops = flop_per_img(depth, image, model)
+    mfu = (img_s * TRAIN_FLOP_MULT * flops / PEAK_BF16_FLOPS
+           if cuda and flops else None)
     return {"median_step_ms": steady * 1e3, "img_s_per_rank": img_s,
             "mfu": mfu}
 
@@ -261,9 +335,12 @@ def worker(args) -> int:
     hvd.init(device=args.device)
     device, n, r = hvd.device(), hvd.size(), hvd.rank()
     wire = os.environ.get("HOROVOD_COMPRESSION", "") or "off"
-    images, labels = synthetic_batch(args.seed, n, args.batch, args.image,
-                                     CONFIGS[args.depth][2], r, device)
-    arms = {name: Arm(name, args.depth, device, args.seed, images, labels)
+    image = image_of(args.model, args.image)
+    classes = classes_of(args.model, args.depth)
+    images, labels = synthetic_batch(args.seed, n, args.batch, image,
+                                     classes, r, device)
+    arms = {name: Arm(name, args.depth, device, args.seed, images, labels,
+                      args.model)
             for name in args.arms.split(",")}
     readings = run_in_turns(arms, {name: args.steps for name in arms},
                             compare_ranks=n > 1)
@@ -275,13 +352,14 @@ def worker(args) -> int:
     for arm in arms.values():
         arm.close()
     for name, rd in readings.items():
-        rd.update(summarize(rd, args.batch, args.depth, args.image,
-                            device.type == "cuda"))
+        rd.update(summarize(rd, args.batch, args.depth, image,
+                            device.type == "cuda", args.model))
         rd["peak_bytes_by_rank"] = hvd.allgather_object(rd["peak_bytes"])
     if r == 0:
         for name, rd in readings.items():
             peak, mfu = (("not measured",) * 2 if device.type != "cuda" else
                          (f"{rd['peak_bytes'] / 2**30:.2f} GiB",
+                          "not computed" if rd["mfu"] is None else
                           f"{rd['mfu']:.4f}"))
             print(f"  {wire} wire, {name}: losses {rd['losses']}", flush=True)
             print(f"  {wire} wire, {name}: step ms "
@@ -298,8 +376,9 @@ def worker(args) -> int:
                       f"every rank after every step: "
                       f"{all(rd['same_on_every_rank'])}", flush=True)
         print(json.dumps({"resnet_probe": readings, "wire": wire,
-                          "ranks": n, "depth": args.depth,
-                          "batch": args.batch, "image": args.image,
+                          "ranks": n, "model": args.model,
+                          "depth": args.depth, "batch": args.batch,
+                          "image": image, "classes": classes,
                           "device": str(device),
                           "kind": (torch.cuda.get_device_name(device)
                                    if device.type == "cuda" else "cpu")}),
@@ -321,10 +400,11 @@ def check(reading: dict):
                              f"{ {k: v['losses'][0] for k, v in arms.items()} }")
 
 
-def run_job(args, wire: str, root: str) -> dict:
+def run_job(args, model: str, wire: str, root: str) -> dict:
+    # the last --model wins: each job's worker trains one model
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
            str(args.np), sys.executable, os.path.abspath(__file__)] + [
-               a for a in sys.argv[1:]]
+               a for a in sys.argv[1:]] + ["--model", model]
     env = dict(os.environ, OMP_NUM_THREADS="1",
                HOROVOD_COMPRESSION="" if wire == "off" else wire)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -337,26 +417,31 @@ def run_job(args, wire: str, root: str) -> dict:
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
         print(p.communicate()[0])
-        raise AssertionError(f"resnet_probe: the {wire} job timed out")
+        raise AssertionError(f"resnet_probe: the {model} {wire} job timed "
+                             "out")
     print(out, flush=True)
     if p.returncode != 0 or not all(f"RESNET_PROBE_OK {k}" in out
                                     for k in range(args.np)):
-        raise AssertionError(f"resnet_probe: the {wire} job failed")
+        raise AssertionError(f"resnet_probe: the {model} {wire} job failed")
     for line in out.splitlines():
         at = line.find('{"resnet_probe"')  # after the launcher's prefix
         if at >= 0:
             return json.loads(line[at:])
-    raise AssertionError(f"resnet_probe: the {wire} job printed no reading")
+    raise AssertionError(f"resnet_probe: the {model} {wire} job printed no "
+                         "reading")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-np", type=int, default=1)
+    ap.add_argument("--model", default="resnet",
+                    help=f"one or more of {MODELS}, comma-separated")
     ap.add_argument("--depth", choices=sorted(CONFIGS), default="50")
     ap.add_argument("--batch", type=int, default=64,
                     help="images a rank (the reference's 64 a GPU)")
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--image", type=int, default=224)
+    ap.add_argument("--image", type=int, default=None,
+                    help="default: the model's published side")
     ap.add_argument("--wires", default=None,
                     help="off,bf16 (default: off at one rank, both at more)")
     ap.add_argument("--arms", default=",".join(ARMS))
@@ -366,9 +451,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dump", default=None)
     ap.add_argument("--timeout", type=float, default=900.0)
+    ap.add_argument("--out", default=None,
+                    help="write every job's reading and the summary here")
     args = ap.parse_args()
     if set(args.arms.split(",")) - set(ARMS):
         raise SystemExit(f"--arms takes {ARMS}")
+    models = args.model.split(",")
+    if set(models) - set(MODELS):
+        raise SystemExit(f"--model takes {MODELS}")
     root = os.path.dirname(os.path.abspath(__file__))
     if "HOROVOD_RANK" in os.environ:
         sys.path.insert(0, root)
@@ -383,19 +473,24 @@ def main() -> int:
             check=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
     readings = {}
-    for wire in wires:
-        readings[wire] = run_job(args, wire, root)
-        check(readings[wire])
+    for model in models:
+        for wire in wires:
+            readings[f"{model}/{wire}"] = r = run_job(args, model, wire, root)
+            check(r)
     summary = {}
-    for wire, reading in readings.items():
+    for key, reading in readings.items():
         arms = reading["resnet_probe"]
         if "hooks" in arms and "bare" in arms:
-            summary[wire] = {"hooks_minus_bare_ms":
-                             arms["hooks"]["median_step_ms"]
-                             - arms["bare"]["median_step_ms"]}
+            summary[key] = {"hooks_minus_bare_ms":
+                            arms["hooks"]["median_step_ms"]
+                            - arms["bare"]["median_step_ms"]}
     print(json.dumps({"resnet_probe_summary": summary}), flush=True)
-    print(f"resnet_probe: ResNet-{args.depth}, {args.np} ranks on "
-          f"{args.device or 'cuda'}, wires {wires}; "
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"readings": readings, "summary": summary,
+                       "ranks": args.np}, f)
+    print(f"resnet_probe: {models} (ResNet depth {args.depth}), {args.np} "
+          f"ranks on {args.device or 'cuda'}, wires {wires}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

@@ -43,9 +43,12 @@ _ISOLATED = textwrap.dedent("""
     cfg = PT.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
                                n_layers=2, d_ff=64, max_seq=16,
                                dtype=torch.float32)
+    from horovod_tpu_torch import models
     if not torch.cuda.is_available():
         for entry in (hvd.init, lambda: PT.TransformerLM(cfg),
-                      lambda: PR.ResNet50()):
+                      lambda: PR.ResNet50(), models.VGG16,
+                      models.InceptionV3, models.ViT_B16,
+                      models.MnistConvNet, models.MLP):
             try:
                 entry()
                 raise AssertionError("an entry point without CUDA must raise")
@@ -104,6 +107,26 @@ _ISOLATED = textwrap.dedent("""
     assert hvd.metrics_snapshot()["counters"]
     assert observe_probe.ARMS == ("instruments", "timeline", "straggler",
                                   "stall", "autotune")
+    # the model zoo, the input pipeline and the examples
+    import importlib.util
+    import numpy as np
+    from horovod_tpu_torch.utils.data import ShardedLoader
+    for make, n in ((models.VGG16, 138_357_544),
+                    (models.InceptionV3, 23_834_568),
+                    (models.ViT_B16, 86_567_656)):
+        assert sum(p.numel() for p in make(device="meta").parameters()) == n
+    net = models.MnistConvNet()  # the port's device, after init
+    loader = ShardedLoader((np.zeros((8, 1, 28, 28), np.float32),
+                            np.zeros(8, np.int64)), batch_size=4)
+    bx, by = next(iter(loader.epoch(0)))
+    assert bx.device == hvd.device() and net(bx).shape == (4, 10)
+    for ex in ("pytorch_mnist", "pytorch_synthetic_benchmark"):
+        spec = importlib.util.spec_from_file_location(
+            ex, f"examples/torch_port/{ex}.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    for name in ("utils.data", "models.vgg", "models.inception",
+                 "models.vit", "models.mlp"):
+        assert "horovod_tpu_torch." + name in sys.modules, name
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
     hvd.shutdown()
@@ -170,7 +193,12 @@ def test_no_source_names_jax_or_the_jax_package():
                                              "observe_probe.py",
                                              "parallel_probe.py",
                                              "wire_probe.py",
-                                             "zero_probe.py")]
+                                             "zero_probe.py",
+                                             "examples/torch_port/"
+                                             "pytorch_mnist.py",
+                                             "examples/torch_port/"
+                                             "pytorch_synthetic_benchmark"
+                                             ".py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]

@@ -571,16 +571,11 @@ def test_run_returns_results_in_rank_order():
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _hvdrun(package: str, script, timeout: float = 240.0):
-    """``python -m <package>.runner -np 2 python <script>`` in a session of
-    its own; at the timeout the whole session (launcher and workers) is
-    killed. Returns (exit code, output)."""
-    return _hvdrun_all([(package, script)], timeout)[0]
-
-
 def _hvdrun_all(jobs, timeout: float = 240.0) -> list:
-    """``_hvdrun`` of every ``(package, script)`` in ``jobs``, all started
-    at once (each spends most of its time importing); their (exit code,
+    """``python -m <package>.runner -np 2 python <script>`` of every
+    ``(package, script)`` in ``jobs``, all started at once (each spends most
+    of its time importing), each in a session of its own: at the timeout
+    the whole session (launcher and workers) is killed. Their (exit code,
     output) in order."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -709,10 +704,8 @@ RUNTIME_WORKER = textwrap.dedent("""
 """)
 
 
-def test_two_process_runtime_through_hvdrun(tmp_path):
-    script = tmp_path / "worker.py"
-    script.write_text(RUNTIME_WORKER)
-    rc, out = _hvdrun("horovod_tpu_torch", script)
+def test_two_process_runtime_through_hvdrun(jobs):
+    rc, out = jobs["runtime"]
     assert rc == 0, out
     assert "RUNTIME_OK 0" in out and "RUNTIME_OK 1" in out
 
@@ -775,26 +768,15 @@ JAX_HEAD = """
 """
 
 
-def test_slice_losses_match_jax_package_two_processes(tmp_path):
+def test_slice_losses_match_jax_package_two_processes(jobs):
     """fp32 losses of 5 steps on each rank; the averaged gradient of two
     ranks is exact in both packages (a sum of two and a halving), so the
     tolerance covers summation order only."""
-    cfg = T.TransformerConfig(**CFG, dtype=jax.numpy.float32)
-    params = PT.params_from_jax(jax.tree_util.tree_map(
-        np.asarray, T.init(jax.random.PRNGKey(0), cfg)))
-    pfile = str(tmp_path / "params.npz")
-    np.savez(pfile, **{k: v.numpy() for k, v in params.items()})
-    losses, jobs = {}, []
-    for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
-                              ("jax", JAX_HEAD, "horovod_tpu")):
-        out = str(tmp_path / (pkg + ".{}.npy"))
-        script = tmp_path / f"{pkg}_worker.py"
-        script.write_text(textwrap.dedent(head) + textwrap.dedent(
-            SLICE_BODY.format(params=pfile, out=out)))
-        jobs.append((runner, script))
-    for (rc, log), pkg in zip(_hvdrun_all(jobs), ("port", "jax")):
+    losses = {}
+    for pkg in ("port", "jax"):
+        rc, log = jobs[f"slice.{pkg}"]
         assert rc == 0, log
-        out = str(tmp_path / (pkg + ".{}.npy"))
+        out = str(jobs["dir"] / f"slice.{pkg}.{{}}.npy")
         losses[pkg] = [np.load(out.format(r)) for r in range(2)]
     for r in range(2):
         np.testing.assert_allclose(losses["port"][r], losses["jax"][r],
@@ -820,7 +802,37 @@ AVG_BODY = """
 """
 
 
-def test_bf16_average_matches_jax_package_two_processes(tmp_path):
+@pytest.fixture(scope="module")
+def jobs(tmp_path_factory):
+    """This file's five 2-process ``hvdrun`` jobs, all started at once
+    (each spends most of its time importing): the runtime worker, and the
+    port's and the JAX package's jobs of the slice's losses and of the bf16
+    average. Name -> (exit code, output); ``"dir"`` -> where they wrote."""
+    tmp = tmp_path_factory.mktemp("runtime_jobs")
+    script = tmp / "worker.py"
+    script.write_text(RUNTIME_WORKER)
+    specs = {"runtime": ("horovod_tpu_torch", script)}
+    cfg = T.TransformerConfig(**CFG, dtype=jax.numpy.float32)
+    params = PT.params_from_jax(jax.tree_util.tree_map(
+        np.asarray, T.init(jax.random.PRNGKey(0), cfg)))
+    pfile = str(tmp / "params.npz")
+    np.savez(pfile, **{k: v.numpy() for k, v in params.items()})
+    for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
+                              ("jax", JAX_HEAD, "horovod_tpu")):
+        for job, body in (
+                ("slice", SLICE_BODY.format(
+                    params=pfile, out=str(tmp / f"slice.{pkg}.{{}}.npy"))),
+                ("avg", AVG_BODY.format(
+                    sizes=AVG_SIZES, pre=AVG_PRE, post=AVG_POST,
+                    out=str(tmp / f"avg.{pkg}.{{}}.npy")))):
+            script = tmp / f"{job}_{pkg}_worker.py"
+            script.write_text(textwrap.dedent(head) + textwrap.dedent(body))
+            specs[f"{job}.{pkg}"] = (runner, script)
+    return {"dir": tmp, **dict(zip(specs, _hvdrun_all(list(
+        specs.values()))))}
+
+
+def test_bf16_average_matches_jax_package_two_processes(jobs):
     """bf16 AVERAGE with factors that bf16 does not hold exactly, as one
     fused chunk, in a 2-process job of the port's ``hvdrun`` and of the JAX
     package's (``horovod_tpu.torch``), over gloo. Both ranks of the port
@@ -841,18 +853,11 @@ def test_bf16_average_matches_jax_package_two_processes(tmp_path):
     g = jax.numpy.asarray(np.stack(inputs))
     rule = np.asarray(body(g)).view(np.int16)
     jitted = np.asarray(jax.jit(body)(g)).view(np.int16)
-    got, jobs = {}, []
-    for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
-                              ("jax", JAX_HEAD, "horovod_tpu")):
-        out = str(tmp_path / (pkg + ".{}.npy"))
-        script = tmp_path / f"{pkg}_avg.py"
-        script.write_text(textwrap.dedent(head) + textwrap.dedent(
-            AVG_BODY.format(sizes=AVG_SIZES, pre=AVG_PRE, post=AVG_POST,
-                            out=out)))
-        jobs.append((runner, script))
-    for (rc, log), pkg in zip(_hvdrun_all(jobs), ("port", "jax")):
+    got = {}
+    for pkg in ("port", "jax"):
+        rc, log = jobs[f"avg.{pkg}"]
         assert rc == 0, log
-        out = str(tmp_path / (pkg + ".{}.npy"))
+        out = str(jobs["dir"] / f"avg.{pkg}.{{}}.npy")
         got[pkg] = [np.load(out.format(r)) for r in range(2)]
     for r in range(2):
         np.testing.assert_array_equal(got["port"][r], rule)

@@ -439,31 +439,43 @@ def _wait(p, what: str, timeout: float) -> str:
 
 
 @pytest.fixture(scope="module")
-def jobs(tmp_path_factory):
-    """Each package's dump of ``CASES``, by rank: {"port": [...], "jax":
-    [...]}; both packages' jobs run at once."""
+def procs(tmp_path_factory):
+    """This file's processes, all started at once: each package's
+    two-rank job of ``CASES`` and ``collectives_probe.py`` at four gloo
+    ranks. Name -> the process; ``"dir"`` -> where the jobs write."""
     tmp = tmp_path_factory.mktemp("surface")
-    got, procs = {}, {}
+    started = {"dir": tmp}
     for pkg, head, runner in (("port", PORT_HEAD, "horovod_tpu_torch"),
                               ("jax", JAX_HEAD, "horovod_tpu")):
         out = str(tmp / (pkg + ".{}.npz"))
         script = tmp / f"{pkg}_cases.py"
         script.write_text(textwrap.dedent(head) + f"OUT = {out!r}\n"
                           + textwrap.dedent(CASES))
-        procs[pkg] = _start([sys.executable, "-m", f"{runner}.runner",
-                             "-np", "2", sys.executable, str(script)])
-    try:
-        for pkg, p in procs.items():
-            log = _wait(p, f"{pkg} hvdrun job", 150.0)
-            assert (p.returncode == 0 and "CASES_OK 0" in log
-                    and "CASES_OK 1" in log), log
-            out = str(tmp / (pkg + ".{}.npz"))
-            got[pkg] = [dict(np.load(out.format(r))) for r in range(2)]
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.communicate()
+        started[pkg] = _start([sys.executable, "-m", f"{runner}.runner",
+                               "-np", "2", sys.executable, str(script)])
+    started["probe"] = _start([sys.executable,
+                               os.path.join(REPO, "collectives_probe.py"),
+                               "-np", "4", "--device", "cpu", "--timeout",
+                               "120"])
+    yield started
+    for name, p in started.items():
+        if name != "dir" and p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+
+
+@pytest.fixture(scope="module")
+def jobs(procs):
+    """Each package's dump of ``CASES``, by rank: {"port": [...], "jax":
+    [...]}."""
+    got = {}
+    for pkg in ("port", "jax"):
+        p = procs[pkg]
+        log = _wait(p, f"{pkg} hvdrun job", 150.0)
+        assert (p.returncode == 0 and "CASES_OK 0" in log
+                and "CASES_OK 1" in log), log
+        out = str(procs["dir"] / (pkg + ".{}.npz"))
+        got[pkg] = [dict(np.load(out.format(r))) for r in range(2)]
     return got
 
 
@@ -542,17 +554,13 @@ def test_two_process_cases_read_as_expected(jobs):
 
 # --- more than two ranks ------------------------------------------------------
 
-def test_collectives_probe_at_four_ranks_on_the_cpu():
+def test_collectives_probe_at_four_ranks_on_the_cpu(procs):
     """``collectives_probe.py`` at four gloo ranks: a ragged allgather
     with ranks of 0 and 1 rows, uneven alltoall, reducescatter, sets of
     the even, the odd and the last rank, sparse allreduce, join, objects,
     each checked exactly by every rank against inputs it makes from
     seeds (integer-valued, so sums of four ranks are exact)."""
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    p = subprocess.run([sys.executable, os.path.join(REPO,
-                                                     "collectives_probe.py"),
-                        "-np", "4", "--device", "cpu", "--timeout", "120"],
-                       cwd=REPO, env=env, capture_output=True, text=True,
-                       timeout=180)
-    assert p.returncode == 0, p.stdout + p.stderr
-    assert "4 ranks on cpu, every case exact" in p.stdout
+    p = procs["probe"]
+    out = _wait(p, "collectives_probe.py -np 4", 180.0)
+    assert p.returncode == 0, out
+    assert "4 ranks on cpu, every case exact" in out
