@@ -283,7 +283,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``examples/torch_port`` run once each through the launcher on the
    card (MNIST over ``ShardedLoader``, the synthetic benchmark on
    VGG-16), each must exit 0 and print its result;
-16. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+16. the spmd path, in a fresh process (``spmd_worker``, world of one):
+   ResNet-50 at 224², 64 images, bf16 over fp32 weights, SGD 0.05 with
+   momentum 0.9, the JAX package's own loop (``bench.py::bench_resnet``):
+   ``data_parallel_step`` and the in-step ``hvd.opt.DistributedOptimizer``
+   on the plain, bf16 (K2) and int8 wires, ``sharded_update=True``, the
+   runtime's hooks and the bare loop, one step of each arm in turns (5,
+   and 3 bare); every arm's first loss equal, losses finite and falling,
+   the in-step parameters bitwise the hooks arm's after every step (cuDNN
+   deterministic in this process), the int8 arm bitwise the plain one (no
+   wire at one rank, as JAX), the sharded one bitwise too;
+   per step the in-step calls, K1 and wire-kernel launches and the
+   runtime's counters; one traced step of the plain and the bf16 arm
+   (idle share, NCCL kernels, K1/K2/K3 launches); then EQuARX over 4
+   virtual ranks on the card: ResNet-50's wire-eligible gradients of 4
+   seeded batches through the int8 and int4 schedules of
+   ``collectives.quantized_allreduce`` (K3 per peer row, the
+   reduce-unpack, K3 without error feedback, the reduce-unpack a row),
+   two rounds of error feedback, outputs and residuals bitwise against the
+   plain versions, the kernel round timed by events beside its byte bound;
+17. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -294,7 +313,8 @@ The line before the last is one JSON object with the kernels' launches
 K2's and K3's on the compression path, K5's on the long-context path,
 K4's on the adasum path, the others' on the main path;
 ``launches_by_path`` gives every path's count, the resnet, megaplan,
-adasum, elastic, observe and zoo paths' included), errors, times, bounds
+adasum, elastic, observe, zoo, spmd and spmd_equarx paths' included),
+errors, times, bounds
 and shares; the last line is
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script fails and
@@ -359,9 +379,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, only=()) -> float:
     """Mean device milliseconds per call: the CUDA kernels' own time under
-    ``torch.profiler``, summed over ``iters`` calls. The host's work and the
+    ``torch.profiler``, summed over ``iters`` calls (with ``only``, over the
+    kernels whose names hold one of its strings). The host's work and the
     gaps between launches are left out, which ``time_ms`` counts wherever
     the host's work per call outlasts the device's. A device-to-device
     memcpy (``clone``) is not counted whole: on the card's machine the
@@ -380,7 +401,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / iters / 1e3
+               if e.device_type == cuda
+               and (not only or any(k in e.key for k in only))) / iters / 1e3
 
 
 def flash_bound(B: int, sq: int, sk: int, d: int, dtype: str,
@@ -4192,7 +4214,375 @@ def zoo_path_phase(device, batch: int = ZOO_BATCH, images=None) -> tuple:
     return launches, readings
 
 
-# --- phase 16: the launcher ------------------------------------------------
+# --- phase 16: the spmd path (the in-step optimizer) ------------------------
+
+# arm label: (resnet_probe arm, in-step wire)
+SPMD_ARMS = {"spmd": ("spmd", "off"), "spmd_bf16": ("spmd", "bf16"),
+             "spmd_int8": ("spmd", "int8"), "spmd_zero1": ("spmd_zero1", "off"),
+             "hooks": ("hooks", "off"), "bare": ("bare", "off")}
+SPMD_STEPS = {name: (3 if name == "bare" else 5) for name in SPMD_ARMS}
+EQUARX_RANKS = 4
+
+
+def _same(a, b) -> float:
+    """0.0 when two parameter lists are bitwise equal, else the largest
+    absolute difference (never 0.0 then)."""
+    import torch
+
+    worst = 0.0
+    for x, y in zip(a, b):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            worst = max(worst, float((x - y).abs().max()) or 1e-45)
+    return worst
+
+
+class _PlainWire:
+    """Inside, the port's wire (EQuARX's phases, the bf16 cast wire) calls
+    the plain versions of K2, K3 and the reduce-unpack, on whatever device
+    their tensors are."""
+
+    def __enter__(self):
+        from horovod_tpu_torch.ops import quant_wire as qw
+
+        self.saved = qw.cast_pack, qw.quantize_pack, qw.reduce_unpack
+
+        def cast(tensors, row, pre=1.0):
+            qw.plain_cast_pack(list(tensors), row, pre)
+
+        def quantize(tensors, row, spec, pre=1.0, residual=None,
+                     new_residual=None, reg_blocks=None):
+            tensors = list(tensors)
+            res = (qw._residuals(tensors, residual) if spec.error_feedback
+                   else None)
+            qw.plain_quantize_pack(tensors, row, spec, pre, res,
+                                   new_residual)
+
+        def reduce(gathered, outputs, spec, nrows, average, post=1.0):
+            qw.plain_reduce_unpack(gathered, list(outputs), spec, nrows,
+                                   average, post)
+
+        qw.cast_pack, qw.quantize_pack, qw.reduce_unpack = (cast, quantize,
+                                                             reduce)
+        return self
+
+    def __exit__(self, *exc):
+        from horovod_tpu_torch.ops import quant_wire as qw
+
+        qw.cast_pack, qw.quantize_pack, qw.reduce_unpack = self.saved
+
+
+def _equarx_round(rank_tensors, spec, residuals):
+    """EQuARX over ``len(rank_tensors)`` virtual ranks through the port's
+    phases (``ops/collectives.py``), the exchanges as list operations:
+    every rank's per-peer rows, row j of each to rank j, each rank's
+    reduced and requantized chunk, all of them to every rank. Returns (the
+    outputs, which every rank shares, and each rank's new residual)."""
+    import torch
+
+    from horovod_tpu_torch.ops import collectives as C
+
+    n = len(rank_tensors)
+    size = sum(t.numel() for t in rank_tensors[0])
+    csz, _ = C.equarx_layout(size, n, spec)
+    phase1 = [C.equarx_phase1(ts, spec, n, 1.0, residuals[r], True)
+              for r, ts in enumerate(rank_tensors)]
+    rows = [C.equarx_requantize(C.equarx_reduce(
+        torch.stack([phase1[r][0][j] for r in range(n)]), spec, n, csz,
+        True), spec) for j in range(n)]
+    outs = [torch.empty_like(t) for t in rank_tensors[0]]
+    C.equarx_unpack(torch.cat(rows), outs, spec, n, 1.0)
+    return outs, [e[:size] for _, e in phase1]
+
+
+def _equarx_bytes(size: int, n: int, spec) -> int:
+    """Bytes a simulated round must move: each rank's gradients, residual
+    and new residual (fp32) and its n rows written; each chunk's n rows
+    read and its requantized row written; the n requantized rows read and
+    the fp32 outputs written once. The reduced fp32 chunk between the
+    reduce and the requantize is the port's, not the function's."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    _, rb = C.equarx_layout(size, n, spec)
+    per_rank = 3 * 4 * size + n * rb
+    per_chunk = n * rb + rb
+    return n * per_rank + n * per_chunk + n * rb + 4 * size
+
+
+# the wire kernels' names in a profile (``csrc/quant_wire.cu``)
+WIRE_KERNELS = ("quantize_pack_kernel", "reduce_unpack_kernel")
+
+
+def _equarx_check(device, model, images_of) -> dict:
+    """EQuARX of ResNet-50's wire-eligible gradients over
+    ``EQUARX_RANKS`` virtual ranks (one backward on each rank's seeded
+    batch), int8 and int4, two rounds with each rank's residual carried:
+    kernels against the plain versions bitwise; then one kernel round
+    timed by events (the simulation's stacks and copies included) and by
+    the device time of K3 and the reduce-unpack alone, which the byte bound
+    is set against. Returns readings and the kernels' launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch import opt as O
+    from horovod_tpu_torch.ops import compression as comp
+
+    names = [k for k, _ in model.named_parameters()]
+    grads = []
+    for r in range(EQUARX_RANKS):
+        model.zero_grad(set_to_none=True)
+        images, labels = images_of(r)
+        F.cross_entropy(model(images), labels).backward()
+        grads.append([p.grad.detach().clone() for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    elig, _ = O._quant_partition(names, grads[0])
+    ranks = [[g[i] for i in elig] for g in grads]
+    size = sum(t.numel() for t in ranks[0])
+    out = {"leaves": len(elig), "elements": size}
+    _zero_launch_counts()
+    carried = {}
+    for bits in (8, 4):
+        spec = comp.make_quant_spec(bits, 256, True)
+        res_k = res_p = [None] * EQUARX_RANKS
+        for rnd in range(2):
+            got, res_k = _equarx_round(ranks, spec, res_k)
+            with _PlainWire():
+                want, res_p = _equarx_round(ranks, spec, res_p)
+            for a, b in zip(got + res_k, want + res_p):
+                _exact(f"EQuARX int{bits} round {rnd}", a, b)
+        carried[bits] = (spec, res_k)
+        _log(f"  EQuARX int{bits} over {EQUARX_RANKS} virtual ranks, "
+             f"{len(elig)} leaves, {size} elements: bitwise the plain "
+             f"versions over 2 rounds")
+    launches = _launch_counts()  # the checked rounds' kernels
+    for bits, (spec, res_k) in carried.items():
+        if device.type != "cuda":
+            continue
+        fn = lambda: _equarx_round(ranks, spec, res_k)  # noqa: E731
+        ms = time_ms(fn, iters=5)
+        dev = device_ms(fn, iters=3, warmup=1, only=WIRE_KERNELS)
+        if not dev > 0:
+            raise AssertionError(f"no {WIRE_KERNELS} in the profile")
+        bound = _equarx_bytes(size, EQUARX_RANKS, spec) / HBM_BYTES_PER_S \
+            * 1e3
+        out[f"int{bits}"] = {"ms": ms, "device_ms": dev, "bound_ms": bound,
+                             "share": bound / max(ms, dev),
+                             "device_share": bound / dev}
+        _log(f"  EQuARX int{bits}: one round {ms:.4f} ms by events "
+             f"(the host's phases and the simulation's copies included), "
+             f"{dev:.4f} ms of K3 and the reduce-unpack by device time, "
+             f"byte bound {bound:.4f} ms ({bound / dev:.3f} of that device "
+             f"time)")
+    del ranks, grads, carried
+    return out, launches
+
+
+def _cast_check(model, images, labels) -> dict:
+    """The bf16 arm's wire at its own shapes: one backward of its model
+    (ResNet-50's 161 fp32 gradients), the in-step cast AVERAGE of them
+    over the world of one (K2's cast pack into one bf16 flat, the
+    reduce-unpack of one row back) against the same call through the plain
+    versions and against each gradient rounded to bf16, bitwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import quant_wire as qw
+
+    model.zero_grad(set_to_none=True)
+    F.cross_entropy(model(images), labels).backward()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    k0 = dict(qw.kernel_launches)
+    got = C.spmd_cast_allreduce(grads)
+    k = {n: v - k0.get(n, 0) for n, v in qw.kernel_launches.items()
+         if v - k0.get(n, 0)}
+    with _PlainWire():
+        want = C.spmd_cast_allreduce(grads)
+    for i, (g, a, b) in enumerate(zip(grads, got, want)):
+        _exact(f"bf16 wire, gradient {i}: kernels against plain", a, b)
+        _exact(f"bf16 wire, gradient {i}: against its bf16 rounding", a,
+               g.bfloat16().float())
+    out = {"leaves": len(grads), "elements": sum(g.numel() for g in grads),
+           "launches": k}
+    _log(f"  bf16 wire at the path's shapes: {out['leaves']} gradients, "
+         f"{out['elements']} elements, kernels {k}: bitwise the plain "
+         f"versions and each gradient's bf16 rounding")
+    return out
+
+
+def spmd_worker(device=None, depth: str = "50", image: int = RESNET_IMAGE,
+                batch: int = RESNET_BATCH) -> int:
+    """The spmd path in this process (``spmd_path_phase`` starts it
+    fresh): prints one line ``SPMD_WORKER {json}`` and exits 0, or
+    raises. ``device="cpu"`` with ``depth="tiny"`` and a small image and
+    batch rehearses it on the CPU (nothing timed or traced there)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import resnet_probe as rp
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import fused_pack as fp
+    from horovod_tpu_torch.ops import quant_wire as qw
+
+    # the arms' parameters are compared bit for bit: cuDNN's deterministic
+    # algorithms, so two models given the same steps compute the same bits
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    hvd.init(device=device)
+    device = hvd.device()
+    cuda = device.type == "cuda"
+    classes = rp.CONFIGS[depth][2]
+    images, labels = rp.synthetic_batch(0, 1, batch, image, classes, 0,
+                                        device)
+    arms = {name: rp.Arm(kind, depth, device, 0, images, labels, wire=wire)
+            for name, (kind, wire) in SPMD_ARMS.items()}
+    state = {name: 0 for name in arms}
+
+    def counts() -> dict:
+        c = rp.runtime_counts()
+        return {"in-step calls": dict(C.spmd_calls),
+                "K1": dict(fp.kernel_launches),
+                "wire": {k: v for k, v in qw.kernel_launches.items() if v},
+                "chunks": c["chunks"], "collective calls":
+                c["collective calls"], "cycles": c["cycles"]}
+
+    def delta(c0: dict, c1: dict) -> dict:
+        out = {}
+        for k, v in c1.items():
+            if isinstance(v, dict):
+                d = {n: v[n] - c0[k].get(n, 0) for n in v}
+                out[k] = {n: x for n, x in d.items() if x}
+            else:
+                out[k] = v - c0[k]
+        return out
+
+    rd = {name: {"losses": [], "step_s": [], "per_step": []}
+          for name in arms}
+    same = {"spmd_vs_hooks": [], "int8_vs_spmd": [], "zero1_vs_spmd": [],
+            "bf16_vs_spmd": []}
+    _zero_launch_counts()  # just before the path runs
+    for k in C.spmd_calls:
+        C.spmd_calls[k] = 0
+    for i in range(max(SPMD_STEPS.values())):
+        for name, arm in arms.items():
+            if i >= SPMD_STEPS[name]:
+                continue
+            if cuda:
+                torch.cuda.synchronize()
+            c0 = counts()
+            t0 = time.perf_counter()
+            rd[name]["losses"].append(arm.step())
+            rd[name]["step_s"].append(time.perf_counter() - t0)
+            rd[name]["per_step"].append(delta(c0, counts()))
+        sp = arms["spmd"].params
+        same["spmd_vs_hooks"].append(_same(sp, arms["hooks"].params))
+        same["int8_vs_spmd"].append(_same(arms["spmd_int8"].params, sp))
+        same["zero1_vs_spmd"].append(_same(arms["spmd_zero1"].params, sp))
+        same["bf16_vs_spmd"].append(_same(arms["spmd_bf16"].params, sp))
+    launches = _launch_counts()
+    state = {name: arm.state_bytes() for name, arm in arms.items()}
+    firsts = {rd[n]["losses"][0] for n in arms}
+    if len(firsts) != 1:
+        raise AssertionError(f"the arms' first losses differ: "
+                             f"{ {n: rd[n]['losses'][0] for n in arms} }")
+    for name, r in rd.items():
+        r.update(rp.summarize(r, batch, depth, image, cuda))
+        losses = r["losses"]
+        _log(f"  {name}: losses {losses}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: losses {losses}")
+        _log(f"  {name}: step ms {[round(x * 1e3, 2) for x in r['step_s']]}"
+             f"; median after the first {r['median_step_ms']:.2f} ms, "
+             f"{r['img_s_per_rank']:.1f} img/s, MFU {r['mfu']}; "
+             f"optimizer state {state[name]} bytes")
+        for j, c in enumerate(r["per_step"]):
+            _log(f"  {name} step {j}: {c}")
+    _log(f"  parameters after each round (0.0: bitwise): {same}")
+    for key in ("spmd_vs_hooks", "int8_vs_spmd", "zero1_vs_spmd"):
+        if any(same[key]):
+            raise AssertionError(f"{key}: {same[key]}")
+    if not any(same["bf16_vs_spmd"]):
+        raise AssertionError("the bf16 wire left the gradients unrounded")
+    cast = _cast_check(arms["spmd_bf16"].model, images, labels)
+    if cuda and not (cast["launches"].get("wire_cast_pack")
+                     and cast["launches"].get("wire_reduce_bf16")):
+        raise AssertionError(f"the bf16 check ran no kernel: {cast}")
+    for name in ("spmd", "spmd_bf16", "spmd_zero1"):
+        steps = rd[name]["per_step"]
+        if any(c["chunks"] or c["collective calls"] for c in steps):
+            raise AssertionError(f"{name} went through the runtime: "
+                                 f"{steps}")
+    if cuda and not (launches["fused_pack"] and launches["fused_unpack"]
+                     and launches["wire_cast_pack"]
+                     and launches["wire_reduce_bf16"]):
+        raise AssertionError(f"the spmd path's kernels did not all launch: "
+                             f"{launches}")
+    traced = {}
+    for name in ("spmd", "spmd_bf16") if cuda else ():
+        c0 = counts()
+        prof = profile_step(arms[name].step)
+        c = delta(c0, counts())
+        nccl = sum(n for k, n, _ in prof["top"] if "nccl" in k.lower())
+        idle = max(0.0, 1.0 - prof["union_ms"] / prof["wall_ms"])
+        traced[name] = {"wall_ms": prof["wall_ms"],
+                        "device_ms": prof["device_ms"],
+                        "union_ms": prof["union_ms"], "idle_share": idle,
+                        "nccl_kernels": nccl, "counts": c,
+                        "categories": prof["categories"]}
+        _log(f"  traced {name} step: {c}; NCCL kernels {nccl}")
+        _log_profile(prof)
+    model = arms["spmd"].model
+    for name in [n for n in arms if n != "spmd"]:
+        arms.pop(name).close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def images_of(r):
+        return rp.synthetic_batch(1 + r, 1, batch, image, classes, 0, device)
+
+    equarx, eq_launches = _equarx_check(device, model, images_of)
+    readings = {name: {k: r[k] for k in (
+        "losses", "median_step_ms", "img_s_per_rank", "mfu", "per_step")}
+        for name, r in rd.items()}
+    readings.update({"same": same, "traced": traced, "equarx": equarx,
+                     "cast": cast, "state_bytes": state})
+    print("SPMD_WORKER " + json.dumps({
+        "readings": readings, "launches": launches,
+        "equarx_launches": eq_launches}), flush=True)
+    hvd.shutdown()
+    return 0
+
+
+def spmd_path_phase(root: str) -> tuple:
+    """``spmd_worker`` in a fresh process on the card; returns its
+    launches on the training arms, on the EQuARX check, and its readings."""
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MASTER_PORT", None)
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.spmd_worker())"
+    p = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, start_new_session=True)
+    try:
+        out = p.communicate(timeout=600)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise
+    line = None
+    for ln in out.splitlines():
+        if ln.startswith("SPMD_WORKER "):
+            line = ln
+        else:
+            _log(ln)
+    if p.returncode != 0 or line is None:
+        raise AssertionError(f"the spmd worker failed (exit "
+                             f"{p.returncode})")
+    res = json.loads(line[len("SPMD_WORKER "):])
+    return res["launches"], res["equarx_launches"], res["readings"]
+
+
+# --- phase 17: the launcher ------------------------------------------------
 
 LAUNCHED_WORKER = """
 import os
@@ -4831,6 +5221,14 @@ def main() -> int:
     zoo_readings["k1_chunks_checked"] = zoo_k1_checked
     _phase("[examples] examples/torch_port on the card, one rank each")
     zoo_readings["examples"] = examples_phase(root)
+    _phase("[spmd path] ResNet-50 at 224^2, batch 64, bf16, in a fresh "
+           "process: data_parallel_step and hvd.opt.DistributedOptimizer on "
+           "the plain, bf16 and int8 wires and sharded, the hooks and the "
+           "bare loop in turns; EQuARX over 4 virtual ranks against the "
+           "plain versions")
+    t_s = time.perf_counter()
+    spmd_launches, equarx_launches, spmd_readings = spmd_path_phase(root)
+    _log(f"  spmd path: {time.perf_counter() - t_s:.1f} s")
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
@@ -4838,7 +5236,9 @@ def main() -> int:
         entry["launches_by_path"] = {
             "compression": entry["launches"],
             "observe": ob_launches.get(entry["name"], 0),
-            "zoo": zoo_launches.get(entry["name"], 0)}
+            "zoo": zoo_launches.get(entry["name"], 0),
+            "spmd": spmd_launches.get(entry["name"], 0),
+            "spmd_equarx": equarx_launches.get(entry["name"], 0)}
     for entry in kernels:
         path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
                 else launches)
@@ -4856,7 +5256,9 @@ def main() -> int:
             "adasum": ada_launches[entry["name"]],
             "elastic": el_launches[entry["name"]],
             "observe": ob_launches[entry["name"]],
-            "zoo": zoo_launches[entry["name"]]}
+            "zoo": zoo_launches[entry["name"]],
+            "spmd": spmd_launches[entry["name"]],
+            "spmd_equarx": equarx_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
             timed = next(t for t in zoo_k1 if t["name"] == entry["name"])
@@ -4868,7 +5270,8 @@ def main() -> int:
         entry["launches_by_path"] = {
             "long_context": entry["launches"],
             "observe": ob_launches.get(entry["name"], 0),
-            "zoo": zoo_launches.get(entry["name"], 0)}
+            "zoo": zoo_launches.get(entry["name"], 0),
+            "spmd": spmd_launches.get(entry["name"], 0)}
     for entry in k4_entries:  # K4's path is the adasum one
         entry["launches"] = ada_launches[entry["name"]]
         entry["launches_by_path"] = {
@@ -4880,7 +5283,7 @@ def main() -> int:
                 ("long_context", lc_launches), ("zero1", zero_launches),
                 ("resnet", resnet_launches), ("megaplan", mp_launches),
                 ("elastic", el_launches), ("observe", ob_launches),
-                ("zoo", zoo_launches))}}
+                ("zoo", zoo_launches), ("spmd", spmd_launches))}}
 
     kernels += wire_entries + k5_entries + k4_entries
 
@@ -4897,6 +5300,7 @@ def main() -> int:
     print(json.dumps({"elastic": el_readings}))
     print(json.dumps({"observe": ob_readings}))
     print(json.dumps({"zoo": zoo_readings}))
+    print(json.dumps({"spmd": spmd_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,6 +14,14 @@ Elastic training: ``hvd.elastic.run``, ``hvd.elastic.TorchState`` and
 ``hvd.elastic.ElasticSampler`` (``elastic/``), launched with
 ``python -m horovod_tpu_torch.runner --min-np ... --host-discovery-script``.
 
+The in-step optimizer (the JAX package's ``hvd.DistributedOptimizer``):
+``hvd.opt.DistributedOptimizer(optimizer_fn, params, group=...)`` and
+``hvd.DistributedGradientTransformation``, ``hvd.distributed_grad``,
+``hvd.ShardedDistributedOptimizer`` and
+``hvd.cross_replica_sharded_optimizer`` reduce the gradients inside the
+step over a ``torch.distributed`` group, with no runtime (``opt/``).
+``hvd.DistributedOptimizer`` stays the reference's hook wrapper.
+
 The runtime's instruments: ``hvd.metrics_snapshot()``,
 ``hvd.trace_report()``, ``hvd.perf_report()``, ``hvd.anatomy_report()``,
 ``hvd.start_timeline(path)``/``hvd.stop_timeline()``, and the autotuner
@@ -29,7 +37,14 @@ from .ops.collectives import (  # noqa: F401
     ReduceOp,
     Sum,
 )
-from .opt import ShardedUpdateEngine, plan_shard_layout  # noqa: F401
+from .opt import (  # noqa: F401  (the JAX package's in-step names)
+    DistributedGradientTransformation,
+    ShardedDistributedOptimizer,
+    ShardedUpdateEngine,
+    cross_replica_sharded_optimizer,
+    distributed_grad,
+    plan_shard_layout,
+)
 from .torch import (  # noqa: F401  (the Horovod surface)
     Compression,
     DistributedOptimizer,

@@ -253,21 +253,23 @@ def _k1_scaled(x: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 def _eager_adasum(x: torch.Tensor, group, pre: float, post: float,
-                  hier=None) -> torch.Tensor:
+                  hier=None, count=None) -> torch.Tensor:
     """Adasum of every rank's ``x`` into a new tensor (JAX
     ``_allreduce_body``'s ADASUM branch, and the single-process identity);
-    a factor of 1 costs no pass."""
+    a factor of 1 costs no pass. ``count`` is called once a call into the
+    communicator (the runtime's ``_count_call`` by default)."""
+    count = count or _count_call
     nproc = dist.get_world_size(group)
     if x.numel() == 0 or (nproc == 1 and hier is None):
         # Adasum over a single contributor is the identity
         return _k1_scaled(_k1_scaled(x, pre), post)
     buf = _k1_scaled(x, pre) if pre != 1.0 else x.contiguous()
     if hier is not None:
-        red = adasum.hierarchical_allreduce(buf.view(-1), hier, _count_call)
+        red = adasum.hierarchical_allreduce(buf.view(-1), hier, count)
     else:
         rows = torch.empty((nproc, buf.numel()), dtype=buf.dtype,
                            device=buf.device)
-        _count_call()
+        count()
         _all_gather(rows.view(-1), buf.view(-1), group=group)
         red = adasum.adasum_tree_reduce_(rows)
     red = red.view(x.shape)
@@ -1081,13 +1083,15 @@ class ShardedAllgatherPlan:
         self.padded = world * shard_elems
 
     def execute(self, flat: torch.Tensor, rank: int, shard: torch.Tensor,
-                outputs):
+                outputs, count=None):
         """``flat`` is the group's buffer (the reduce-scatter's), reused;
-        ``outputs`` the leaves, written in place."""
+        ``outputs`` the leaves, written in place. ``count`` is called for
+        the call into the communicator (the runtime's ``_count_call`` by
+        default)."""
         lo = rank * self.shard_elems
         mine = flat[lo:lo + self.shard_elems]
         fused_pack.pack([shard.detach()], mine)
-        _count_call()
+        (count or _count_call)()
         _all_gather(flat, mine, group=self.group)
         fused_pack.unpack(flat, [o.detach() for o in outputs])
 
@@ -1169,3 +1173,483 @@ def allgather_object(obj, process_set=None) -> list:
 
 def barrier(process_set: Optional[ProcessSet] = None):
     dist.barrier(group=_ps(process_set).group)
+
+
+# ===========================================================================
+# In-step (SPMD) collectives: the JAX package's traced path over a group
+# ===========================================================================
+#
+# The JAX package runs these inside ``shard_map`` over a mesh axis, where
+# XLA compiles them into the step (``_traced_allreduce`` :91-115,
+# ``quantized_allreduce`` :118-213, the traced branches of ``allgather``
+# :1906-1943, ``broadcast`` :1946-1972 and ``reducescatter`` :2003-2016).
+# Here each is a per-rank function over a ``torch.distributed`` group (the
+# global set's caller group by default; a runtime group is refused): it
+# issues its calls directly on that group, on the caller's stream, in
+# program order, as every rank does in SPMD. It never touches the tensor
+# queue, the cycle thread or the controller, and counts its calls in
+# ``spmd_calls``, not in ``dist_calls``.
+#
+# The rule is JAX's in-step one, as XLA computes it on the CPU: the
+# prescale is a product of its own (``x * pre``, not folded into the sum),
+# the reduction a SUM, AVERAGE's ``/ n`` and the postscale after it. For
+# fp32 that is op by op; a bf16 (fp16) flat keeps a prescaled product in
+# fp32 through the sum, which is rounded to bf16 once, and ``/ n`` and the
+# postscale round once more (``_HALF``). At a power-of-two n the division
+# and the postscale are one K1 factor, ``post / n``, bit for bit; elsewhere
+# the division runs first. A group of one still calls the communicator, as
+# the rest of the port does, with one exception: the quantized allreduce
+# at one rank sends nothing and quantizes nothing, as JAX's does.
+
+spmd_calls = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0,
+              "broadcast": 0, "reduce_scatter": 0}
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _spmd_counter(kind: str):
+    def count():
+        spmd_calls[kind] += 1
+    return count
+
+
+def spmd_group(group=None):
+    """``group``, or the global set's caller group when None. A process
+    set's ``runtime_group`` belongs to the cycle thread and is refused."""
+    if group is None:
+        return ctx_mod.global_process_set().group
+    if ctx_mod.is_runtime_group(group):
+        raise ValueError(
+            "the in-step collectives run on a process set's `group`, not "
+            "its `runtime_group`: that communicator belongs to the "
+            "background runtime's cycle thread")
+    return group
+
+
+def _half_factor(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to a half dtype, as JAX's weak typing rounds a Python
+    float multiplied into a bf16 or fp16 array."""
+    return float(torch.tensor(v, dtype=dtype)) if dtype in _HALF else v
+
+
+def _flat_of(inputs, dtype, device) -> torch.Tensor:
+    """An empty flat buffer for the inputs' elements."""
+    return torch.empty(sum(t.numel() for t in inputs), dtype=dtype,
+                       device=device)
+
+
+def _post_factor(flat: torch.Tensor, average: bool, n: int,
+                 post: float) -> float:
+    """The factor left to apply to the summed ``flat`` for AVERAGE's
+    division by ``n`` and the postscale: ``post / n`` at a power-of-two
+    ``n`` (one K1 factor, the same bits as the division followed by the
+    product); elsewhere ``flat`` is divided in place first and ``post``
+    is left."""
+    if not average:
+        return post
+    if n & (n - 1):
+        flat.div_(n)
+        return post
+    return post / n
+
+
+def spmd_allreduce_tensors(inputs, op=ReduceOp.AVERAGE, group=None,
+                           prescale_factor: float = 1.0,
+                           postscale_factor: float = 1.0,
+                           outputs=None) -> list:
+    """Allreduce ``inputs`` (contiguous tensors of one dtype) as one flat:
+    K1 packs them with the prescale, one collective on ``group`` reduces
+    the flat, K1 unpacks it with the postscale into ``outputs`` (new
+    tensors by default; they may be the inputs). Every op of JAX's
+    ``_traced_allreduce``: SUM and AVERAGE (the sum, then ``/ n``), MIN
+    and MAX, PRODUCT (an allgather and the local product), ADASUM (an
+    allgather and the tree over K4, ``_eager_adasum``)."""
+    op = ReduceOp(op)
+    group = spmd_group(group)
+    inputs = [t.detach().contiguous() for t in inputs]
+    if outputs is None:
+        outputs = [torch.empty_like(t) for t in inputs]
+    if not inputs:
+        return outputs
+    _check_average_dtype(inputs[0], op)
+    dtype, dev = inputs[0].dtype, inputs[0].device
+    pre, post = float(prescale_factor), float(postscale_factor)
+    n = dist.get_world_size(group)
+    if sum(t.numel() for t in inputs) == 0:
+        return outputs
+    outs = [o.view(-1) for o in outputs]
+    if op == ReduceOp.ADASUM:
+        flat = _flat_of(inputs, dtype, dev)
+        fused_pack.pack(inputs, flat, pre)
+        red = _eager_adasum(flat, group, 1.0, 1.0,
+                            count=_spmd_counter("all_gather"))
+        fused_pack.unpack(red, outs, post)
+        return outputs
+    if op == ReduceOp.PRODUCT:
+        flat = _flat_of(inputs, dtype, dev)
+        fused_pack.pack(inputs, flat, pre)
+        rows = torch.empty(n * flat.numel(), dtype=dtype, device=dev)
+        spmd_calls["all_gather"] += 1
+        _all_gather(rows, flat, group=group)
+        red = torch.prod(rows.view(n, -1), 0).to(dtype)
+        fused_pack.unpack(red, outs, post)
+        return outputs
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.MIN,
+                  ReduceOp.MAX):
+        raise ValueError(f"unsupported op {op!r}")
+    summed = op in (ReduceOp.SUM, ReduceOp.AVERAGE)
+    wide = summed and dtype in _HALF and pre != 1.0
+    if wide:
+        # XLA keeps the prescaled products in fp32 through the sum
+        flat = _flat_of(inputs, torch.float32, dev)
+        fused_pack.pack([t.float() for t in inputs], flat,
+                        _half_factor(pre, dtype))
+    else:
+        flat = _flat_of(inputs, dtype, dev)
+        fused_pack.pack(inputs, flat, pre)
+    spmd_calls["all_reduce"] += 1
+    dist.all_reduce(flat, dist.ReduceOp.SUM if summed else _DIST_OPS[op],
+                    group=group)
+    if wide:
+        flat = flat.to(dtype)
+    fused_pack.unpack(flat, outs,
+                      _post_factor(flat, op == ReduceOp.AVERAGE, n, post))
+    return outputs
+
+
+def spmd_allreduce(x: torch.Tensor, op=ReduceOp.AVERAGE, group=None,
+                   prescale_factor: float = 1.0,
+                   postscale_factor: float = 1.0) -> torch.Tensor:
+    """One tensor's in-step allreduce (JAX ``_traced_allreduce``), into a
+    new tensor."""
+    return spmd_allreduce_tensors([x], op, group, prescale_factor,
+                                  postscale_factor)[0]
+
+
+def spmd_cast_allreduce(inputs, op=ReduceOp.AVERAGE, group=None,
+                        prescale_factor: float = 1.0,
+                        postscale_factor: float = 1.0,
+                        outputs=None) -> list:
+    """SUM or AVERAGE of float ``inputs`` of any float dtypes on the bf16
+    cast wire (JAX's ``fused_tree_allreduce`` with ``Compression.bf16``:
+    each leaf cast to bf16, one bf16 flat, the sum, ``/ n``, each leaf
+    cast back). K2's cast pack writes the non-bf16 tensors into the bf16
+    flat, K1 the bf16 ones; one collective; K1 applies AVERAGE's ``1 / n``
+    and the postscale to the flat in bf16; the reduce-unpack of one row
+    widens the non-bf16 tensors' slices back into their outputs and K1
+    unpacks the bf16 ones. The prescale rides the packs (K2 applies it in
+    fp32 before the cast)."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"the cast wire runs SUM and AVERAGE, not {op!r}")
+    group = spmd_group(group)
+    inputs = [t.detach().contiguous() for t in inputs]
+    if outputs is None:
+        outputs = [torch.empty_like(t) for t in inputs]
+    if not inputs or sum(t.numel() for t in inputs) == 0:
+        return outputs
+    pre, post = float(prescale_factor), float(postscale_factor)
+    n = dist.get_world_size(group)
+    dev = inputs[0].device
+    by_dtype: dict = {}
+    for i, t in enumerate(inputs):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    flat = _flat_of(inputs, torch.bfloat16, dev)
+    segs, off = [], 0
+    for dt, idxs in by_dtype.items():
+        m = sum(inputs[i].numel() for i in idxs)
+        seg = flat[off:off + m]
+        if dt == torch.bfloat16:
+            fused_pack.pack([inputs[i] for i in idxs], seg, pre)
+        else:
+            quant_wire.cast_pack([inputs[i] for i in idxs],
+                                 seg.view(torch.uint8), pre)
+        segs.append((dt, idxs, seg))
+        off += m
+    spmd_calls["all_reduce"] += 1
+    dist.all_reduce(flat, dist.ReduceOp.SUM, group=group)
+    factor = _post_factor(flat, op == ReduceOp.AVERAGE, n, post)
+    if factor != 1.0:
+        fused_pack.unpack(flat, [flat], factor)
+    cast = comp.make_cast_spec()
+    for dt, idxs, seg in segs:
+        outs = [outputs[i].view(-1) for i in idxs]
+        if dt == torch.bfloat16:
+            fused_pack.unpack(seg, outs)
+        else:
+            quant_wire.reduce_unpack(seg.view(torch.uint8), outs, cast, 1,
+                                     False)
+    return outputs
+
+
+def spmd_allgather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 (JAX
+    ``_traced_allgather``: equal shapes, ``all_gather(tiled=True)``)."""
+    group = spmd_group(group)
+    n = dist.get_world_size(group)
+    if x.dim() == 0:
+        raise ValueError("allgather needs a tensor with a first dimension")
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    if out.numel():
+        spmd_calls["all_gather"] += 1
+        _all_gather(out.view(-1), x.detach().contiguous().view(-1),
+                    group=group)
+    return out
+
+
+def spmd_broadcast(x: torch.Tensor, root_rank: int,
+                   group=None) -> torch.Tensor:
+    """``x`` of the group's rank ``root_rank`` on every rank, in a new
+    tensor (JAX's traced broadcast is a masked psum; here one
+    ``broadcast``, so a root's -0.0 stays -0.0 where the psum adds +0.0)."""
+    group = spmd_group(group)
+    out = x.detach().contiguous().clone()
+    if out.numel():
+        spmd_calls["broadcast"] += 1
+        dist.broadcast(out, dist.get_global_rank(group, root_rank),
+                       group=group)
+    return out
+
+
+def spmd_reducescatter(x: torch.Tensor, op=None,
+                       group=None) -> torch.Tensor:
+    """Reduce over the group and keep this rank's equal share of dim 0
+    (JAX's ``psum_scatter(tiled=True)``; AVERAGE divides by n after it).
+    SUM by default, as JAX's."""
+    op = ReduceOp.SUM if op is None else ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("in-step reducescatter supports SUM/AVERAGE")
+    _check_average_dtype(x, op)
+    group = spmd_group(group)
+    n = dist.get_world_size(group)
+    if x.dim() == 0 or x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} must divide by {n}")
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    if out.numel():
+        spmd_calls["reduce_scatter"] += 1
+        _reduce_scatter(out.view(-1), x.detach().contiguous().view(-1),
+                        dist.ReduceOp.SUM, group=group)
+    if op == ReduceOp.AVERAGE:
+        out.div_(n)
+    return out
+
+
+# --- EQuARX: the in-step quantized allreduce --------------------------------
+
+
+def equarx_layout(size: int, n: int, spec: comp.QuantSpec) -> tuple:
+    """(elements, bytes) of a per-peer row of EQuARX for a flat of
+    ``size`` over ``n`` ranks: ``ceil(size / n)`` rounded up to whole
+    blocks."""
+    csz = -(-int(size) // n)
+    csz = -(-csz // spec.block) * spec.block
+    return csz, quant_wire.row_bytes(csz, spec)
+
+
+def _slices(tensors, lo: int, hi: int) -> list:
+    """(index, view) of the flattened ``tensors``' elements in [lo, hi)
+    of their concatenation, in order, the empty ones left out."""
+    out, off = [], 0
+    for i, t in enumerate(tensors):
+        m = t.numel()
+        a, b = max(lo, off), min(hi, off + m)
+        if a < b:
+            out.append((i, t.view(-1)[a - off:b - off]))
+        off += m
+    return out
+
+
+def _padded_parts(views, csz: int, dtype, device, pad=None) -> tuple:
+    """The views, plus a zero tensor of ``dtype`` up to ``csz`` elements
+    (``pad``, reused when given and long enough); returns (parts, the pad
+    or None)."""
+    used = sum(v.numel() for v in views)
+    if used == csz:
+        return list(views), None
+    if pad is None or pad.numel() < csz - used or pad.dtype != dtype:
+        pad = torch.zeros(csz - used, dtype=dtype, device=device)
+    return list(views) + [pad[:csz - used]], pad
+
+
+def equarx_phase1(tensors, spec: comp.QuantSpec, n: int, pre: float,
+                  residual, ef: bool) -> tuple:
+    """This rank's contribution as ``n`` per-peer wire rows: the
+    concatenation of ``tensors`` (one float dtype), times ``pre`` plus the
+    flat fp32 ``residual`` (None for zeros), padded to ``n`` rows of whole
+    blocks, each row quantized by K3's quantize pack, with error feedback
+    when ``ef``. Returns (rows ``uint8[n, row bytes]``, the contribution
+    error ``fp32[n * row elements]`` or None)."""
+    size = sum(t.numel() for t in tensors)
+    csz, rb = equarx_layout(size, n, spec)
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    rows = torch.empty((n, rb), dtype=torch.uint8, device=dev)
+    err = (torch.empty(n * csz, dtype=torch.float32, device=dev)
+           if ef else None)
+    rflat = None if residual is None else residual.reshape(-1)
+    pad = None
+    for j in range(n):
+        lo = j * csz
+        views = [v for _, v in _slices(tensors, lo, lo + csz)]
+        parts, pad = _padded_parts(views, csz, dtype, dev, pad)
+        res = None
+        if ef and rflat is not None:
+            used = sum(v.numel() for v in views)
+            res = (list(torch.split(rflat[lo:lo + used],
+                                    [v.numel() for v in views]))
+                   if views else [])
+            res += [None] * (len(parts) - len(views))
+        quant_wire.quantize_pack(
+            parts, rows[j], spec._replace(error_feedback=ef), pre, res,
+            None if err is None else err[lo:lo + csz])
+    return rows, err
+
+
+def equarx_reduce(received: torch.Tensor, spec: comp.QuantSpec, n: int,
+                  csz: int, average: bool) -> torch.Tensor:
+    """The ``n`` rows this rank received (``uint8[n, row bytes]``, rank
+    order), dequantized and reduced by the reduce-unpack into this rank's
+    chunk (``fp32[csz]``): JAX's ``mean``/``sum`` over them."""
+    chunk = torch.empty(csz, dtype=torch.float32, device=received.device)
+    quant_wire.reduce_unpack(received.reshape(-1), [chunk], spec, n, average)
+    return chunk
+
+
+def equarx_requantize(chunk: torch.Tensor,
+                      spec: comp.QuantSpec) -> torch.Tensor:
+    """The reduced chunk requantized by K3 without error feedback: the
+    second phase's wire row."""
+    row = torch.empty(quant_wire.row_bytes(chunk.numel(), spec),
+                      dtype=torch.uint8, device=chunk.device)
+    quant_wire.quantize_pack([chunk], row,
+                             spec._replace(error_feedback=False))
+    return row
+
+
+def equarx_unpack(gathered: torch.Tensor, outputs, spec: comp.QuantSpec,
+                  n: int, post: float):
+    """Every rank's reduced row (``uint8[n, row bytes]``) dequantized into
+    its slice of ``outputs`` (one dtype), times ``post``, cast: one
+    reduce-unpack of one row each."""
+    size = sum(o.numel() for o in outputs)
+    csz, rb = equarx_layout(size, n, spec)
+    outs = [o.view(-1) for o in outputs]
+    dev, dtype = outs[0].device, outs[0].dtype
+    pad = None
+    for j in range(n):
+        got = _slices(outs, j * csz, (j + 1) * csz)
+        parts, pad = _padded_parts([v for _, v in got], csz, dtype, dev,
+                                   pad)  # the pad is scratch here
+        quant_wire.reduce_unpack(gathered.reshape(n, rb)[j], parts, spec, 1,
+                                 False, post)
+
+
+def _no_wire(tensors, outputs, pre: float, post: float, residual,
+             ef: bool):
+    """JAX's one-rank quantized allreduce: ``flat * pre + residual`` (one
+    FMA) times ``post``, cast, and a zero residual; nothing quantized."""
+    res = (None if residual is None else
+           quant_wire._residuals(tensors, residual.reshape(-1)))
+    x = quant_wire._quant_x(tensors, pre, res, residual is not None)
+    if post != 1.0:
+        x = x * torch.tensor(quant_wire._f32(post), dtype=torch.float32,
+                             device=x.device)
+    for o, p in zip(outputs, torch.split(x, [o.numel() for o in outputs])):
+        o.copy_(p.view(o.shape))
+    return (torch.zeros(x.numel(), dtype=torch.float32, device=x.device)
+            if ef else None)
+
+
+def quantized_allreduce(x, group, spec: comp.QuantSpec, *,
+                        op=ReduceOp.AVERAGE, prescale_factor: float = 1.0,
+                        postscale_factor: float = 1.0, residual=None,
+                        outputs=None):
+    """EQuARX (arXiv:2506.17615), JAX's traced ``quantized_allreduce``:
+    a reduce-scatter and an allgather with int8/int4 payloads.
+
+    1. ``x`` (a tensor, or a list of tensors of one float dtype taken as
+       their concatenation), prescaled, plus ``residual`` (the
+       error-feedback carry, fp32, one element each; None for zeros), is
+       padded into n per-peer rows of whole blocks, each quantized by
+       K3's quantize pack with error feedback (``equarx_phase1``); one
+       ``all_to_all_single`` sends row j to rank j; the reduce-unpack
+       dequantizes the n rows received and reduces them into this rank's
+       chunk (``equarx_reduce``).
+    2. K3 requantizes the chunk without error feedback, one
+       ``all_gather`` collects every rank's, and each gathered row is
+       dequantized into its slice of the output, postscaled and cast
+       (``equarx_unpack``).
+
+    Returns (reduced, new_residual): ``reduced`` shaped as ``x`` (written
+    into ``outputs`` when given), ``new_residual`` this rank's
+    contribution error only, not the second phase's (fp32, ``x``'s shape
+    for a tensor, flat for a list), or None where no residual was given
+    and the spec has no error feedback. At one rank nothing is sent or
+    quantized and the residual is zeros, as in JAX."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(
+            f"quantized allreduce supports SUM/AVERAGE, got {op!r}")
+    single = isinstance(x, torch.Tensor)
+    tensors = [t.detach().contiguous() for t in ([x] if single else x)]
+    if outputs is None:
+        outputs = [torch.empty_like(t) for t in tensors]
+    group = spmd_group(group)
+    n = dist.get_world_size(group)
+    pre, post = float(prescale_factor), float(postscale_factor)
+    ef = spec.error_feedback or residual is not None
+    size = sum(t.numel() for t in tensors)
+    if n == 1 or size == 0:
+        err = _no_wire(tensors, outputs, pre, post, residual, ef)
+    else:
+        from ..parallel import _comm
+
+        rows, err = equarx_phase1(tensors, spec, n, pre, residual, ef)
+        spmd_calls["all_to_all"] += 1
+        received = _comm.all_to_all(rows, group)
+        csz, rb = equarx_layout(size, n, spec)
+        chunk = equarx_reduce(received, spec, n, csz,
+                              op == ReduceOp.AVERAGE)
+        row = equarx_requantize(chunk, spec)
+        gathered = torch.empty(n * rb, dtype=torch.uint8, device=row.device)
+        spmd_calls["all_gather"] += 1
+        _all_gather(gathered, row, group=group)
+        equarx_unpack(gathered, outputs, spec, n, post)
+        if err is not None:
+            err = err[:size]
+    if single:
+        return outputs[0], None if err is None else err.view(x.shape)
+    return outputs, err
+
+
+def spmd_fused_allreduce(leaves, op=ReduceOp.AVERAGE, group=None,
+                         prescale_factor: float = 1.0,
+                         postscale_factor: float = 1.0,
+                         outputs=None) -> list:
+    """Tensor fusion in the step (JAX ``fused_tree_allreduce``'s core):
+    ``leaves`` grouped by dtype in order of first appearance, each group
+    one flat through ``spmd_allreduce_tensors`` (one collective a dtype).
+    An integer group with a factor other than 1 is widened to fp32 first,
+    as JAX promotes it. ``outputs`` (one for each leaf, or None) receive
+    the results where given and of the leaf's dtype."""
+    leaves = list(leaves)
+    outputs = list(outputs) if outputs is not None else [None] * len(leaves)
+    scaled = prescale_factor != 1.0 or postscale_factor != 1.0
+    groups: dict = {}
+    for i, t in enumerate(leaves):
+        if scaled and not fused_pack.can_scale(t.dtype):
+            leaves[i] = t = t.float()
+            outputs[i] = None
+        groups.setdefault(t.dtype, []).append(i)
+    for idxs in groups.values():
+        outs = [outputs[i] if outputs[i] is not None
+                and outputs[i].is_contiguous()
+                else torch.empty_like(leaves[i],
+                                      memory_format=torch.contiguous_format)
+                for i in idxs]
+        spmd_allreduce_tensors([leaves[i] for i in idxs], op, group,
+                               prescale_factor, postscale_factor, outs)
+        for i, o in zip(idxs, outs):
+            outputs[i] = o
+    return outputs

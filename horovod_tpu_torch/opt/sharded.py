@@ -50,16 +50,26 @@ background runtime as one grouped allreduce with the engine's op and
 factors. A single process drives n virtual ranks in lockstep through
 :func:`simulated_step` (tests, the card's one-GPU check).
 
+:class:`ShardedDistributedOptimizer` is the in-step flavour (JAX's
+traced one, ``horovod_tpu/opt/sharded.py:239-354``): the same layout
+over a ``torch.distributed`` group, on the caller's thread, with no
+runtime. The leaves under the threshold are allreduced whole in the step
+(``ops/collectives.py`` ``spmd_fused_allreduce``); each dtype group is
+K1-packed with the prescale into its padded flat, reduce-scattered in
+place (a SUM, then JAX's ``/ n`` and postscale), stepped on the shard and
+allgathered back into the parameters through ``ShardedAllgatherPlan``.
+``opt.cross_replica_sharded_optimizer`` is the same object with every
+non-scalar leaf sharded.
+
 Exact for elementwise optimizers (SGD, momentum, Adam, AdamW); an
 optimizer that couples the elements of a leaf (LARS, Adafactor) sees
-shards, not leaves. Not ported yet: the traced optax flavors
-(``ShardedDistributedOptimizer``, ``cross_replica_sharded_optimizer``),
-which wait for the port's mesh, and the flight recorder's ``reshard``
-note and the memory ledger's ``note_sharded_state`` (ROADMAP.md).
+shards, not leaves. Not ported yet: the memory ledger's
+``note_sharded_state`` (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import weakref
@@ -69,6 +79,7 @@ import torch
 
 from ..common import env as env_schema
 from ..ops import collectives as C
+from ..ops import fused_pack
 from ..ops.collectives import ReduceOp
 from ..parallel.sharding_policy import DEFAULT_MIN_SHARD_ELEMS, should_shard
 from ..utils import metrics as metrics_mod
@@ -221,6 +232,18 @@ def plan_shard_layout(leaves: Sequence[torch.Tensor], world_size: int, *,
         groups=tuple(groups), replicated=tuple(replicated),
         replicated_elems=rep_elems, replicated_bytes=rep_bytes,
         digest=hashlib.sha1(payload.encode()).hexdigest())
+
+
+def named_leaves(params) -> tuple:
+    """(names, tensors) of ``named_parameters()`` pairs, a dict of tensors
+    or a list of tensors (named by their index)."""
+    if isinstance(params, dict):
+        items = list(params.items())
+    else:
+        items = list(params)
+        if items and isinstance(items[0], torch.Tensor):
+            items = [(str(i), p) for i, p in enumerate(items)]
+    return [str(k) for k, _ in items], [p for _, p in items]
 
 
 def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
@@ -560,6 +583,137 @@ def _map_shard_state(sd: dict, layout: ShardLayout, full_extent: bool,
             out[name] = v
         state[idx] = out
     return {"state": state, "param_groups": sd["param_groups"]}
+
+
+# ===========================================================================
+# The in-step flavour: over a group, on the caller's thread
+# ===========================================================================
+
+
+class ShardedDistributedOptimizer:
+    """ZeRO-1 in the step (JAX ``ShardedDistributedOptimizer``): the
+    leaves under the threshold are allreduced whole; every other leaf
+    sits in its dtype group's padded flat, which is reduce-scattered over
+    ``group``, stepped by the inner optimizer on this rank's shard (its
+    state 1/n of the replicated path's) and allgathered back into the
+    parameters. ``optimizer_fn(params)`` builds the inner optimizer over
+    the replicated parameters and one flat shard a group; ``num_shards``,
+    when given, must equal the group's size. The layout is
+    ``plan_shard_layout``'s at generation 0, the JAX flavour's digest for
+    the same leaves in the same order. The gradients are grouped by the
+    parameters' dtypes: bf16 gradients of fp32 parameters are cast up
+    before the step (master weights)."""
+
+    def __init__(self, optimizer_fn: Callable, params, *,
+                 num_shards: Optional[int] = None, group=None,
+                 op: ReduceOp = ReduceOp.AVERAGE,
+                 min_shard_elems: Optional[int] = None,
+                 prescale_factor: float = 1.0,
+                 postscale_factor: float = 1.0,
+                 _who: str = "ShardedDistributedOptimizer"):
+        import torch.distributed as dist
+
+        op = ReduceOp(op)
+        if op not in _SUPPORTED_OPS:
+            raise ValueError(
+                f"sharded update supports AVERAGE/SUM, got {op!r}")
+        self.group = C.spmd_group(group)
+        self.world = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        if num_shards is not None and int(num_shards) != self.world:
+            raise ValueError(
+                f"{_who}(num_shards={num_shards}) used over a "
+                f"{self.world}-rank group — gradient scaling would be "
+                "silently wrong")
+        self.op = op
+        self.pre, self.post = float(prescale_factor), float(postscale_factor)
+        self.names, self.params = named_leaves(params)
+        self.layout = plan_shard_layout(self.params, self.world,
+                                        min_shard_elems=min_shard_elems,
+                                        generation=0)
+        self._packs, self._gathers, self.shards = {}, {}, {}
+        with torch.no_grad():
+            for g in self.layout.groups:
+                dt = g.torch_dtype
+                self._packs[g.dtype] = C.ShardedPackPlan(
+                    self.world, g.sizes, dt, g.shard_elems)
+                self._gathers[g.dtype] = C.ShardedAllgatherPlan(
+                    self.group, self.world, dt, g.shard_elems)
+                shard = torch.empty(g.shard_elems, dtype=dt,
+                                    device=self.params[0].device)
+                self._packs[g.dtype].pack_shard(
+                    [self.params[i] for i in g.indices], self.rank, shard)
+                self.shards[g.dtype] = shard
+        self.optimizer = optimizer_fn(
+            [self.params[i] for i in self.layout.replicated]
+            + [self.shards[g.dtype] for g in self.layout.groups])
+
+    @torch.no_grad()
+    def step(self, grads=None) -> bool:
+        """One sharded update with this step's gradients (each parameter's
+        ``.grad``, or ``grads`` in parameter order); the sharded leaves'
+        ``.grad`` is released once packed, the replicated leaves' holds
+        their reduced gradient. Returns True."""
+        layout, params = self.layout, self.params
+        release = grads is None
+        grads = [p.grad for p in params] if release else list(grads)
+        grads = [torch.zeros_like(p) if g is None else g.detach()
+                 for p, g in zip(params, grads)]
+        rep = layout.replicated
+        if rep:
+            outs = [params[i].grad if release else None for i in rep]
+            red = C.spmd_fused_allreduce([grads[i] for i in rep], self.op,
+                                         self.group, self.pre, self.post,
+                                         outs)
+            for i, r in zip(rep, red):
+                params[i].grad = r
+        flats = {}
+        for g in layout.groups:
+            flat = self._packs[g.dtype].execute(
+                [grads[i] for i in g.indices], factor=self.pre)
+            for i in g.indices:
+                grads[i] = None
+                if release:
+                    params[i].grad = None
+            lo = self.rank * g.shard_elems
+            red = flat[lo:lo + g.shard_elems]
+            C.spmd_calls["reduce_scatter"] += 1
+            C._reduce_scatter(red, flat, torch.distributed.ReduceOp.SUM,
+                              group=self.group)
+            factor = C._post_factor(red, self.op == ReduceOp.AVERAGE,
+                                    self.world, self.post)
+            if factor != 1.0:
+                fused_pack.unpack(red, [red], factor)
+            shard = self.shards[g.dtype]
+            # the parameters may have been loaded or broadcast since
+            self._packs[g.dtype].pack_shard(
+                [params[i] for i in g.indices], self.rank, shard)
+            shard.grad = red
+            flats[g.dtype] = flat
+        self.optimizer.step()
+        for g in layout.groups:
+            shard = self.shards[g.dtype]
+            shard.grad = None
+            self._gathers[g.dtype].execute(
+                flats.pop(g.dtype), self.rank, shard,
+                [params[i] for i in g.indices],
+                count=C._spmd_counter("all_gather"))
+        return True
+
+    def zero_grad(self, set_to_none: bool = True):
+        for p in self.params:
+            if p.grad is not None:
+                if set_to_none:
+                    p.grad = None
+                else:
+                    p.grad.zero_()
+
+    def state_dict(self) -> dict:
+        """The inner optimizer's state: this rank's shard of it."""
+        return copy.deepcopy(self.optimizer.state_dict())
+
+    def load_state_dict(self, sd: dict):
+        self.optimizer.load_state_dict(sd)
 
 
 # ===========================================================================

@@ -14,7 +14,9 @@ runtime's cycle thread and is refused.
   so the gradients are the dense model's on every rank.
 - ``mean_over_group``: the mean forward; backward the mean of the
   cotangents (``lax.pmean``'s transpose inside ``shard_map``), the
-  gradient of the sum of every rank's loss.
+  gradient of the sum of every rank's loss. ``sum_over_group`` is the
+  same for ``lax.psum``: the sum forward, the sum of the cotangents
+  backward.
 - ``all_to_all``: ``lax.all_to_all(x, split_axis, concat_axis,
   tiled=True)``: ``split_axis`` cut into n pieces, piece j to rank j, the
   pieces received concatenated along ``concat_axis`` in source order; one
@@ -95,6 +97,17 @@ class _MeanOverGroup(torch.autograd.Function):
         return _all_reduce(g, ctx.group) / ctx.n, None, None
 
 
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 def copy_to_group(x, group):
     """Megatron's f: the identity, whose backward sums over ``group``."""
     if group_size_rank(group)[0] == 1:
@@ -116,6 +129,14 @@ def mean_over_group(x, group):
     if n == 1:
         return x
     return _MeanOverGroup.apply(x, group, n)
+
+
+def sum_over_group(x, group):
+    """``lax.psum`` over ``group``, differentiable as JAX transposes it
+    inside ``shard_map``: the backward sums the cotangents."""
+    if group_size_rank(group)[0] == 1:
+        return x
+    return _SumOverGroup.apply(x, group)
 
 
 def _a2a(x, split_axis: int, concat_axis: int, group):

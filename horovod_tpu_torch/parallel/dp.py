@@ -2,13 +2,20 @@
 ``horovod_tpu/parallel/dp.py``.
 
 The Horovod loop shape: each rank runs the same step on its own shard of
-the batch, and the optimizer's hooks average the gradients over the data
-axis through the background runtime (K1 pack, NCCL, K1 unpack). The JAX
+the batch, and the gradients are averaged over the data axis. The JAX
 package compiles that step into one SPMD program over a mesh axis; the
 port's step is the per-rank function itself, and the axis it names
-resolves to the axis's process set (``Mesh.process_set``), which the
-step's collectives take: ``hvd.DistributedOptimizer(opt, ...,
-process_set=step.process_set)``.
+resolves to the axis's process set (``Mesh.process_set``). The step's
+gradients go one of two ways:
+
+- in the step, as the JAX package's loop averages them
+  (``bench.py::bench_resnet``): ``hvd.opt.DistributedOptimizer(
+  optimizer_fn, params, group=step.group)`` issues one fused collective
+  a dtype on the axis's group from the caller's thread, with no runtime
+  (``opt/__init__.py``);
+- through the background runtime, the reference's hooks (K1 pack,
+  NCCL, K1 unpack on the cycle thread): ``hvd.DistributedOptimizer(opt,
+  ..., process_set=step.process_set)``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ def _resolve(mesh: Optional[Mesh], axis_name: str):
 class DataParallelStep:
     """``step_fn`` over the data axis: calling it places the batch
     arguments (this rank's shard) on ``hvd.device()`` and runs
-    ``step_fn(*args)``. ``process_set`` is the axis's set."""
+    ``step_fn(*args)``. ``process_set`` is the axis's set, for the
+    runtime's collectives; ``group`` its caller-side group, for the
+    in-step ones (``hvd.opt``)."""
 
     def __init__(self, step_fn: Callable, mesh: Optional[Mesh],
                  axis_name: str, batch_argnums: tuple):
@@ -48,6 +57,7 @@ class DataParallelStep:
         self.axis_name = axis_name
         self.batch_argnums = tuple(batch_argnums)
         self.process_set = _resolve(mesh, axis_name)
+        self.group = self.process_set.group
 
     def __call__(self, *args):
         args = tuple(shard_batch(a, self.mesh, self.axis_name)
@@ -65,8 +75,10 @@ def data_parallel_step(step_fn: Callable, *, mesh: Optional[Mesh] = None,
 
     ``step_fn`` is written per rank: it sees this rank's batch shard (the
     arguments at ``batch_argnums``) and averages its gradients over the
-    returned step's ``process_set``, for example through the optimizer
-    ``hvd.DistributedOptimizer(..., process_set=step.process_set)``.
+    returned step's axis: in the step through
+    ``hvd.opt.DistributedOptimizer(..., group=step.group)``, or through
+    the runtime with ``hvd.DistributedOptimizer(...,
+    process_set=step.process_set)``.
     """
     return DataParallelStep(step_fn, mesh, axis_name, batch_argnums)
 

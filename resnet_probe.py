@@ -5,8 +5,8 @@
 
     python3 resnet_probe.py [-np N] [--model resnet] [--depth 50]
         [--batch 64] [--steps 10] [--image 224]
-        [--wires off,bf16] [--arms hooks,bare] [--device cpu] [--seed 0]
-        [--dump PATH] [--out PATH]
+        [--wires off,bf16,int8] [--arms hooks,bare,spmd,spmd_zero1]
+        [--device cpu] [--seed 0] [--dump PATH] [--out PATH]
     hvdrun -np N python resnet_probe.py [same options]
 
 Run by itself, the script starts one ``hvdrun`` job of ``-np`` workers for
@@ -40,11 +40,22 @@ steps in turns, one step each in every round, in one process:
   runtime (K1 pack, NCCL, K1 unpack; on the bf16 wire K2 and the
   reduce-unpack);
 - ``bare``: a model from seed ``--seed`` and the plain optimizer, no
-  runtime: the floor against which the runtime's cost a step is read.
+  runtime: the floor against which the runtime's cost a step is read;
+- ``spmd``: the JAX package's own loop (``bench.py::bench_resnet``): the
+  model as ``hooks`` builds it, stepped through ``data_parallel_step``
+  and the in-step ``hvd.opt.DistributedOptimizer(SGD(0.05,
+  momentum=0.9), group=step.group)``: one fused collective a dtype from
+  the caller's thread after the backward, no runtime; on the ``bf16``
+  wire the cast compressor (K2), on ``int8`` EQuARX with error feedback
+  (K3, ``all_to_all_single``, the reduce-unpack, ``all_gather``);
+- ``spmd_zero1``: ``spmd`` with ``sharded_update=True`` (ZeRO-1 in the
+  step), on the ``off`` wire only: the JAX package refuses compression
+  with a sharded update, so the other wires' jobs leave it out.
 
-After every ``hooks`` step each rank compares its parameters bit for bit
-with rank 0's (broadcast outside the timed step; BN buffers are per rank
-and are not compared); a difference fails the job. Rank 0 prints per arm
+After every step of ``hooks``, ``spmd`` and ``spmd_zero1`` each rank
+compares its parameters bit for bit with rank 0's (broadcast outside the
+timed step; BN buffers are per rank and are not compared); a difference
+fails the job. Rank 0 prints per arm
 the losses, the step ms (host clock around ``loss.item()``, which waits
 for the step's device work), img/s a rank and, on the card, MFU from the
 median of the steps after the first, peak memory (``max_memory_allocated`` over the
@@ -52,10 +63,14 @@ arm's steps; the other arm's model stays resident) and, for ``hooks``, the
 runtime's counters a step (cycles, chunks, collective calls, fused-plan
 hits and misses, K1 and wire-kernel launches, the gradient bytes the
 allreduces took and the bytes they put on the wire: the bf16 wire's
-chunks at two bytes an element, the rest at their own width), then one
-JSON line. MFU is img/s x 3 x the forward FLOPs of an image over 989
+chunks at two bytes an element, the rest at their own width; for the
+in-step arms their calls into the communicator), each arm's optimizer
+state bytes a rank, then one JSON line. MFU is img/s x 3 x the forward FLOPs of an image over 989
 TFLOP/s (bf16); for VGG-16 and Inception V3 it is given at the published
 side only (their modules' figures).
+``--trace`` takes one more step of each arm under ``torch.profiler`` on
+every rank (``chip_smoke.profile_step``) and reports rank 0's wall, busy
+union, idle share and device ms by category.
 ``--dump PATH`` makes each rank save its ``hooks`` model's ``state_dict``
 after the last step to ``PATH`` with ``.rank<r>`` before the suffix.
 
@@ -87,8 +102,8 @@ FWD_FLOP_PER_IMG_224 = {"50": 2 * 4.09e9, "101": 2 * 7.8e9}
 TRAIN_FLOP_MULT = 3.0          # forward and backward, bench.py:94
 PEAK_BF16_FLOPS = 989e12       # H100 SXM, dense tensor cores
 LR, MOMENTUM = 0.05, 0.9       # bench.py:201
-ARMS = ("hooks", "bare")
-WIRES = ("off", "bf16")
+ARMS = ("hooks", "bare", "spmd", "spmd_zero1")
+WIRES = ("off", "bf16", "int8")
 # the model zoo beside ResNet: module and constructor in
 # horovod_tpu_torch.models, and the module's forward FLOPs of an image at
 # its published side (2 x MACs, the JAX package's figures; ViT-B/16's
@@ -200,17 +215,29 @@ def synthetic_batch(seed: int, ranks: int, batch: int, image: int,
             torch.from_numpy(labels).to(device))
 
 
+def in_step_compression(wire: str):
+    """The in-step optimizer's compressor for a wire: the bf16 cast
+    compressor, or the int8 marker (EQuARX, error feedback on)."""
+    from horovod_tpu_torch import opt as O
+
+    return {"off": None, "bf16": O.Compression.bf16,
+            "int8": O.Compression.int8}[wire]
+
+
 class Arm:
-    """One arm's model, optimizer and training step."""
+    """One arm's model, optimizer and training step. ``wire`` is the
+    in-step arms' (the hooks arm's is the runtime's,
+    ``HOROVOD_COMPRESSION``)."""
 
     def __init__(self, name: str, depth: str, device, seed: int,
-                 images, labels, model: str = "resnet"):
+                 images, labels, model: str = "resnet", wire: str = "off"):
         import torch
 
         import horovod_tpu_torch as hvd
 
         self.name, self.images, self.labels = name, images, labels
-        self.synced = name == "hooks"
+        self.synced = name != "bare"
+        self.spmd = name.startswith("spmd")
         rank = hvd.rank() if self.synced else 0
         self.model = build(depth, device, seed + rank, model=model,
                            image=images.shape[-1])
@@ -218,17 +245,41 @@ class Arm:
         self.opt = torch.optim.SGD(self.params, lr=LR, momentum=MOMENTUM)
         if self.synced:
             hvd.broadcast_parameters(self.model.state_dict(), root_rank=0)
+        if name == "hooks":
             self.opt = hvd.DistributedOptimizer(
                 self.opt, named_parameters=self.model.named_parameters())
+        elif self.spmd:
+            from horovod_tpu_torch.parallel import data_parallel_step
 
-    def step(self) -> float:
+            self.dp = data_parallel_step(self._train, batch_argnums=(2, 3))
+            self.opt = hvd.opt.DistributedOptimizer(
+                lambda ps: torch.optim.SGD(ps, lr=LR, momentum=MOMENTUM),
+                self.model.named_parameters(), group=self.dp.group,
+                compression=in_step_compression(wire),
+                sharded_update=name == "spmd_zero1")
+
+    @staticmethod
+    def _train(model, opt, images, labels) -> float:
         import torch.nn.functional as F
 
-        self.opt.zero_grad()
-        loss = F.cross_entropy(self.model(self.images), self.labels)
+        opt.zero_grad()
+        loss = F.cross_entropy(model(images), labels)
         loss.backward()
-        self.opt.step()
+        opt.step()
         return loss.item()  # waits for the step's device work
+
+    def step(self) -> float:
+        if self.spmd:
+            return self.dp(self.model, self.opt, self.images, self.labels)
+        return self._train(self.model, self.opt, self.images, self.labels)
+
+    def state_bytes(self) -> int:
+        """The optimizer's state on this rank (the inner one's for the
+        in-step arms)."""
+        from horovod_tpu_torch.opt import optimizer_state_bytes
+
+        return optimizer_state_bytes(self.opt.optimizer if self.spmd
+                                     else self.opt)
 
     def close(self):
         del self.model, self.params, self.opt
@@ -238,6 +289,7 @@ class Arm:
 def runtime_counts() -> dict:
     """The runtime's counters that a step moves."""
     from horovod_tpu_torch.common import context
+    from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.ops import fused_pack as fp
     from horovod_tpu_torch.ops import quant_wire as qw
     from horovod_tpu_torch.utils import metrics
@@ -250,6 +302,7 @@ def runtime_counts() -> dict:
             "plan hits": int(reg.counter_value("hvd_fused_plan_hits_total")),
             "plan misses": int(reg.counter_value(
                 "hvd_fused_plan_misses_total")),
+            "in-step calls": sum(C.spmd_calls.values()),
             "K1 launches": sum(fp.kernel_launches.values()),
             "wire kernel launches": sum(qw.kernel_launches.values()),
             "allreduce bytes": payload,
@@ -339,11 +392,25 @@ def worker(args) -> int:
     classes = classes_of(args.model, args.depth)
     images, labels = synthetic_batch(args.seed, n, args.batch, image,
                                      classes, r, device)
+    names = [a for a in args.arms.split(",")
+             if a != "spmd_zero1" or wire == "off"]
     arms = {name: Arm(name, args.depth, device, args.seed, images, labels,
-                      args.model)
-            for name in args.arms.split(",")}
+                      args.model, wire)
+            for name in names}
     readings = run_in_turns(arms, {name: args.steps for name in arms},
                             compare_ranks=n > 1)
+    for name, arm in arms.items():
+        readings[name]["state_bytes"] = arm.state_bytes()
+    if args.trace and device.type == "cuda":
+        import chip_smoke
+
+        for name, arm in arms.items():  # every rank steps, rank 0 reads
+            prof = chip_smoke.profile_step(arm.step)
+            readings[name]["traced_step"] = {
+                "wall_ms": prof["wall_ms"], "union_ms": prof["union_ms"],
+                "idle_share": max(0.0, 1 - prof["union_ms"]
+                                  / prof["wall_ms"]),
+                "categories": prof["categories"], "gaps": prof["gaps"]}
     if args.dump and "hooks" in arms:
         stem, ext = os.path.splitext(args.dump)
         np.savez(f"{stem}.rank{r}{ext or '.npz'}",
@@ -370,6 +437,15 @@ def worker(args) -> int:
             for i, c in enumerate(rd["per_step"]):
                 print(f"  {wire} wire, {name}: step {i}: "
                       + ", ".join(f"{k} {v}" for k, v in c.items()),
+                      flush=True)
+            print(f"  {wire} wire, {name}: optimizer state "
+                  f"{rd['state_bytes']} bytes a rank", flush=True)
+            if "traced_step" in rd:
+                t = rd["traced_step"]
+                print(f"  {wire} wire, {name}: traced step wall "
+                      f"{t['wall_ms']:.2f} ms, busy {t['union_ms']:.2f} ms, "
+                      f"idle share {t['idle_share']:.4f}; "
+                      f"{ {k: round(v, 3) for k, v in t['categories'].items() if v} }",
                       flush=True)
             if rd["same_on_every_rank"]:
                 print(f"  {wire} wire, {name}: parameters bitwise equal on "
@@ -443,13 +519,17 @@ def main() -> int:
     ap.add_argument("--image", type=int, default=None,
                     help="default: the model's published side")
     ap.add_argument("--wires", default=None,
-                    help="off,bf16 (default: off at one rank, both at more)")
+                    help="off,bf16,int8 (default: off at one rank, off,bf16 "
+                    "at more)")
     ap.add_argument("--arms", default=",".join(ARMS))
     ap.add_argument("--device", default=None,
                     help="cpu runs the workers on gloo; default: one GPU "
                     "each")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dump", default=None)
+    ap.add_argument("--trace", action="store_true",
+                    help="after the steps, one more step of each arm under "
+                    "torch.profiler on every rank (rank 0's is reported)")
     ap.add_argument("--timeout", type=float, default=900.0)
     ap.add_argument("--out", default=None,
                     help="write every job's reading and the summary here")
@@ -480,10 +560,10 @@ def main() -> int:
     summary = {}
     for key, reading in readings.items():
         arms = reading["resnet_probe"]
-        if "hooks" in arms and "bare" in arms:
-            summary[key] = {"hooks_minus_bare_ms":
-                            arms["hooks"]["median_step_ms"]
-                            - arms["bare"]["median_step_ms"]}
+        if "bare" in arms:
+            summary[key] = {f"{a}_minus_bare_ms": arms[a]["median_step_ms"]
+                            - arms["bare"]["median_step_ms"]
+                            for a in arms if a != "bare"}
     print(json.dumps({"resnet_probe_summary": summary}), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -127,6 +127,21 @@ _ISOLATED = textwrap.dedent("""
     for name in ("utils.data", "models.vgg", "models.inception",
                  "models.vit", "models.mlp"):
         assert "horovod_tpu_torch." + name in sys.modules, name
+    # the in-step optimizer: a step over the global set's group, without
+    # the runtime (a model of its own: the hooks above hold the first)
+    from horovod_tpu_torch.ops import collectives as C
+    chunks = rt.chunks
+    lm = PT.TransformerLM(cfg)
+    inner = hvd.opt.DistributedOptimizer(
+        lambda ps: torch.optim.SGD(ps, lr=0.1, momentum=0.9),
+        lm.named_parameters())
+    PT.lm_loss(lm, tokens, attn_fn=ring_attention).backward()
+    calls = C.spmd_calls["all_reduce"]
+    inner.step()
+    assert C.spmd_calls["all_reduce"] == calls + 1 and rt.chunks == chunks
+    for name in ("opt", "opt.sharded", "opt.sync_batch_norm",
+                 "parallel.dp", "parallel._comm"):
+        assert "horovod_tpu_torch." + name in sys.modules, name
     assert not any(n == "jax" or n.startswith(("jax.", "horovod_tpu."))
                    for n, m in sys.modules.items() if m is not None)
     hvd.shutdown()
@@ -173,6 +188,26 @@ def runs(tmp_path_factory):
 def test_port_imports_and_trains_without_jax(runs):
     rc, stdout, stderr = runs["isolated"]
     assert rc == 0 and "ISOLATED_OK" in stdout, stdout + stderr
+
+
+def test_in_step_names_are_exported():
+    """The JAX package's in-step names at the top level
+    (``horovod_tpu/__init__.py:354-361``); ``hvd.DistributedOptimizer``
+    stays the hook wrapper, the in-step one is ``hvd.opt``'s."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import opt
+
+    for name in ("DistributedGradientTransformation",
+                 "ShardedDistributedOptimizer",
+                 "cross_replica_sharded_optimizer", "distributed_grad",
+                 "ShardedUpdateEngine", "plan_shard_layout"):
+        assert getattr(hvd, name) is getattr(opt, name), name
+    assert opt.DistributedOptimizer is opt.DistributedGradientTransformation
+    assert hvd.DistributedOptimizer is not opt.DistributedOptimizer
+    for name in ("fused_tree_allreduce", "quantized_tree_allreduce",
+                 "quant_residual_init", "distributed_value_and_grad",
+                 "SyncBatchNorm", "moments_sync", "sync_batch_stats"):
+        assert callable(getattr(opt, name)), name
 
 
 _FORBIDDEN = re.compile(
