@@ -302,7 +302,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    reduce-unpack, K3 without error feedback, the reduce-unpack a row),
    two rounds of error feedback, outputs and residuals bitwise against the
    plain versions, the kernel round timed by events beside its byte bound;
-17. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
+17. the postmortem path (``postmortem_path_phase``): the main path's LM
+   (12 layers at full width, batch 8, bf16 over fp32, seed 0) through
+   ``DistributedOptimizer`` for 5 steps, after a fresh ``init`` each, with
+   every knob of the postmortem, memory and health layer off and on in
+   turns, two rounds each: losses and parameters bitwise equal after
+   every step, 12 flash launches a step and K1 launched, both arms' step
+   ms; from the first "on" run the memory ledger's readings (its peak
+   against ``torch.cuda.max_memory_allocated()``, the fusion buffer's
+   134,217,728 bytes, one ``plan_build`` sample for each plan kind, every
+   kernel library's load with its cache verdict, and one library built in
+   a fresh cache directory: a miss, then a hit); between its 4th and 5th
+   step an allocation larger than the card's free memory fails with
+   ``torch.OutOfMemoryError``, ``hvd.maybe_dump_alloc_failure`` writes the
+   ``oom`` bundle, whose memory section names the dominant component, and
+   the 5th step's loss is the other runs'. Then ``sharded_update=True``
+   for 2 steps (the sharded-state component equal to the optimizer's
+   state bytes, the parameters bitwise the plain run's); a wedge: the
+   watchdog at 2 s and a 5 s delay on the first ``plan.dispatch`` of one
+   step fire it once, its bundle holds the cycle thread's stack inside the
+   dispatch, the step completes with the other runs' loss, and 3 s idle
+   fire nothing more; and drift: the LM at 2 layers under the health
+   engine (warmup 8), each step one ``grouped_allreduce_`` of its
+   gradients (one working cycle) and the dumper's pass after it, a 50 ms
+   delay on every ``plan.dispatch`` after 10 clean steps latches an
+   anomaly on the step-time series and the report is not ``healthy``,
+   while 13 clean steps latch none;
+18. launcher: ``python -m horovod_tpu_torch.runner -np 1`` starts a worker
    that comes up through the ``TCPStore`` (on the port rank 0 bound and
    published; no ``MASTER_PORT`` is set) and the HMAC-signed KV store,
    runs ``allreduce_async_`` on named CUDA tensors, checks the results and
@@ -313,7 +339,8 @@ The line before the last is one JSON object with the kernels' launches
 K2's and K3's on the compression path, K5's on the long-context path,
 K4's on the adasum path, the others' on the main path;
 ``launches_by_path`` gives every path's count, the resnet, megaplan,
-adasum, elastic, observe, zoo, spmd and spmd_equarx paths' included),
+adasum, elastic, observe, zoo, spmd, spmd_equarx and postmortem paths'
+included),
 errors, times, bounds
 and shares; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5048,6 +5075,426 @@ def observe_path_phase(device, resnet_hook_ms: float) -> tuple:
     return launches, readings
 
 
+# --- phase 17: the postmortem path -------------------------------------------
+
+PM_BATCH, PM_STEPS, PM_ROUNDS = 8, 5, 2
+PM_OOM_AFTER = 4      # the failed allocation comes after this many steps
+PM_SHARDED_STEPS = 2
+PM_WEDGE_S, PM_WEDGE_DELAY = 2, "5s"
+PM_DRIFT_LAYERS, PM_DRIFT_WARMUP = 2, 8
+PM_DRIFT_CLEAN, PM_DRIFT_SLOW = 10, 3
+PM_DRIFT_DELAY = "50ms"
+# every knob of the layer, cleared before each init
+PM_KNOBS = ("HOROVOD_WATCHDOG_SECS", "HOROVOD_DIAG_DIR", "HOROVOD_MEMLEDGER",
+            "HOROVOD_MEMLEDGER_BUFFER", "HOROVOD_HEALTH",
+            "HOROVOD_HEALTH_BUFFER", "HOROVOD_HEALTH_WARMUP",
+            "HOROVOD_HEALTH_FILE", "HOROVOD_COMPILE_CACHE",
+            "HOROVOD_KV_SHARDS", "HOROVOD_METRICS_FILE",
+            "HOROVOD_METRICS_DUMP_INTERVAL", "HOROVOD_PERFLEDGER",
+            "HOROVOD_FAULT_SPEC")
+
+
+def _pm_knobs_on(tmp: str) -> dict:
+    """Every knob of the postmortem, memory and health layer on (the
+    compile cache at the directory the kernels were built in), with a
+    metrics file so the dumper runs."""
+    from horovod_tpu_torch.ops import _build
+
+    return {"HOROVOD_WATCHDOG_SECS": "60", "HOROVOD_DIAG_DIR": tmp,
+            "HOROVOD_MEMLEDGER": "1", "HOROVOD_MEMLEDGER_BUFFER": "4096",
+            "HOROVOD_HEALTH": "1", "HOROVOD_HEALTH_BUFFER": "512",
+            "HOROVOD_HEALTH_WARMUP": "4",
+            "HOROVOD_HEALTH_FILE": os.path.join(tmp, "history.json"),
+            "HOROVOD_COMPILE_CACHE": _build.build_dir(),
+            "HOROVOD_KV_SHARDS": "2",
+            "HOROVOD_METRICS_FILE": os.path.join(tmp, "metrics.json"),
+            "HOROVOD_METRICS_DUMP_INTERVAL": "0.5"}
+
+
+def _pm_init(knobs: dict, gen: int):
+    """A fresh ``init`` under ``knobs`` alone: the layer's process-wide
+    objects (ledger, engine, fault state) are dropped first, so each run
+    reads its own."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils import faults, health, memledger
+
+    hvd.shutdown()
+    for k in PM_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(knobs)
+    os.environ["HOROVOD_ELASTIC_GEN"] = str(gen)
+    memledger.reset_ledger()
+    health.reset_engine()
+    faults.reset()
+    hvd.init()
+
+
+def _pm_arm(cfg, device, steps: int, ref=None, sharded: bool = False,
+            between=None) -> dict:
+    """``steps`` hook steps of a fresh LM (the main path's loop); after
+    step i, ``between(i)`` when given. Keeps each step's parameters, or
+    holds them bitwise against ``ref``'s."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.parallel import ring_attention
+
+    model = TransformerLM(cfg, device=device, seed=0)
+    tokens = tokens_for(cfg, PM_BATCH, 0, device)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9),
+        named_parameters=model.named_parameters(), sharded_update=sharded)
+    out = {"losses": [], "step_ms": [], "params": []}
+    for i in range(steps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = lm_loss(model, tokens, attn_fn=ring_attention)
+        loss.backward()
+        opt.step()
+        out["losses"].append(loss.item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        if ref is None:
+            out["params"].append(flat)
+        else:
+            if out["losses"][i] != ref["losses"][i]:
+                raise AssertionError(f"step {i}: loss {out['losses'][i]!r} "
+                                     f"against {ref['losses'][i]!r}")
+            if not _same_bits(flat, ref["params"][i]):
+                raise AssertionError(f"step {i}: parameters differ")
+            del flat
+        if between is not None:
+            between(i)
+    out["opt"] = opt
+    out["model"] = model
+    return out
+
+
+def _pm_free(res: dict):
+    import torch
+
+    for k in ("opt", "model"):
+        res.pop(k, None)
+    gc.collect()  # the optimizer's gradient hooks hold it in a cycle
+    torch.cuda.empty_cache()
+
+
+def _pm_ledger_readings(device, tmp: str) -> dict:
+    """(b): the memory ledger of the first "on" run, and one library built
+    in a fresh cache directory (a miss), then loaded again (a hit)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.utils import compile_cache, memledger
+
+    led = memledger.get_ledger()
+    # the ledger's live bytes against the allocator's count read on either
+    # side of the sample; a reading taken while another thread allocated
+    # (the two counts differ) is taken again
+    torch.cuda.synchronize(device)
+    for _ in range(5):
+        before = torch.cuda.memory_allocated(device)
+        snap = led.sample()
+        after = torch.cuda.memory_allocated(device)
+        if before == after:
+            break
+    else:
+        raise AssertionError("the allocator's count moved under every sample")
+    if snap["live_bytes"] != before:
+        raise AssertionError(f"the ledger's live bytes {snap['live_bytes']} "
+                             f"against memory_allocated {before}")
+    rep = hvd.memory_report()
+    peak = torch.cuda.max_memory_allocated(device)
+    fb = rep["components"].get("fusion_buffer")
+    if fb != FUSION_THRESHOLD:
+        raise AssertionError(f"fusion-buffer component {fb}, expected "
+                             f"{FUSION_THRESHOLD}")
+    kinds = sorted(k for k in rep["compile"]["by_kind"] if k != "kernel")
+    built = sorted({s["kind"] for s in led.samples()
+                    if s["event"] == "plan_build" and "kernel" not in s})
+    if not kinds or built != kinds:
+        raise AssertionError(f"plan-build samples by kind {built}, builds "
+                             f"{kinds}")
+    loaded = {r["kernel"] for r in _build.load_records()}
+    if not {"flash_attention_sm90", "fused_pack"} <= loaded:
+        raise AssertionError(f"the path's kernel libraries were not "
+                             f"recorded: {_build.load_records()}")
+    # a fresh cache directory: nvcc runs (a miss); a second load is a hit
+    fresh = os.path.join(tmp, "kernel_cache")
+    if compile_cache.enable_compilation_cache(fresh) is not None:
+        raise AssertionError("the kernel cache could not be enabled")
+    try:
+        for _ in range(2):
+            _build._libs.pop("xent", None)
+            _build.load("xent")
+    finally:
+        compile_cache.enable_compilation_cache(_build.DEFAULT_BUILD_DIR)
+    demo = [r for r in _build.load_records() if r["dir"] == fresh]
+    if [r["cache"] for r in demo] != ["miss", "hit"]:
+        raise AssertionError(f"fresh-cache loads {demo}")
+    return {"live_bytes": snap["live_bytes"], "memory_allocated": before,
+            "peak_bytes": rep["peak_bytes"],
+            "max_memory_allocated": peak,
+            "components": rep["components"], "plan_kinds": kinds,
+            "plan_build_samples": {k: sum(
+                1 for s in led.samples() if s["event"] == "plan_build"
+                and s.get("kind") == k) for k in kinds},
+            "samples": rep["samples"],
+            "kernel_loads": _build.load_records()}
+
+
+def _pm_oom(device, tmp: str) -> dict:
+    """(c): ask for more than the card's free memory; the ``oom`` bundle
+    names the dominant component."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    free, total = torch.cuda.mem_get_info(device)
+    try:
+        torch.empty(total, dtype=torch.uint8, device=device)
+    except torch.OutOfMemoryError as e:
+        path = hvd.maybe_dump_alloc_failure(e)
+    else:
+        raise AssertionError(f"{total} bytes were allocated")
+    if path != os.path.join(tmp, "hvd_diag.rank0.oom.json"):
+        raise AssertionError(f"oom bundle at {path!r}")
+    with open(path) as f:
+        mem = json.load(f)["memory"]
+    comps = {k: v for k, v in mem["components"].items() if v > 0}
+    if mem["suspect"] != max(comps, key=comps.get):
+        raise AssertionError(f"oom suspect {mem['suspect']} of {comps}")
+    return {"asked_bytes": total, "free_bytes": free,
+            "suspect": mem["suspect"], "components": mem["components"],
+            "top_live_buffers": mem["top_live_buffers"][:3]}
+
+
+def _pm_wedge(cfg, device, ref: dict, tmp: str, gen: int) -> dict:
+    """(d): a 5 s delay on the first dispatch of a step under a 2 s
+    watchdog fires it once; 3 s idle fire nothing more."""
+    from horovod_tpu_torch.utils import diag, metrics
+
+    reg = metrics.get_registry()
+    _pm_init({"HOROVOD_WATCHDOG_SECS": str(PM_WEDGE_S),
+              "HOROVOD_DIAG_DIR": tmp}, gen)
+    c0 = reg.counter_value("hvd_watchdog_fired_total")
+
+    def arm_fault(i):
+        if i == 0:  # the wedge hits the second step's first dispatch
+            os.environ["HOROVOD_FAULT_SPEC"] = \
+                f"plan.dispatch:delay={PM_WEDGE_DELAY}#1"
+
+    res = _pm_arm(cfg, device, 2, ref=ref, between=arm_fault)
+    os.environ.pop("HOROVOD_FAULT_SPEC", None)
+    fired = reg.counter_value("hvd_watchdog_fired_total") - c0
+    time.sleep(3.0)
+    idle = reg.counter_value("hvd_watchdog_fired_total") - c0 - fired
+    with open(diag.bundle_path("watchdog")) as f:
+        b = json.load(f)
+    stack = next(t["stack"] for t in b["threads"] if t["name"] == "hvd-cycle")
+    if fired != 1 or idle != 0:
+        raise AssertionError(f"watchdog fired {fired} in the step, {idle} "
+                             "idle")
+    if "_dispatch" not in stack or "fault_point" not in stack:
+        raise AssertionError(f"the cycle thread's stack:\n{stack}")
+    _pm_free(res)
+    return {"fired": fired, "idle_fired": idle, "stall": b["stall"],
+            "step_ms": res["step_ms"], "losses": res["losses"],
+            "cycle_stack_tail": stack.strip().splitlines()[-4:]}
+
+
+def _pm_drift(device, tmp: str, gen: int, slow: bool) -> dict:
+    """(e): the LM at 2 layers under the health engine, each step one
+    ``grouped_allreduce_`` of every gradient (one working cycle a step,
+    the main path's grouped loop) and the dumper's pass after it, so each
+    health sample is one step's cycle; with ``slow``, a delay on every
+    dispatch after the clean steps."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import context
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.parallel import ring_attention
+
+    cfg = full_width_config(PM_DRIFT_LAYERS)
+    _pm_init({"HOROVOD_HEALTH": "1",
+              "HOROVOD_HEALTH_WARMUP": str(PM_DRIFT_WARMUP),
+              "HOROVOD_PERFLEDGER": "1",
+              "HOROVOD_METRICS_FILE": os.path.join(tmp, "drift.json"),
+              "HOROVOD_METRICS_DUMP_INTERVAL": "3600"}, gen)
+    dumper = context._ctx.metrics_dumper
+    model = TransformerLM(cfg, device=device, seed=0)
+    params = list(model.parameters())
+    tokens = tokens_for(cfg, PM_BATCH, 0, device)
+    opt = torch.optim.SGD(params, lr=1e-3, momentum=0.9)
+    step_ms = []
+    for i in range(PM_DRIFT_CLEAN + PM_DRIFT_SLOW):
+        if slow and i == PM_DRIFT_CLEAN:
+            os.environ["HOROVOD_FAULT_SPEC"] = \
+                f"plan.dispatch:delay={PM_DRIFT_DELAY}"
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        lm_loss(model, tokens, attn_fn=ring_attention).backward()
+        hvd.grouped_allreduce_([p.grad for p in reversed(params)],
+                               name="grads")
+        opt.step()
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        dumper.flush()  # one health sample: this step's window
+    os.environ.pop("HOROVOD_FAULT_SPEC", None)
+    rep = hvd.health_report()
+    del model, params, opt
+    latched = [a for a in rep["active"] if a["series"] == "step_time_ms"]
+    return {"verdict": rep["verdict"], "active": rep["active"],
+            "anomalies_total": rep["anomalies_total"],
+            "step_time_latched": bool(latched),
+            "baselines": rep["baselines"], "step_ms": step_ms}
+
+
+def postmortem_path_phase(device) -> tuple:
+    """The postmortem path (module docstring, phase 17). Returns the
+    path's launches and its readings."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    cfg = full_width_config(12)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_postmortem_")
+    env0 = {k: os.environ.get(k) for k in PM_KNOBS + ("HOROVOD_ELASTIC_GEN",)}
+    gen = 100
+    readings: dict = {"runs": {}}
+    try:
+        _zero_launch_counts()  # just before the path runs
+        ref = None
+        for i in range(PM_ROUNDS):
+            for on in (False, True):
+                name = f"{'on' if on else 'off'}#{i + 1}"
+                _pm_init(_pm_knobs_on(tmp) if on else {}, gen)
+                gen += 1
+                # before any sample: the dumper's first pass waits 0.5 s
+                torch.cuda.reset_peak_memory_stats(device)
+                first_on = on and i == 0
+                oom = {}
+
+                def between(k, first_on=first_on, oom=oom):
+                    if first_on and k == PM_OOM_AFTER - 1:
+                        oom.update(_pm_oom(device, tmp))
+
+                launches0 = _launch_counts()
+                res = _pm_arm(cfg, device, PM_STEPS, ref=ref,
+                              between=between)
+                launches = {k: v - launches0.get(k, 0)
+                            for k, v in _launch_counts().items()}
+                if launches["flash_attention_fwd"] != cfg.n_layers * PM_STEPS:
+                    raise AssertionError(f"{name}: flash launches "
+                                         f"{launches}")
+                if not (launches["fused_pack"] and launches["fused_unpack"]):
+                    raise AssertionError(f"{name}: K1 launches {launches}")
+                rd = {"losses": res["losses"], "step_ms": res["step_ms"],
+                      "median_step_ms": statistics.median(
+                          res["step_ms"][1:]),
+                      "flash_launches_a_step":
+                          launches["flash_attention_fwd"] / PM_STEPS,
+                      "k1_launches": launches["fused_pack"]
+                      + launches["fused_unpack"]}
+                if first_on:
+                    rd["oom"] = oom
+                    readings["ledger"] = _pm_ledger_readings(device, tmp)
+                    hvd.shutdown()  # the health file is written here
+                    with open(os.path.join(tmp, "history.json")) as f:
+                        rd["health_file_series"] = sorted(
+                            json.load(f)["series"])
+                _pm_free(res)
+                if ref is None:
+                    ref = res  # its parameters after every step
+                    readings["reference_losses"] = res["losses"]
+                readings["runs"][name] = rd
+                _log(f"  {name}: step ms {[round(x, 2) for x in rd['step_ms']]}"
+                     f"; median after the first {rd['median_step_ms']:.2f}; "
+                     f"flash a step {rd['flash_launches_a_step']}, K1 "
+                     f"{rd['k1_launches']}; bitwise the first run")
+        led = readings["ledger"]
+        _log(f"  ledger: live {led['live_bytes']} (memory_allocated "
+             f"{led['memory_allocated']}); peak {led['peak_bytes']} "
+             f"(max_memory_allocated {led['max_memory_allocated']}); "
+             f"components "
+             f"{led['components']}; plan builds {led['plan_build_samples']}")
+        for r in led["kernel_loads"]:
+            _log(f"    kernel load {r['kernel']}: {r['cache']}, "
+                 f"{r['so_bytes']} bytes, {r['seconds']:.3f} s")
+        oom = readings["runs"]["on#1"]["oom"]
+        _log(f"  oom: asked {oom['asked_bytes']} bytes ({oom['free_bytes']} "
+             f"free); suspect {oom['suspect']}; the 5th step's loss "
+             "bitwise the other runs'")
+        # ZeRO-1's whole-leaf front end: its state is the ledger's
+        _pm_init({"HOROVOD_MEMLEDGER": "1"}, gen)
+        gen += 1
+        from horovod_tpu_torch.opt.sharded import optimizer_state_bytes
+        from horovod_tpu_torch.utils import memledger
+
+        res = _pm_arm(cfg, device, PM_SHARDED_STEPS, ref=ref, sharded=True)
+        state = optimizer_state_bytes(res["opt"])
+        comp = memledger.get_ledger().components().get("sharded_state")
+        if comp != state or not state:
+            raise AssertionError(f"sharded-state component {comp}, the "
+                                 f"optimizer's state {state}")
+        readings["sharded"] = {"sharded_state_bytes": comp,
+                               "optimizer_state_bytes": state,
+                               "step_ms": res["step_ms"]}
+        _pm_free(res)
+        _log(f"  sharded_update=True: sharded-state component {comp} = the "
+             f"optimizer's {state} bytes; parameters bitwise the plain run's")
+        readings["wedge"] = _pm_wedge(cfg, device, ref, tmp, gen)
+        gen += 1
+        _log(f"  wedge: fired {readings['wedge']['fired']} ({readings['wedge']['stall']}), "
+             f"{readings['wedge']['idle_fired']} in 3 s idle; step ms "
+             f"{[round(x, 1) for x in readings['wedge']['step_ms']]}")
+        del ref
+        drift = {}
+        for slow in (False, True):
+            drift["slow" if slow else "clean"] = _pm_drift(device, tmp, gen,
+                                                           slow)
+            gen += 1
+        readings["drift"] = drift
+        if drift["clean"]["anomalies_total"] or \
+                drift["clean"]["verdict"] != "healthy":
+            raise AssertionError(f"the clean run latched: {drift['clean']}")
+        if not drift["slow"]["step_time_latched"] or \
+                drift["slow"]["verdict"] == "healthy":
+            raise AssertionError(f"the slowed run latched nothing on the "
+                                 f"step time: {drift['slow']}")
+        _log(f"  drift: clean {drift['clean']['verdict']} "
+             f"({drift['clean']['anomalies_total']} anomalies); slowed "
+             f"{drift['slow']['verdict']}, latched "
+             f"{[(a['series'], a['kind']) for a in drift['slow']['active']]}")
+        launches = _launch_counts()
+        hvd.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    on = [r["median_step_ms"] for k, r in readings["runs"].items()
+          if k.startswith("on")]
+    off = [r["median_step_ms"] for k, r in readings["runs"].items()
+           if k.startswith("off")]
+    readings["median_step_ms"] = {"on": on, "off": off}
+    _log(f"  step median: knobs on {on} ms, off {off} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
 def launcher_phase(root: str):
     """One worker through the port's hvdrun, on the card."""
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
@@ -5229,6 +5676,14 @@ def main() -> int:
     t_s = time.perf_counter()
     spmd_launches, equarx_launches, spmd_readings = spmd_path_phase(root)
     _log(f"  spmd path: {time.perf_counter() - t_s:.1f} s")
+    _phase("[postmortem path] the main path's LM, 5 hook steps, every knob "
+           "of the postmortem, memory and health layer off and on in turns "
+           "(2 rounds, bitwise); the memory ledger's readings and an OOM "
+           "bundle; sharded_update=True; a wedge under the watchdog; drift "
+           "under the health engine")
+    t_pm = time.perf_counter()
+    pm_launches, pm_readings = postmortem_path_phase(device)
+    _log(f"  postmortem path: {time.perf_counter() - t_pm:.1f} s")
     # each kernel's launches on the path that runs it: the fp32 flash
     # kernel's on the fp32 path, K2's and K3's on the compression path,
     # K5's on the long-context path, the others' on the main path
@@ -5238,7 +5693,8 @@ def main() -> int:
             "observe": ob_launches.get(entry["name"], 0),
             "zoo": zoo_launches.get(entry["name"], 0),
             "spmd": spmd_launches.get(entry["name"], 0),
-            "spmd_equarx": equarx_launches.get(entry["name"], 0)}
+            "spmd_equarx": equarx_launches.get(entry["name"], 0),
+            "postmortem": pm_launches.get(entry["name"], 0)}
     for entry in kernels:
         path = (fp32_launches if entry["name"] == "flash_attention_fwd_fp32"
                 else launches)
@@ -5258,7 +5714,8 @@ def main() -> int:
             "observe": ob_launches[entry["name"]],
             "zoo": zoo_launches[entry["name"]],
             "spmd": spmd_launches[entry["name"]],
-            "spmd_equarx": equarx_launches[entry["name"]]}
+            "spmd_equarx": equarx_launches[entry["name"]],
+            "postmortem": pm_launches[entry["name"]]}
         if entry["name"] in ("fused_pack", "fused_unpack"):
             entry["zero1_layout"] = zero_timed[entry["name"][6:]]
             timed = next(t for t in zoo_k1 if t["name"] == entry["name"])
@@ -5271,7 +5728,8 @@ def main() -> int:
             "long_context": entry["launches"],
             "observe": ob_launches.get(entry["name"], 0),
             "zoo": zoo_launches.get(entry["name"], 0),
-            "spmd": spmd_launches.get(entry["name"], 0)}
+            "spmd": spmd_launches.get(entry["name"], 0),
+            "postmortem": pm_launches.get(entry["name"], 0)}
     for entry in k4_entries:  # K4's path is the adasum one
         entry["launches"] = ada_launches[entry["name"]]
         entry["launches_by_path"] = {
@@ -5283,7 +5741,8 @@ def main() -> int:
                 ("long_context", lc_launches), ("zero1", zero_launches),
                 ("resnet", resnet_launches), ("megaplan", mp_launches),
                 ("elastic", el_launches), ("observe", ob_launches),
-                ("zoo", zoo_launches), ("spmd", spmd_launches))}}
+                ("zoo", zoo_launches), ("spmd", spmd_launches),
+                ("postmortem", pm_launches))}}
 
     kernels += wire_entries + k5_entries + k4_entries
 
@@ -5301,6 +5760,7 @@ def main() -> int:
     print(json.dumps({"observe": ob_readings}))
     print(json.dumps({"zoo": zoo_readings}))
     print(json.dumps({"spmd": spmd_readings}))
+    print(json.dumps({"postmortem": pm_readings}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

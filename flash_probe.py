@@ -276,7 +276,7 @@ def main() -> int:
     sweep(dtype)
     from horovod_tpu_torch.ops import _build
 
-    out = args.out or os.path.join(_build.BUILD_DIR, "ablation")
+    out = args.out or os.path.join(_build.build_dir(), "ablation")
     if args.ablate:
         ablate(out, dtype)
     return 0

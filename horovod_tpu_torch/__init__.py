@@ -25,7 +25,12 @@ step over a ``torch.distributed`` group, with no runtime (``opt/``).
 The runtime's instruments: ``hvd.metrics_snapshot()``,
 ``hvd.trace_report()``, ``hvd.perf_report()``, ``hvd.anatomy_report()``,
 ``hvd.start_timeline(path)``/``hvd.stop_timeline()``, and the autotuner
-under ``HOROVOD_AUTOTUNE=1`` (``utils/``).
+under ``HOROVOD_AUTOTUNE=1`` (``utils/``). The postmortem, memory and
+health layer: ``hvd.diagnose()``, ``hvd.maybe_dump_alloc_failure(e)``,
+``hvd.memory_report()``, ``hvd.health_report()`` and
+``hvd.checkpoint_report()``, with the wedge watchdog
+(``HOROVOD_WATCHDOG_SECS``), the memory ledger (``HOROVOD_MEMLEDGER``) and
+the health engine (``HOROVOD_HEALTH``).
 """
 
 from .ops.collectives import (  # noqa: F401
@@ -84,6 +89,11 @@ from .torch import (  # noqa: F401  (the Horovod surface)
     local_size,
     megaplan_report,
     anatomy_report,
+    checkpoint_report,
+    diagnose,
+    health_report,
+    maybe_dump_alloc_failure,
+    memory_report,
     metrics_snapshot,
     perf_report,
     poll,

@@ -77,6 +77,17 @@ ranks, and under a launcher the push of every instrument's snapshot).
 ``shutdown`` closes the timeline and stops the dumper after a final
 flush; the recorder, the ledger and the anatomy live as long as the
 process, as the metrics registry does.
+
+The postmortem, memory and health layer (JAX ``common/context.py``
+:270-306, :383-424), in the JAX package's order: ``_start_diag`` (the
+recorder, the watchdog, the crash hooks and their KV client) runs first,
+then the kernel-library cache (``HOROVOD_COMPILE_CACHE``), the memory
+ledger and, after the stall inspector, the health engine; the
+autotuner is handed to the engine once it exists; the async
+checkpointer's SIGTERM handler comes after the crash hooks. ``shutdown``
+dumps the health history (``HOROVOD_HEALTH_FILE``) after the dumper's last
+pass and stops the watchdog. With every knob of the layer off, nothing is
+made: no thread, no hook, no signal handler.
 """
 
 from __future__ import annotations
@@ -384,9 +395,18 @@ def _init_instruments():
     from ..utils.stall import StallInspector
     from ..utils.timeline import Timeline
 
+    from ..utils import health, memledger
+
     cfg, rank = _ctx.config, _ctx.rank
-    flightrec.init_recorder(rank=rank)
-    flightrec.note("init_phase", phase="config")
+    _start_diag()
+    if cfg.compile_cache:
+        from ..utils.compile_cache import enable_compilation_cache
+
+        enable_compilation_cache(cfg.compile_cache)
+    # the memory ledger before the runtime: a plan build and a kernel load
+    # check its handle (horovod_tpu/common/context.py:280-285)
+    memledger.init_ledger(rank=rank, on=cfg.memledger_enabled,
+                          capacity=cfg.memledger_buffer)
     if cfg.trace_enabled:
         tracing.init_tracer(
             rank=rank,
@@ -400,6 +420,34 @@ def _init_instruments():
                        shutdown_time_s=cfg.stall_shutdown_time_s)
     perfledger.init_ledger(rank=rank, stall_inspector=_ctx.stall_inspector)
     anatomy.init_profiler(rank=rank)
+    # its anomalies warn through the stall inspector; the autotuner is
+    # handed over once it exists (_start_runtime)
+    health.init_engine(rank=rank, stall_inspector=_ctx.stall_inspector,
+                       on=cfg.health_enabled, capacity=cfg.health_buffer,
+                       warmup=cfg.health_warmup)
+
+
+def _start_diag():
+    """The postmortem layer (horovod_tpu/common/context.py:383-424): the
+    flight recorder (``HOROVOD_FLIGHTREC``), the wedge watchdog
+    (``HOROVOD_WATCHDOG_SECS`` > 0), the crash hooks and, under a
+    launcher, a KV client of the diagnostics' own for the ``diag/`` pushes
+    (not the metrics dumper's: a client's connection is per thread, and a
+    dump fires from the watchdog or a signal handler). The memory ledger
+    arms the same path for its OOM bundles. With every knob off nothing is
+    made and no hook is installed."""
+    from ..utils import diag, flightrec
+
+    recorder = flightrec.init_recorder(rank=_ctx.rank)
+    flightrec.note("init_phase", phase="config")
+    wd = diag.init_watchdog(_ctx.config.watchdog_secs)
+    if (recorder is None and wd is None
+            and not _ctx.config.memledger_enabled):
+        return
+    diag.set_kv_client(_launcher_kv())
+    # before the async checkpointer's SIGTERM handler, which chains to
+    # this one: a preemption flushes the snapshot first, dumps second
+    diag.install_crash_hooks()
 
 
 def _start_runtime(store):
@@ -424,6 +472,11 @@ def _start_runtime(store):
             warmup_samples=cfg.autotune_warmup_samples,
             max_samples=cfg.autotune_max_samples, config=cfg)
         _ctx.runtime.autotuner = _ctx.autotuner
+        # a latched drift on a goodput series restarts its search
+        from ..utils import health
+
+        health.init_engine(rank=_ctx.rank, autotuner=_ctx.autotuner,
+                           on=cfg.health_enabled)
     _ctx.runtime.start()
     from ..utils import flightrec
 
@@ -472,6 +525,14 @@ def shutdown(drain: bool = True):
             # stopped runtime counted
             _ctx.metrics_dumper.stop()
             _ctx.metrics_dumper = None
+        from ..utils import diag, health
+
+        # after the dumper's last pass, so the file holds its window; the
+        # engine and the ledgers live as long as the process, the watchdog
+        # and the diagnostics' KV client do not
+        health.dump_on_exit(_ctx.config.health_file)
+        diag.reset_watchdog()
+        diag.set_kv_client(None)
         _ctx.stall_inspector = None
         _ctx.autotuner = None
         if _ctx.device is not None and _ctx.device.type == "cuda":

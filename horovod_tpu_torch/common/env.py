@@ -144,6 +144,26 @@ HOROVOD_AUTOTUNE_REVERT_PCT = "HOROVOD_AUTOTUNE_REVERT_PCT"
 HOROVOD_AUTOTUNE_REVERT_WINDOWS = "HOROVOD_AUTOTUNE_REVERT_WINDOWS"
 HOROVOD_PLAN_CHUNK_TENSORS = "HOROVOD_PLAN_CHUNK_TENSORS"
 
+# the postmortem, memory and fleet-health layer (JAX common/env.py:92,
+# :123-124, :142, :148-149, :179-182): the wedge watchdog's no-progress
+# threshold in seconds (0: off) and where diagnostic bundles are written
+# (utils/diag.py); the device-memory ledger's switch and its sample ring
+# (utils/memledger.py); the health engine's switch, its ring a series, the
+# samples before a detector's baseline freezes and the file its history is
+# dumped to at shutdown (utils/health.py); the kernel-library directory
+# (utils/compile_cache.py; the port caches built kernels, not XLA
+# programs); and the launcher's count of KV shards (runner/http_server.py)
+HOROVOD_WATCHDOG_SECS = "HOROVOD_WATCHDOG_SECS"
+HOROVOD_DIAG_DIR = "HOROVOD_DIAG_DIR"
+HOROVOD_MEMLEDGER = "HOROVOD_MEMLEDGER"
+HOROVOD_MEMLEDGER_BUFFER = "HOROVOD_MEMLEDGER_BUFFER"
+HOROVOD_HEALTH = "HOROVOD_HEALTH"
+HOROVOD_HEALTH_BUFFER = "HOROVOD_HEALTH_BUFFER"
+HOROVOD_HEALTH_WARMUP = "HOROVOD_HEALTH_WARMUP"
+HOROVOD_HEALTH_FILE = "HOROVOD_HEALTH_FILE"
+HOROVOD_COMPILE_CACHE = "HOROVOD_COMPILE_CACHE"
+HOROVOD_KV_SHARDS = "HOROVOD_KV_SHARDS"
+
 # knobs of the JAX package that change what a job computes or sends and
 # that the port does not implement, which it reads only to warn (JAX
 # common/env.py:25); empty since the autotuner was ported, and kept so a
@@ -212,7 +232,14 @@ class RuntimeConfig:
     - ``plan_chunk_tensors``: the most tensors a fused chunk (0: bounded
       by bytes only), an autotuner knob;
     - the instruments and the autotuner (the knobs above, with the JAX
-      package's defaults).
+      package's defaults);
+    - the postmortem, memory and health layer, which ``init`` starts
+      from these fields: ``watchdog_secs`` (0: no watchdog),
+      ``memledger_enabled`` and its ring, ``health_enabled``, its ring,
+      warmup and exit file, and ``compile_cache`` (empty: the package's
+      ``_build/``). ``HOROVOD_DIAG_DIR`` is read where a bundle is
+      written (an out-of-memory dump may come before ``init``) and
+      ``HOROVOD_KV_SHARDS`` by the launcher's store, so neither is here.
     """
 
     fusion_threshold_bytes: int = 128 * 1024 * 1024
@@ -248,6 +275,14 @@ class RuntimeConfig:
     autotune_tuned_file: str = ""
     autotune_revert_pct: float = 20.0
     autotune_revert_windows: int = 2
+    watchdog_secs: float = 0.0
+    memledger_enabled: bool = False
+    memledger_buffer: int = 512
+    health_enabled: bool = False
+    health_buffer: int = 512
+    health_warmup: int = 20
+    health_file: str = ""
+    compile_cache: str = ""
 
     @classmethod
     def from_env(cls) -> "RuntimeConfig":
@@ -301,4 +336,13 @@ class RuntimeConfig:
                                           c.autotune_revert_pct)
         c.autotune_revert_windows = get_int(HOROVOD_AUTOTUNE_REVERT_WINDOWS,
                                             c.autotune_revert_windows)
+        c.watchdog_secs = get_float(HOROVOD_WATCHDOG_SECS, c.watchdog_secs)
+        c.memledger_enabled = get_bool(HOROVOD_MEMLEDGER)
+        c.memledger_buffer = get_int(HOROVOD_MEMLEDGER_BUFFER,
+                                     c.memledger_buffer)
+        c.health_enabled = get_bool(HOROVOD_HEALTH)
+        c.health_buffer = get_int(HOROVOD_HEALTH_BUFFER, c.health_buffer)
+        c.health_warmup = get_int(HOROVOD_HEALTH_WARMUP, c.health_warmup)
+        c.health_file = get_str(HOROVOD_HEALTH_FILE)
+        c.compile_cache = get_str(HOROVOD_COMPILE_CACHE)
         return c

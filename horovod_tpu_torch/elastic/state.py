@@ -104,6 +104,12 @@ class _HostUpdateListener:
 
                 flightrec.note("elastic_generation", epoch=cur,
                                previous=self._seen_epoch)
+                # a resize drops plans and residuals and rebuilds sharded
+                # layouts: a memory sample at the boundary keeps the
+                # before and after in the ledger's ring
+                from ..utils import memledger
+
+                memledger.sample_event("elastic_resize")
                 self._seen_epoch = cur
                 self.change_count += 1
             self._stop.wait(self.WATCH_INTERVAL_S)

@@ -8,6 +8,14 @@ are on its include path. The digest covers the source, every header, the
 flags and the compiler, so an edited source or header builds anew and an
 unchanged one loads the existing library. A failed build raises: there is no
 fallback.
+
+The directory is the port's build cache (``utils/compile_cache.py``):
+``enable_compilation_cache(dir)`` moves it (``hvd.init()`` calls it with
+``HOROVOD_COMPILE_CACHE`` when that is set), so processes that share it
+build each library once. Every load is recorded
+(:func:`load_records`: the seconds, the library's bytes, and ``hit`` when
+the library was there or ``miss`` when nvcc ran), and the memory ledger
+counts it when it is on (``utils/memledger.py``).
 """
 
 from __future__ import annotations
@@ -18,17 +26,41 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 from ..common.util import atomic_tmp
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+DEFAULT_BUILD_DIR = os.path.join(_PKG, "_build")
+# set by compile_cache.enable_compilation_cache; None is the default
+_build_dir = None
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_loads: list = []  # one record a load, in order
+
+
+def build_dir() -> str:
+    """Where libraries are built: the directory set by
+    ``enable_compilation_cache``, else the package's ``_build/``."""
+    return _build_dir or DEFAULT_BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    global _build_dir
+    _build_dir = path
+
+
+def load_records() -> list:
+    """Every kernel-library load of this process: ``kernel``, ``seconds``
+    (the build, when there was one, and the load), ``so_bytes``, ``cache``
+    ("hit": the library was built already; "miss": nvcc ran) and
+    ``dir``."""
+    with _lock:
+        return [dict(r) for r in _loads]
 
 
 def _nvcc() -> str:
@@ -51,7 +83,7 @@ def _lib_path(name: str, nvcc: str) -> str:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(fname.encode() + b"\0" + f.read())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def lib_path(name: str) -> str:
@@ -93,8 +125,20 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
-            build(name)
-            lib = ctypes.CDLL(lib_path(name))
-            _libs[name] = lib
-        return lib
+        if lib is not None:
+            return lib
+        t0 = time.perf_counter()
+        path = lib_path(name)
+        hit = os.path.exists(path)
+        build(name)
+        lib = ctypes.CDLL(path)
+        _libs[name] = lib
+        record = {"kernel": name, "seconds": time.perf_counter() - t0,
+                  "so_bytes": os.path.getsize(path),
+                  "cache": "hit" if hit else "miss",
+                  "dir": os.path.dirname(path)}
+        _loads.append(record)
+    from ..utils import memledger
+
+    memledger.note_kernel_load(record)
+    return lib

@@ -99,6 +99,7 @@ from __future__ import annotations
 
 import collections
 import math
+import time
 from enum import IntEnum
 from typing import Optional
 
@@ -108,6 +109,7 @@ import torch.distributed as dist
 from ..common import context as ctx_mod
 from ..common import env as env_schema
 from ..common.context import ProcessSet
+from ..utils import memledger as memledger_mod
 from ..utils import metrics as metrics_mod
 from . import adasum
 from . import compression as comp
@@ -515,6 +517,8 @@ class FusedChunkPlan:
     and ``_hier_gather`` reduce it, and K1's unpack applies the postscale
     and AVERAGE's 1/n."""
 
+    kind = "fused"
+
     __slots__ = ("group", "nproc", "dist_op", "pre", "unpack_factor",
                  "sizes", "shapes", "dtype", "total", "hier")
 
@@ -598,6 +602,8 @@ class AdasumChunkPlan:
     at another alignment in the packed row than alone), bitwise the same
     on every rank."""
 
+    kind = "adasum"
+
     __slots__ = ("group", "nproc", "pre", "post", "sizes", "dtype", "total",
                  "hier", "rounds", "items", "padded")
 
@@ -673,6 +679,7 @@ def invalidate_fused_plans() -> int:
     (``horovod_tpu/ops/collectives.py:466-471``)."""
     n = len(_PLANS)
     _PLANS.clear()
+    _PLAN_BUILT.clear()
     if n:
         from ..utils import flightrec
 
@@ -681,9 +688,16 @@ def invalidate_fused_plans() -> int:
     return n
 
 
+# a cached plan's kind and when it was built, by key (the bundle's table)
+_PLAN_BUILT: dict = {}
+
 def _insert_plan(key: tuple, build, counters=_plan_metrics):
     """The cached plan of ``key``, built by ``build`` on a miss; a hit or
-    a miss counts on ``counters()``."""
+    a miss counts on ``counters()``. A build is the port's counterpart of
+    the JAX package's first-call compile: the memory ledger records it by
+    the plan class's ``kind`` (the JAX package's names, ``fused``,
+    ``quant`` and ``sharded_*``, and the port's own for the plans it alone
+    has; ``utils/memledger.py``)."""
     hits, misses = counters()
     plan = _PLANS.get(key)
     if plan is not None:
@@ -691,10 +705,44 @@ def _insert_plan(key: tuple, build, counters=_plan_metrics):
         hits.inc()
         return plan
     misses.inc()
+    t0 = time.perf_counter()
     plan = _PLANS[key] = build()
+    kind = plan.kind
+    _PLAN_BUILT[key] = (kind, time.monotonic())
     while len(_PLANS) > _PLAN_CAPACITY:
-        _PLANS.popitem(last=False)
+        _PLAN_BUILT.pop(_PLANS.popitem(last=False)[0], None)
+    memledger_mod.note_plan_build(kind, time.perf_counter() - t0)
     return plan
+
+
+def _plan_nbytes(plan) -> int:
+    """The bytes of the tensors a plan holds."""
+    return sum(v.numel() * v.element_size()
+               for v in (getattr(plan, a, None)
+                         for a in getattr(type(plan), "__slots__", ()))
+               if isinstance(v, torch.Tensor))
+
+
+def plan_cache_bytes() -> int:
+    """The bytes of the tensors the cached plans hold: the memory ledger's
+    ``plan_cache`` component (the port's plans keep layouts, and their
+    flats live in the fusion buffer, so it is small)."""
+    return sum(_plan_nbytes(p) for p in list(_PLANS.values()))
+
+
+def plan_cache_table(limit: int = 50) -> list:
+    """What the plan cache holds, the newest ``limit`` plans first: each
+    one's kind, age and held bytes (a diagnostic bundle's table)."""
+    now = time.monotonic()
+    rows = []
+    for key, plan in list(_PLANS.items())[-int(limit):]:
+        kind, built = _PLAN_BUILT.get(key, (plan.kind, None))
+        rows.append({"kind": kind,
+                     "age_s": None if built is None else round(now - built,
+                                                               3),
+                     "nbytes": _plan_nbytes(plan)})
+    rows.reverse()
+    return rows
 
 
 def fused_chunk_plan(ps: ProcessSet, group, op, prescale_factor: float,
@@ -821,6 +869,8 @@ class CastFusedChunkPlan(_WireChunkPlan):
     """The bf16 cast wire (``HOROVOD_COMPRESSION=bf16``): K2's cast pack,
     no scales and no residual."""
 
+    kind = "cast"
+
     __slots__ = ()
 
     def _pack(self, inputs, row, residual):
@@ -840,6 +890,8 @@ class QuantFusedChunkPlan(_WireChunkPlan):
     it passes the last one in (one fp32 tensor or None a tensor, a flat
     one of the chunk, or None for zeros) and commits the returned one
     (flat, in chunk order) only after ``execute`` returned."""
+
+    kind = "quant"
 
     __slots__ = ()
 
@@ -970,6 +1022,8 @@ class ShardedPackPlan:
     """A group's leaves into its padded flat buffer, and this rank's shard
     of them (JAX ``sharded_pack_plan``, :1220-1242), in K1's pack."""
 
+    kind = "sharded_pack"
+
     __slots__ = ("sizes", "dtype", "shard_elems", "total", "padded",
                  "offsets")
 
@@ -1026,6 +1080,8 @@ class ShardedReduceScatterPlan:
     None) reduces the ranks' flats by ``sim_reduce``, which applies both
     factors, so its pack runs at 1."""
 
+    kind = "sharded_rs"
+
     __slots__ = ("group", "rank", "op", "shard_elems", "pre", "post",
                  "dist_op", "pack_factor", "unpack_factor")
 
@@ -1072,6 +1128,8 @@ class ShardedAllgatherPlan:
     ``sharded_allgather_plan``, :1273-1300): K1 packs this rank's shard
     into its place in the flat, one ``all_gather`` in place fills the
     other ranks' places, and K1 unpacks the flat into the leaves."""
+
+    kind = "sharded_ag"
 
     __slots__ = ("group", "dtype", "shard_elems", "padded")
 

@@ -75,6 +75,7 @@ import time
 from typing import Optional
 
 from ..common import env as env_schema
+from ..utils import diag as diag_mod
 from ..utils import faults as faults_mod
 from ..utils import flightrec as flightrec_mod
 from ..utils import lockcheck
@@ -748,6 +749,15 @@ class _Coordinator(threading.Thread):
         self._m_stall_warn = reg.counter(
             "hvd_coordinator_stall_warnings_total",
             "coordinator stall warnings (round or per-tensor)")
+        # the round being gathered, for diagnostic bundles: a fresh dict
+        # each poll (one reference swap, read without a lock by the
+        # watchdog's thread); its missing ranks are the wedge by
+        # definition (diag.merge_bundles; JAX ops/controller.py:859-868)
+        self._gather_state: dict = {}
+        diag_mod.register_probe("coordinator", self._diag_probe)
+
+    def _diag_probe(self) -> dict:
+        return dict(self._gather_state)
 
     def set_params(self, params: dict):
         with self._params_lock:
@@ -866,15 +876,20 @@ class _Coordinator(threading.Thread):
                 covered |= contrib["covered"]
             missing = world - covered
             elapsed = time.monotonic() - start
+            self._gather_state = {"round": r,
+                                  "missing_ranks": sorted(missing),
+                                  "elapsed_s": round(elapsed, 3)}
             if missing and elapsed - warned_at > self.stall_warning_s:
                 self._warn_stall(r, missing, elapsed)
                 warned_at = elapsed
             if (missing and self.stall_shutdown_s > 0
                     and elapsed > self.stall_shutdown_s):
                 self._error_close_round(r, missing, elapsed)
+                self._gather_state = {}
                 return None
             min_count = min(self.size, len(got) + 1)
             poll_s = min(self.POLL_TIMEOUT_S, poll_s * 4)
+        self._gather_state = {}
         if covered != world:
             return None
         self._expected_sources = max(1, len(got))
@@ -921,13 +936,15 @@ class _Coordinator(threading.Thread):
                 raw_resp = (self._resp_enc.encode(resp)
                             if self._resp_enc is not None
                             else wire.encode_response_v1(resp))
+                # counted before it is published: a worker that fails a
+                # tensor on this response finds the error counted
+                self._m_responses.inc()
+                self._m_errors.inc(len(resp["errors"]))
                 self.client.put(_ctl_scope(r), "resp", raw_resp)
                 resp_published = True
                 if resp.get("wv"):
                     self._wire_v2 = True
                     self._resp_enc = wire.ResponseEncoder()
-                self._m_responses.inc()
-                self._m_errors.inc(len(resp["errors"]))
                 if self._wire_v2:
                     if self._m_fanin is None:
                         self._m_fanin = metrics_mod.get_registry().gauge(
@@ -1107,4 +1124,5 @@ class _Coordinator(threading.Thread):
         ranks.add(rank)
 
     def stop(self):
+        diag_mod.unregister_probe("coordinator")
         self._stop_evt.set()

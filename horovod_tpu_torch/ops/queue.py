@@ -144,6 +144,7 @@ from ..common.exceptions import (DuplicateNameError, HorovodInternalError,
                                  StalledTensorError)
 from ..utils import anatomy as anatomy_mod
 from ..utils import faults as faults_mod
+from ..utils import diag as diag_mod
 from ..utils import flightrec as flightrec_mod
 from ..utils import lockcheck
 from ..utils import metrics as metrics_mod
@@ -358,6 +359,7 @@ class BackgroundRuntime:
         self.recorder = flightrec_mod.get_recorder()
         self.ledger = perfledger_mod.get_ledger()
         self.profiler = anatomy_mod.get_profiler()
+        self.watchdog = diag_mod.get_watchdog()
         # the ledger's and the anatomy's scratch of one cycle (cycle
         # thread only, reset as a cycle starts): the execute windows'
         # seconds and the round's worst straggler verdict
@@ -583,11 +585,23 @@ class BackgroundRuntime:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="hvd-cycle")
         self._thread.start()
+        # a started runtime's state in diagnostic bundles (JAX
+        # ops/queue.py:549-562)
+        diag_mod.register_probe("runtime", self._diag_probe)
+
+    def _diag_probe(self) -> dict:
+        state = {"cycles": self.cycles, "work_cycles": self.work_cycles,
+                 "pending": len(self._pending), "joined": self.joined,
+                 "controller": self.controller is not None}
+        if self.watchdog is not None:
+            state["watchdog"] = self.watchdog.state()
+        return state
 
     def stop(self, drain: bool = True):
         """Stop the cycle thread; with ``drain``, hold the negotiation
         lockstep open until every rank has asked to stop. Pending handles
         fail with ``HorovodInternalError``."""
+        diag_mod.unregister_probe("runtime")
         self._stop.set()
         self._work.set()
         self._join_done.set()  # a join() in wait fails
@@ -616,13 +630,19 @@ class BackgroundRuntime:
         if self.device.type == "cuda":
             # a new thread's current device is 0, whatever the caller's
             torch.cuda.set_device(self.device)
+        wd = self.watchdog
+        # an idle wait beats the watchdog this often: idleness is progress
+        idle_s = None if wd is None else wd.threshold_s / 4.0
         start = time.monotonic()
         while True:
+            if wd is not None:
+                wd.beat()
             if self.controller is None:
                 # nothing to negotiate: sleep until an enqueue, which then
                 # waits out one cycle with whatever follows it
                 if not self._work.is_set():
-                    self._work.wait()
+                    while not self._work.wait(idle_s):
+                        wd.beat()
                     start = time.monotonic()
                 self._work.clear()
             # sleep out the rest of the cycle (reference RunLoopOnce); only
@@ -801,12 +821,17 @@ class BackgroundRuntime:
         t_neg = 0.0
         if ctl is not None:
             t_n = time.perf_counter()
+            if self.watchdog is not None:
+                self.watchdog.enter("negotiate")
             try:
                 resp = ctl.lease_round()
             except Exception as exc:
                 self._fail_negotiation(exc, batch)
                 mp.invalidate("controller")
                 return True
+            finally:
+                if self.watchdog is not None:
+                    self.watchdog.exit_phase("negotiate")
             t_neg = time.perf_counter() - t_n
             if (not ctl.megaplan_lease or resp["errors"]
                     or resp["join_done"] is not None
@@ -951,6 +976,11 @@ class BackgroundRuntime:
         if rec is not None:
             rec.note("negotiation_round", state="begin", round=rnd,
                      tensors=len(sigs))
+        wd = self.watchdog
+        if wd is not None:
+            # a round blocks the cycle by design: the bracket lets a fire
+            # name it
+            wd.enter("negotiate")
         try:
             resp = self.controller.negotiate(sigs, joined=self.joined)
         except Exception as exc:
@@ -960,6 +990,9 @@ class BackgroundRuntime:
             self._fail_negotiation(exc, list(self._pending.values()))
             self._pending.clear()
             return []
+        finally:
+            if wd is not None:
+                wd.exit_phase("negotiate")
         if rec is not None:
             rec.note("negotiation_round", state="end", round=rnd, ok=True)
         return self._process_response(resp)

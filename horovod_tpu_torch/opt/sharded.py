@@ -63,8 +63,10 @@ non-scalar leaf sharded.
 
 Exact for elementwise optimizers (SGD, momentum, Adam, AdamW); an
 optimizer that couples the elements of a leaf (LARS, Adafactor) sees
-shards, not leaves. Not ported yet: the memory ledger's
-``note_sharded_state`` (ROADMAP.md).
+shards, not leaves. The memory ledger (``HOROVOD_MEMLEDGER``) takes a
+sample at each layout rebuild and holds the inner optimizer's state bytes
+after each step (``memledger.note_sharded_state``): the 1/n claim,
+measured.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ from ..ops import collectives as C
 from ..ops import fused_pack
 from ..ops.collectives import ReduceOp
 from ..parallel.sharding_policy import DEFAULT_MIN_SHARD_ELEMS, should_shard
+from ..utils import memledger
 from ..utils import metrics as metrics_mod
 
 _SUPPORTED_OPS = (ReduceOp.AVERAGE, ReduceOp.SUM)
@@ -368,6 +371,7 @@ class ShardedUpdateEngine:
                        digest=layout.digest[:12],
                        groups=len(layout.groups),
                        replicated_leaves=len(layout.replicated))
+        memledger.sample_event("sharded_layout_rebuild")
         return layout
 
     # -- state --------------------------------------------------------------
@@ -512,6 +516,7 @@ class ShardedUpdateEngine:
                     flats.pop(g.dtype), self._rank, self._shards[g.dtype],
                     [params[i] for i in g.indices])
         self._account_step(layout)
+        memledger.note_sharded_state(self._opt)
         return params
 
     # -- elastic ------------------------------------------------------------
@@ -698,6 +703,7 @@ class ShardedDistributedOptimizer:
                 flats.pop(g.dtype), self.rank, shard,
                 [params[i] for i in g.indices],
                 count=C._spmd_counter("all_gather"))
+        memledger.note_sharded_state(self.optimizer)
         return True
 
     def zero_grad(self, set_to_none: bool = True):

@@ -22,14 +22,23 @@ elastic (``elastic/driver.py`` ``run_elastic``)::
 
     python -m horovod_tpu_torch.runner --min-np 2 --max-np 4 --host-discovery-script ./hosts.sh python train.py
 
-Config files and the JAX package's runtime knobs that the port does not
-read are left out.
+``--config-file PATH`` fills every option the command line left unset
+(JAX ``launch.py:333-343``): a key names an option (``num-proc`` or
+``num_proc``), its value the option's. The JAX launcher reads YAML with
+PyYAML, which the port does not need: it reads a JSON object, or the flat
+subset of YAML a launcher config uses — one ``key: value`` a line, with
+comments, blank lines, quoted or bare strings, integers, floats with a
+point, YAML 1.1's booleans, ``null``/``~`` and flow lists of scalars —
+and refuses anything else with an error that names the line. The JAX
+package's runtime knobs that the port does not read are left out.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import re
 import shlex
 import signal
 import subprocess
@@ -235,6 +244,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", "--ssh-identity-file", default=None)
     p.add_argument("--env", action="append", default=[],
                    help="KEY=VALUE to forward to workers (repeatable)")
+    p.add_argument("--config-file", default=None,
+                   help="JSON, or flat 'key: value' YAML, giving options "
+                        "the command line leaves unset")
     # runtime knobs -> the workers' environment
     p.add_argument("--fusion-threshold-mb", type=int, default=None)
     p.add_argument("--cycle-time-ms", type=float, default=None)
@@ -261,6 +273,137 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+class ConfigFileError(ValueError):
+    """A ``--config-file`` the launcher cannot read."""
+
+
+_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_-]*$")
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_HEX = re.compile(r"[-+]?0x[0-9a-fA-F_]+$")
+_OCT = re.compile(r"[-+]?0[0-7_]+$")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+_SPECIAL_FLOATS = {".inf": float("inf"), ".Inf": float("inf"),
+                   ".INF": float("inf"), ".nan": float("nan"),
+                   ".NaN": float("nan"), ".NAN": float("nan")}
+# what YAML 1.1 reads as a base-60 number or a date: refused, not guessed
+_REFUSED = re.compile(r"[-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?$"
+                      r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}|=$|<<$")
+_BOOLS = {v: True for v in ("yes", "Yes", "YES", "true", "True", "TRUE",
+                            "on", "On", "ON")}
+_BOOLS.update({v: False for v in ("no", "No", "NO", "false", "False",
+                                  "FALSE", "off", "Off", "OFF")})
+
+
+def _yaml_scalar(text: str, where: str):
+    """One scalar as PyYAML's ``safe_load`` reads it, within the subset."""
+    if text[:1] in ("'", '"'):
+        q = text[0]
+        if len(text) < 2 or text[-1] != q:
+            raise ConfigFileError(f"{where}: unterminated quoted string")
+        body = text[1:-1]
+        if q == "'":
+            return body.replace("''", "'")
+        try:
+            return json.loads(text)
+        except ValueError as e:
+            raise ConfigFileError(f"{where}: {e}") from None
+    if text in ("", "~", "null", "Null", "NULL"):
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _HEX.match(text):
+        return int(text.replace("_", ""), 16)
+    if _OCT.match(text):
+        return int(text.replace("_", ""), 8)
+    if _FLOAT.match(text) and any(c.isdigit() for c in text):
+        return float(text.replace("_", ""))
+    sign = -1.0 if text[0] == "-" else 1.0
+    special = _SPECIAL_FLOATS.get(text.lstrip("+-"))
+    if special is not None:
+        return sign * special
+    if (_REFUSED.match(text) or text[0] in "[]{}&*!|>%@`,"
+            or text.startswith(("- ", "? ")) or text in ("-", "?")
+            or ": " in text or " #" in text or text.endswith(":")):
+        raise ConfigFileError(f"{where}: {text!r} is outside the flat "
+                              "YAML subset")
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without a trailing ``# comment`` (outside quotes)."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in ("'", '"'):
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_config_text(text: str, name: str = "<config>") -> dict:
+    """A ``--config-file``'s options: a JSON object, or the flat YAML
+    subset the module docstring names; anything else raises
+    ``ConfigFileError`` naming the line."""
+    if text.lstrip().startswith("{"):
+        try:
+            cfg = json.loads(text)
+        except ValueError as e:
+            raise ConfigFileError(f"{name}: {e}") from None
+        if not isinstance(cfg, dict):
+            raise ConfigFileError(f"{name}: not a JSON object")
+        return cfg
+    cfg = {}
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"{name}:{n}"
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        if line.strip() in ("---", "..."):
+            raise ConfigFileError(f"{where}: one document only")
+        if line[0] in " \t":
+            raise ConfigFileError(f"{where}: indented (nested) lines are "
+                                  "outside the flat YAML subset")
+        key, sep, value = line.partition(":")
+        if not sep or not _KEY.match(key):
+            raise ConfigFileError(f"{where}: expected 'key: value', got "
+                                  f"{raw.strip()!r}")
+        if value and value[0] not in " \t":
+            raise ConfigFileError(f"{where}: a space must follow ':'")
+        value = value.strip()
+        if key in cfg:
+            raise ConfigFileError(f"{where}: {key!r} given twice")
+        if value.startswith("["):
+            if not value.endswith("]"):
+                raise ConfigFileError(f"{where}: unterminated flow list")
+            inner = value[1:-1].strip()
+            items = [v.strip() for v in inner.split(",")] if inner else []
+            if any(not v or v[0] in "[{" for v in items):
+                raise ConfigFileError(f"{where}: a flow list holds "
+                                      "scalars only")
+            cfg[key] = [_yaml_scalar(v, where) for v in items]
+        else:
+            cfg[key] = _yaml_scalar(value, where)
+    return cfg
+
+
+def _apply_config_file(args):
+    """Fill the options the command line left unset (None, False or an
+    empty list) from ``args.config_file``."""
+    if not args.config_file:
+        return
+    with open(args.config_file) as f:
+        cfg = parse_config_text(f.read(), args.config_file)
+    for k, v in cfg.items():
+        k = k.replace("-", "_")
+        if getattr(args, k, None) in (None, False, []):
+            setattr(args, k, v)
+
+
 def _knob_env(args) -> dict:
     e = {}
     if args.fusion_threshold_mb is not None:
@@ -282,6 +425,11 @@ def _knob_env(args) -> dict:
 
 def run_commandline(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    try:
+        _apply_config_file(args)
+    except (ConfigFileError, OSError) as e:
+        print(f"hvdrun: --config-file: {e}", file=sys.stderr)
+        return 2
     command = args.command
     if command and command[0] == "--":
         command = command[1:]

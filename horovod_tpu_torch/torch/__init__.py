@@ -79,6 +79,7 @@ from ..ops import compression as _comp
 from ..ops.queue import TensorEntry
 from ..opt.sharded import _resolve_min_shard_elems, sharded_update_enabled
 from ..parallel.sharding_policy import assign_owners
+from ..utils import memledger as _memledger
 from ..utils import metrics as _metrics
 from ..ops.collectives import (  # noqa: F401
     Adasum,
@@ -326,6 +327,55 @@ def anatomy_report() -> dict:
     from ..utils import anatomy as _anatomy
 
     return _anatomy.report()
+
+
+def memory_report() -> dict:
+    """This rank's memory ledger (``utils/memledger.py``): live and peak
+    device bytes, the components (plan cache, fusion buffer, residuals,
+    sharded state) and the dominant one, the newest samples, and the
+    kernel-library loads and plan builds; ``{"enabled": False}`` without
+    ``HOROVOD_MEMLEDGER``. ``GET /memory`` on the launcher merges every
+    rank's."""
+    return _memledger.report()
+
+
+def checkpoint_report() -> dict:
+    """This rank's async checkpointer (``utils/async_ckpt.py``);
+    ``{"enabled": False}`` without ``HOROVOD_ASYNC_CKPT``. ``GET
+    /checkpoint`` on the launcher merges every rank's."""
+    from ..utils import async_ckpt as _async_ckpt
+
+    return _async_ckpt.report()
+
+
+def health_report() -> dict:
+    """This rank's health engine (``utils/health.py``): the verdict
+    (healthy, degraded, critical), the latched anomalies, the baselines,
+    each series' newest value and the suspect rank; ``{"enabled":
+    False}`` without ``HOROVOD_HEALTH``. ``GET /history`` and ``GET
+    /health`` on the launcher merge every rank's."""
+    from ..utils import health as _health
+
+    return _health.report()
+
+
+def diagnose() -> dict:
+    """This rank's diagnostic bundle now (``utils/diag.py``): every
+    thread's stack, the lock auditor, a metrics snapshot, open spans, the
+    flight recorder's last events, the probes and the memory section;
+    callable with or without ``init``."""
+    from ..utils import diag as _diag
+
+    return _diag.build_bundle("diagnose")
+
+
+def maybe_dump_alloc_failure(exc) -> str:
+    """Write an ``oom`` bundle when ``exc`` is an allocation failure
+    (``torch.OutOfMemoryError``, ``MemoryError`` or the allocator's
+    text); returns its path, "" otherwise (``utils/diag.py``)."""
+    from ..utils import diag as _diag
+
+    return _diag.maybe_dump_alloc_failure(exc)
 
 
 def poll(handle: int) -> bool:
@@ -869,6 +919,8 @@ class _ShardedMixin:
             for params, group in zip(stashed, self.param_groups):
                 group["params"] = params
         self._hvd_broadcast_owned()
+        # this rank's state covers its owned and the replicated leaves
+        _memledger.note_sharded_state(self)
         return loss
 
     def _hvd_broadcast_owned(self):

@@ -78,6 +78,10 @@ LOG = logging.getLogger("horovod_tpu_torch")
 
 DEFAULT_DIR = "./horovod_ckpt"
 
+#: The KV scope of the metrics dumper's status pushes (``ckpt/rank{k}``),
+#: merged by the launcher's ``GET /checkpoint``.
+KV_SCOPE = "ckpt"
+
 _SHARD_FMT = "shard_rank{rank}.ckpt"
 _MANIFEST_FMT = "manifest_rank{rank}.json"
 _MANIFEST_RE = re.compile(r"manifest_rank(\d+)\.json$")
@@ -584,6 +588,12 @@ class AsyncCheckpointer:
         self._stop.set()
         self._wakeup.set()
         self._thread.join(timeout=5.0)
+
+    def snapshot_status(self) -> dict:
+        """The ``ckpt/rank{k}`` push: the report without its switch."""
+        out = self.report()
+        out.pop("enabled")
+        return out
 
     def report(self) -> dict:
         with self._lock:

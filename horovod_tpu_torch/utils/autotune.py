@@ -699,7 +699,7 @@ class Autotuner:
 
     def _restart_search(self):
         """Re-arm the search from scratch (rank 0 only): workload-shift
-        restarts take this path. Old scores measured a
+        and health-drift restarts take this path. Old scores measured a
         different workload, so they are voided — including _best_score /
         _best_params, so the revert guardrail cannot loop the search
         back onto a config tuned for the pre-shift regime."""
@@ -711,6 +711,19 @@ class Autotuner:
         self._best_params = None
         self._opt = self._new_opt()
         self._m_done.set(0)
+
+    def note_health_drift(self, series: str):
+        """A latched health drift (``utils/health.py``) on a goodput series
+        the tuner optimizes: a confirmed workload shift, so the search
+        restarts. The health side debounces: a drifted regime restarts
+        the search once until the series clears and re-arms."""
+        self._m_shifts.inc()
+        flightrec_mod.note("autotune_step", action="health_drift",
+                           series=series)
+        if self._rank != 0:
+            return
+        LOG.info("autotune: health drift on %r, restarting search", series)
+        self._restart_search()
 
     # -- parameter broadcast (SynchronizeParameters, controller.cc:39-53) ---
     def _submit(self, params: dict, final: bool):

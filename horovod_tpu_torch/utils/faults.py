@@ -21,9 +21,9 @@ Each comma-separated entry is ``site:mode[=arg][@gate][#count]``:
 - ``#count``: how many times the entry may fire (unlimited by default).
 
 Unset, a fault point costs one lookup in the environment and registers
-no ``hvd_fault_*`` series. Sites whose modules the port lacks
-(``metrics.push``, ``health.sample``, ``autotune.propose``) stay in
-``SITES`` so a spec naming them validates, and have no call site.
+no ``hvd_fault_*`` series. ``metrics.push`` and ``health.sample`` fire in
+the metrics dumper's pass (``utils/metrics.py``), ``autotune.propose`` in
+the autotuner's.
 """
 
 from __future__ import annotations

@@ -10,9 +10,11 @@ rounds), ``leader_round`` (``ops/controller.py``), ``elastic_generation``
 ``plan_cache_invalidated``, ``reshard`` (``opt/sharded.py``, the
 whole-leaf front end), ``quant_fallback`` (``ops/queue.py``), ``checkpoint``
 (``utils/async_ckpt.py``), ``megaplan`` (captured, invalidated),
-``autotune_step`` and ``slo_breach``. The rest (``probe_verdict``,
-``watchdog``, ``diag_dump``, ``compile``, ``health``) belong to modules
-still to port and have no call site.
+``autotune_step``, ``slo_breach``, ``watchdog`` and ``diag_dump``
+(``utils/diag.py``), ``compile`` (``utils/memledger.py``: a kernel-library
+load or a plan build) and ``health`` (``utils/health.py``). The JAX
+package's ``probe_verdict`` (its backend liveness probe, which the port
+has no counterpart of) has no call site.
 
 Zero-cost contract: with ``HOROVOD_FLIGHTREC`` unset no recorder exists,
 a hot path pays one ``is None`` check a hook, and no ``hvd_flightrec_*``

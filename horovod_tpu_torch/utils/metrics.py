@@ -16,8 +16,10 @@ Two exposures: ``GET /metrics`` on the launcher's rendezvous server
 JSON snapshot every ``HOROVOD_METRICS_DUMP_INTERVAL`` seconds and at
 shutdown. The dumper's thread also pushes the tracer's spans
 (``trace/``), the perf ledger's snapshot (``perf/``, evaluating the SLO
-budgets first) and the anatomy's (``anatomy/``): JSON encoding and KV
-writes stay off the cycle thread.
+budgets first), the anatomy's (``anatomy/``), the memory ledger's
+(``mem/``, after a sample), the async checkpointer's status (``ckpt/``)
+and the health engine's (``health/``, after its sampling pass): JSON
+encoding and KV writes stay off the cycle thread.
 
     from horovod_tpu_torch.utils import metrics
     reg = metrics.get_registry()
@@ -262,6 +264,17 @@ class MetricsRegistry:
                     out[n] += m._value
         return out
 
+    def gauge_value(self, name: str) -> Optional[float]:
+        """A gauge family's value without creating it (the first label set
+        wins; the families read so have one). None when absent, so the
+        health engine samples a gauge of a feature that is off without
+        registering it."""
+        with self._lock:
+            for (n, _), m in self._metrics.items():
+                if n == name and isinstance(m, Gauge):
+                    return float(m._value)
+        return None
+
     def histogram_quantile(self, name: str, q: float) -> Optional[float]:
         """Bucket-interpolated quantile over a histogram family, merged
         across label sets (the PromQL ``histogram_quantile`` estimate:
@@ -466,6 +479,47 @@ class MetricsDumper:
                        self._stamp(profiler.snapshot()))
         except Exception as e:
             LOG.debug("anatomy KV push failed: %s", e)
+        self._flush_postmortem(kv)
+
+    def _flush_postmortem(self, kv):
+        """The memory ledger's sample and push, the async checkpointer's
+        status push and the health engine's sampling pass with its push,
+        each only when its owner exists (JAX utils/metrics.py:501-571).
+        The samples are taken with or without a KV store; the fault point
+        ``health.sample`` precedes the health pass, so a dropped pass leaves
+        no half-filled ring."""
+        from . import async_ckpt as async_ckpt_mod
+        from . import faults as faults_mod
+        from . import health as health_mod
+        from . import memledger as memledger_mod
+
+        try:
+            mledger = memledger_mod.get_ledger()
+            if mledger is not None:
+                mledger.sample(event="interval")
+                if kv is not None:
+                    kv.put(memledger_mod.KV_SCOPE, f"rank{self.rank}",
+                           self._stamp(mledger.snapshot()))
+        except Exception as e:
+            LOG.debug("memory KV push failed: %s", e)
+        try:
+            ckpt = async_ckpt_mod.get_checkpointer()
+            if ckpt is not None and kv is not None:
+                kv.put(async_ckpt_mod.KV_SCOPE, f"rank{self.rank}",
+                       self._stamp(ckpt.snapshot_status()))
+        except Exception as e:
+            LOG.debug("checkpoint KV push failed: %s", e)
+        try:
+            heng = health_mod.get_engine()
+            if heng is not None:
+                faults_mod.fault_point("health.sample")
+                heng.sample_and_detect()
+                if kv is not None:
+                    kv.put(health_mod.KV_SCOPE, f"rank{self.rank}",
+                           faults_mod.corrupt("health.sample",
+                                              self._stamp(heng.snapshot())))
+        except Exception as e:
+            LOG.debug("health sample/push failed: %s", e)
 
     def _loop(self):
         while not self._stop.wait(self.interval_s):

@@ -104,6 +104,26 @@ class StallInspector:
                     self._suspect())
         self._m_warnings.inc()
 
+    def straggler_rank(self) -> Optional[int]:
+        """The coordinator's last straggler rank, or None when there is
+        none or it is older than ``STRAGGLER_FRESH_S``: the health
+        engine's suspect."""
+        if self._last_straggler is None:
+            return None
+        rank, _, _, t = self._last_straggler
+        if time.monotonic() - t > self.STRAGGLER_FRESH_S:
+            return None
+        return rank
+
+    def note_health_anomaly(self, series: str, detail: str):
+        """Escalate a latched health anomaly (``utils/health.py``) through
+        the warning an SLO breach takes: the drifted series, observed
+        against baseline, and the suspect rank when the coordinator
+        attributed a recent straggler."""
+        LOG.warning("Health anomaly on %r: %s.%s", series, detail,
+                    self._suspect())
+        self._m_warnings.inc()
+
     def check(self):
         """Called once a working cycle (reference ComputeResponseList,
         controller.cc:294)."""

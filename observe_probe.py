@@ -54,6 +54,33 @@ The arms, in this order:
   fixed knobs, ``--fixed-steps`` steps each, in turns for ``--rounds``
   rounds.
 
+The postmortem arms (``--arms debug,health,memory,kvshards``):
+
+- ``debug``: under a 3 s watchdog (``HOROVOD_WATCHDOG_SECS``), rank n-1's
+  next ``controller.submit`` after the first step waits 8 s: every rank's
+  watchdog fires and pushes its bundle, and the launcher's ``GET /debug``
+  merges them and names rank n-1 (the coordinator's missing rank). Fires
+  in the first step (the communicators' set-up can outlast the threshold)
+  count apart from the wedge's.
+- ``health``: the health engine on every rank (warmup 6, the dumper's pass
+  after each step, tracing on for the straggler verdicts); after 8 steps
+  rank 2 sleeps 100 ms before each of its next 3 steps, as a slow host or
+  input pipeline would, so every gradient of those steps arrives from it
+  last: ``GET /health`` reads degraded or critical with rank 2 first
+  among the suspects, and ``GET /history`` holds every rank's series.
+- ``memory``: 2 steps replicated, then 2 with ``sharded_update=True``
+  under the memory ledger; ``GET /memory`` holds every rank, each one's
+  sharded-state component its optimizer's state bytes (the fraction of
+  the replicated state is printed).
+- ``kvshards``: the launcher's store in 4 binary shards
+  (``HOROVOD_KV_SHARDS=4`` in the launcher's environment); each run's
+  workers route over the shards or stay on HTTP, in turns for
+  ``--rounds`` rounds, under the two-level negotiation (members submit
+  and wait through ``put_get``) and one tensor a chunk: every run's state
+  bitwise the first's, ``GET /shards`` lists 4 ports, and the cycle
+  thread's host ms a round in ``put``, ``put_get``, ``get_prefix`` and the
+  response poll (``megaplan_probe.RoundTimer``) beside the step ms.
+
 Rank 0 prints each run's step ms and their median after the first, and
 one JSON line of the arms' headline numbers; with ``--out PATH`` it also
 writes every reading there as JSON. ``chip_smoke.py``'s ``observe`` path
@@ -73,7 +100,8 @@ import sys
 import tempfile
 import time
 
-ARMS = ("instruments", "timeline", "straggler", "stall", "autotune")
+ARMS = ("instruments", "timeline", "straggler", "stall", "autotune",
+        "debug", "health", "memory", "kvshards")
 # every knob an arm sets, cleared before each init
 KNOBS = ("HOROVOD_TIMELINE", "HOROVOD_TRACE", "HOROVOD_FLIGHTREC",
          "HOROVOD_PERFLEDGER", "HOROVOD_ANATOMY", "HOROVOD_METRICS_FILE",
@@ -87,7 +115,28 @@ KNOBS = ("HOROVOD_TIMELINE", "HOROVOD_TRACE", "HOROVOD_FLIGHTREC",
          "HOROVOD_FUSION_THRESHOLD", "HOROVOD_CYCLE_TIME",
          "HOROVOD_PLAN_CHUNK_TENSORS", "HOROVOD_HIERARCHICAL_ALLREDUCE",
          "HOROVOD_HIERARCHICAL_ALLGATHER", "HOROVOD_COMPRESSION",
-         "HOROVOD_HIER_GROUP_SIZE")
+         "HOROVOD_HIER_GROUP_SIZE", "HOROVOD_WATCHDOG_SECS",
+         "HOROVOD_DIAG_DIR", "HOROVOD_HEALTH", "HOROVOD_HEALTH_WARMUP",
+         "HOROVOD_MEMLEDGER", "HOROVOD_KV_SHARDS",
+         "HOROVOD_HIER_NEGOTIATION")
+# the postmortem arms: the watchdog's threshold and rank n-1's submit
+# delay (debug); the health engine's warmup, its clean and slowed steps
+# and rank 2's sleep before each slowed step (health); the hook steps of the memory arm; the
+# launcher's shards and the arms' shard counts, in turns (kvshards)
+DEBUG_WATCHDOG_S, DEBUG_DELAY = 3, "8s"
+# the slowed rank's sleep is longer than the spread of a four-GPU hook
+# step (248-286 ms between clean steps on four H100s), so the other ranks
+# cannot absorb it: every slowed step stays slow up to the read, and the
+# latches do not re-arm before it
+HEALTH_WARMUP, HEALTH_CLEAN, HEALTH_SLOW, HEALTH_DELAY_S = 6, 8, 3, 0.5
+MEMORY_STEPS = 2
+KV_SHARDS = 4
+KV_ARMS = {"http": {"HOROVOD_KV_SHARDS": "1"},
+           "shards": {"HOROVOD_KV_SHARDS": str(KV_SHARDS)}}
+# members submit and wait through put_get under the two-level negotiation;
+# one tensor a chunk, so the sum of an element is the same in every arm
+KV_COMMON = {"HOROVOD_HIER_NEGOTIATION": "1", "HOROVOD_HIER_GROUP_SIZE": "2",
+             "HOROVOD_FUSION_THRESHOLD": "0"}
 PHASES = ("negotiate", "fuse_dispatch", "device_exec", "stall",
           "host_overhead")
 PHASE_TOL = 0.05  # a hook step's phases against its wall time
@@ -144,12 +193,15 @@ def state_bits(model):
 
 
 def hook_run(depth: str, images, labels, steps: int, seed: int = 0,
-             check_ranks: bool = False, mark=None) -> dict:
+             check_ranks: bool = False, mark=None, after=None,
+             sharded: bool = False) -> dict:
     """``steps`` hook steps of a fresh ResNet: losses, step seconds, each
-    step's window on the wall clock, the runtime's chunks a step and the
-    final state's bytes; ``mark()``, when given, is called just before the
-    first step (after the parameters' broadcast has written its records)
-    and its value kept as ``"mark"``."""
+    step's window on the wall clock, the runtime's chunks a step, the
+    optimizer's state bytes and the final state's bytes; ``mark()``, when
+    given, is called just before the first step (after the parameters'
+    broadcast has written its records) and its value kept as ``"mark"``;
+    ``after(i)``, when given, after step i; ``sharded`` is
+    ``DistributedOptimizer``'s ``sharded_update``."""
     import torch
     import torch.nn.functional as F
 
@@ -162,7 +214,7 @@ def hook_run(depth: str, images, labels, steps: int, seed: int = 0,
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=rp.LR, momentum=rp.MOMENTUM),
-        named_parameters=model.named_parameters())
+        named_parameters=model.named_parameters(), sharded_update=sharded)
     rt = context.runtime()
     group = hvd.global_process_set().group
     if mark is not None:
@@ -184,8 +236,13 @@ def hook_run(depth: str, images, labels, steps: int, seed: int = 0,
         if check_ranks and not rp.same_as_rank0(model.parameters(), group):
             raise AssertionError(f"rank {hvd.rank()}: parameters differ "
                                  f"from rank 0's after step {i}")
+        if after is not None:
+            after(i)
     out["median_step_ms"] = statistics.median(
         out["step_s"][1:] or out["step_s"]) * 1e3
+    from horovod_tpu_torch.opt.sharded import optimizer_state_bytes
+
+    out["state_bytes"] = optimizer_state_bytes(opt)
     out["names"] = [n for n, _ in model.named_parameters()]
     out["state"] = state_bits(model).cpu()
     del model, opt
@@ -383,6 +440,167 @@ def scrape_launcher() -> dict:
     return out
 
 
+def launcher_get(path: str):
+    """Rank 0 reads one of the launcher's JSON endpoints."""
+    import urllib.request
+
+    base = (f"http://{os.environ['HOROVOD_GLOO_RENDEZVOUS_ADDR']}:"
+            f"{os.environ['HOROVOD_GLOO_RENDEZVOUS_PORT']}/")
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def debug_arm(gen, depth, images, labels, device_arg, tmp, rank, n):
+    """Rank n-1's next ``controller.submit`` after the first step waits
+    ``DEBUG_DELAY`` under a ``DEBUG_WATCHDOG_S`` watchdog: every rank's
+    watchdog fires and pushes its bundle; ``GET /debug`` names rank n-1."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils import metrics
+
+    late = n - 1
+    reg = metrics.get_registry()
+    fired = [reg.counter_value("hvd_watchdog_fired_total")]
+    init(gen, {"HOROVOD_WATCHDOG_SECS": str(DEBUG_WATCHDOG_S),
+               "HOROVOD_DIAG_DIR": os.path.join(tmp, "diag")}, device_arg)
+
+    def wedge(i):
+        if i == 0:
+            fired.append(reg.counter_value("hvd_watchdog_fired_total"))
+            if rank == late:
+                os.environ["HOROVOD_FAULT_SPEC"] = \
+                    f"controller.submit:delay={DEBUG_DELAY}#1"
+
+    rd = hook_run(depth, images, labels, 2, check_ranks=True, after=wedge)
+    os.environ.pop("HOROVOD_FAULT_SPEC", None)
+    out = {"fired": reg.counter_value("hvd_watchdog_fired_total") - fired[1],
+           "fired_first_step": fired[1] - fired[0], "step_s": rd["step_s"]}
+    hvd.barrier()
+    if rank == 0:
+        merged = launcher_get("debug")
+        out["debug"] = {"suspects": merged["suspects"],
+                        "attribution": merged["attribution"],
+                        "ranks": sorted(merged["ranks"]),
+                        "stall": {k: v["stall"]
+                                  for k, v in merged["ranks"].items()}}
+    hvd.shutdown()
+    return out
+
+
+def health_arm(gen, depth, images, labels, device_arg, tmp, rank, n):
+    """The health engine on every rank (warmup ``HEALTH_WARMUP``, the
+    dumper's pass after each step, tracing for the straggler verdicts);
+    after ``HEALTH_CLEAN`` steps rank 2 sleeps ``HEALTH_DELAY_S`` before
+    each of the next ``HEALTH_SLOW`` steps, so it submits every gradient
+    last and the coordinator's verdicts name it: ``GET /health`` names it
+    first, ``GET /history`` holds every rank's series."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import context
+
+    slow = min(2, n - 1)
+    init(gen, {"HOROVOD_HEALTH": "1",
+               "HOROVOD_HEALTH_WARMUP": str(HEALTH_WARMUP),
+               "HOROVOD_PERFLEDGER": "1",
+               "HOROVOD_PERFLEDGER_BUFFER": str(RING),
+               "HOROVOD_TRACE": "1",
+               "HOROVOD_METRICS_DUMP_INTERVAL": "3600"}, device_arg)
+    dumper = context._ctx.metrics_dumper
+
+    def after(i):
+        dumper.flush()  # one health sample: this step's window
+        if rank == slow and \
+                HEALTH_CLEAN - 1 <= i < HEALTH_CLEAN + HEALTH_SLOW - 1:
+            time.sleep(HEALTH_DELAY_S)
+
+    rd = hook_run(depth, images, labels, HEALTH_CLEAN + HEALTH_SLOW,
+                  check_ranks=True, after=after)
+    rep = hvd.health_report()
+    out = {"slow_rank": slow, "step_s": rd["step_s"],
+           "verdict": rep["verdict"],
+           "active": [(a["series"], a["kind"]) for a in rep["active"]],
+           "suspect_rank": rep["suspect_rank"]}
+    hvd.barrier()
+    if rank == 0:
+        fleet = launcher_get("health")
+        hist = launcher_get("history")["ranks"]
+        out["fleet"] = {"verdict": fleet["verdict"],
+                        "suspects": fleet["suspects"][:4],
+                        "anomalies": len(fleet["anomalies"])}
+        out["history"] = {k: {name: body["n"]
+                              for name, body in v["series"].items()}
+                          for k, v in hist.items()}
+    hvd.barrier()
+    hvd.shutdown()
+    return out
+
+
+def memory_arm(gen, depth, images, labels, device_arg, rank):
+    """The replicated optimizer's state bytes, then
+    ``sharded_update=True`` under the memory ledger: ``GET /memory``
+    holds every rank, each one's sharded-state component its own."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import context
+
+    init(gen, {}, device_arg)
+    rep = hook_run(depth, images, labels, MEMORY_STEPS, check_ranks=True)
+    hvd.shutdown()
+    init(gen + 1, {"HOROVOD_MEMLEDGER": "1",
+                   "HOROVOD_METRICS_DUMP_INTERVAL": "3600"}, device_arg)
+    rd = hook_run(depth, images, labels, MEMORY_STEPS, check_ranks=True,
+                  sharded=True)
+    context._ctx.metrics_dumper.flush()
+    out = {"replicated_state_bytes": rep["state_bytes"],
+           "sharded_state_bytes": rd["state_bytes"],
+           "fraction": rd["state_bytes"] / rep["state_bytes"],
+           "step_s": rd["step_s"]}
+    hvd.barrier()
+    if rank == 0:
+        ranks = launcher_get("memory")["ranks"]
+        out["memory"] = {k: {"sharded_state": v["components"].get(
+                             "sharded_state"), "peak_bytes": v["peak_bytes"],
+                             "stale": v["stale"]}
+                         for k, v in ranks.items()}
+    hvd.barrier()
+    hvd.shutdown()
+    return out
+
+
+def kvshards_arm(gen, depth, images, labels, steps, rounds, device_arg,
+                 rank):
+    """The launcher's store split into ``KV_SHARDS`` binary shards against
+    its HTTP path, in turns, under the two-level negotiation (members
+    submit and wait through ``put_get``): step ms, and the cycle thread's
+    host ms a round in the store's calls (``megaplan_probe.RoundTimer``)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import context
+    from megaplan_probe import RoundTimer
+
+    runs, ref = {}, None
+    order = [a for i in range(rounds)
+             for a in (("http", "shards") if i % 2 == 0
+                       else ("shards", "http"))]
+    for i, arm in enumerate(order):
+        init(gen + i, dict(KV_COMMON, **KV_ARMS[arm]), device_arg)
+        ctl = context.runtime().controller
+        routed = len(ctl.client.shard_ports()) if arm == "shards" else 0
+        timer = RoundTimer(ctl)
+        rd = hook_run(depth, images, labels, steps, check_ranks=True)
+        snap = timer.snapshot()
+        hvd.shutdown()
+        if ref is None:
+            ref = rd["state"]
+        rounds_n = max(snap["rounds"], 1)
+        runs[f"{arm}#{i + 1}"] = {
+            "shards_routed": routed, "step_s": rd["step_s"],
+            "median_step_ms": rd["median_step_ms"],
+            "bitwise_first": torch.equal(rd["state"], ref),
+            "rounds": snap["rounds"],
+            "host_ms_a_round": {k: snap[k] * 1e3 / rounds_n for k in (
+                "put", "put_get", "get_prefix", "poll")}}
+    return runs, gen + len(order)
+
+
 def watch_autotuner(at) -> dict:
     """Wrap the autotuner ``at``: the runtime's knobs just before each
     sample (``"knobs"``), the sample at which each log row was written
@@ -505,6 +723,15 @@ def summary(readings: dict) -> dict:
         if arm in readings:
             out[arm] = {k: v for k, v in readings[arm].items()
                         if k != "step_s"}
+    for arm in ("debug", "health", "memory"):
+        if arm in readings:
+            out[arm] = {k: v for k, v in readings[arm].items()
+                        if k != "step_s"}
+    if "kvshards" in readings:
+        out["kvshards"] = {
+            name: {"median_step_ms": r["median_step_ms"],
+                   "put_get_ms_a_round": r["host_ms_a_round"]["put_get"]}
+            for name, r in readings["kvshards"]["runs"].items()}
     if "autotune" in readings:
         a = readings["autotune"]
         out["autotune"] = {
@@ -687,6 +914,73 @@ def worker(args) -> int:
             _log(rank, f"  fixed {name}: step ms "
                  f"{[round(x * 1e3, 2) for x in f['step_s']]}; median "
                  f"after the first {f['median_step_ms']:.2f}")
+    if "debug" in arms:
+        rd = debug_arm(gen, args.depth, images, labels, device_arg, tmp,
+                       rank, n)
+        gen += 1
+        if rd["fired"] < 1:
+            failures.append(f"debug: the watchdog did not fire: {rd}")
+        if rank == 0 and rd["debug"]["suspects"] != [n - 1]:
+            failures.append(f"debug: /debug names {rd['debug']}")
+        if rank == 0 and rd["debug"]["ranks"] != [str(k) for k in range(n)]:
+            failures.append(f"debug: /debug merged {rd['debug']['ranks']}")
+        readings["debug"] = rd
+        _log(rank, f"  debug: rank {n - 1} delayed {DEBUG_DELAY} under a "
+             f"{DEBUG_WATCHDOG_S} s watchdog: fired {rd['fired']} on rank 0 "
+             f"({rd['fired_first_step']} in the first step); "
+             f"/debug {rd.get('debug')}")
+    if "health" in arms:
+        rd = health_arm(gen, args.depth, images, labels, device_arg, tmp,
+                        rank, n)
+        gen += 1
+        if rank == 0:
+            fleet = rd["fleet"]
+            if fleet["verdict"] == "healthy" or not fleet["suspects"] or \
+                    fleet["suspects"][0]["rank"] != str(rd["slow_rank"]):
+                failures.append(f"health: /health read {fleet}")
+            if sorted(rd["history"]) != [str(k) for k in range(n)] or \
+                    not all(rd["history"].values()):
+                failures.append(f"health: /history held {rd['history']}")
+        readings["health"] = rd
+        _log(rank, f"  health: rank {rd['slow_rank']} slowed after "
+             f"{HEALTH_CLEAN} steps; rank 0 {rd['verdict']} {rd['active']}; "
+             f"/health {rd.get('fleet')}; /history {rd.get('history')}")
+    if "memory" in arms:
+        rd = memory_arm(gen, args.depth, images, labels, device_arg, rank)
+        gen += 2
+        if rank == 0:
+            got = {k: v["sharded_state"] for k, v in rd["memory"].items()}
+            if sorted(got) != [str(k) for k in range(n)] or \
+                    got["0"] != rd["sharded_state_bytes"]:
+                failures.append(f"memory: /memory held {rd['memory']}")
+        readings["memory"] = rd
+        _log(rank, f"  memory: sharded state {rd['sharded_state_bytes']} of "
+             f"{rd['replicated_state_bytes']} bytes "
+             f"({rd['fraction']:.4f}); /memory {rd.get('memory')}")
+    if "kvshards" in arms:
+        runs, gen = kvshards_arm(gen, args.depth, images, labels,
+                                 args.steps, args.rounds, device_arg, rank)
+        for name, rd in runs.items():
+            if not rd["bitwise_first"]:
+                failures.append(f"kvshards {name}: state differs from the "
+                                "first run's")
+            if name.startswith("shards") and rd["shards_routed"] != KV_SHARDS:
+                failures.append(f"kvshards {name}: routed over "
+                                f"{rd['shards_routed']} shards")
+            _log(rank, f"  kvshards {name}: step ms "
+                 f"{[round(x * 1e3, 2) for x in rd['step_s']]}; median "
+                 f"{rd['median_step_ms']:.2f}; {rd['rounds']} rounds; host "
+                 f"ms a round {rd['host_ms_a_round']}")
+        init(gen, {}, device_arg)
+        gen += 1
+        every = hvd.allgather_object({k: r["host_ms_a_round"]
+                                      for k, r in runs.items()})
+        shards = launcher_get("shards")["shards"] if rank == 0 else None
+        hvd.shutdown()
+        readings["kvshards"] = {"runs": runs, "host_ms_by_rank": every,
+                                "shards": shards}
+        if rank == 0 and len(shards) != KV_SHARDS:
+            failures.append(f"kvshards: /shards lists {shards}")
     if rank == 0:
         head = {"ranks": n, "depth": args.depth, "batch": args.batch,
                 "image": args.image, "device": str(device),
@@ -737,6 +1031,9 @@ def main() -> int:
         + sys.argv[1:]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    if "kvshards" in args.arms.split(","):
+        # the launcher's store in shards; each arm's workers route or not
+        env["HOROVOD_KV_SHARDS"] = str(KV_SHARDS)
     t0 = time.perf_counter()
     # a session of its own, so a timeout ends the launcher and its workers
     p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,

@@ -106,7 +106,14 @@ _ISOLATED = textwrap.dedent("""
     assert hvd.trace_report() == {"enabled": False}
     assert hvd.metrics_snapshot()["counters"]
     assert observe_probe.ARMS == ("instruments", "timeline", "straggler",
-                                  "stall", "autotune")
+                                  "stall", "autotune", "debug", "health",
+                                  "memory", "kvshards")
+    # the postmortem, memory and health layer: off by default
+    assert hvd.memory_report() == {"enabled": False}
+    assert hvd.health_report() == {"enabled": False}
+    for name in ("utils.diag", "utils.memledger", "utils.health",
+                 "utils.compile_cache"):
+        assert "horovod_tpu_torch." + name in sys.modules, name
     # the model zoo, the input pipeline and the examples
     import importlib.util
     import numpy as np

@@ -14,7 +14,8 @@ jobs through the port's ``hvdrun``, started at once.
   first chunk on both ranks and leaves no span open; then, under
   ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=2``, rank 1 withholds one named
   allreduce, which fails on rank 0 with ``StalledTensorError`` naming
-  rank 1, and the stall counters read it.
+  rank 1, and the stall counters read it; rank 1 waits for rank 0's word
+  in the launcher's store that the allreduce failed.
 """
 
 import json
@@ -126,6 +127,7 @@ FAULTS = """
 
     init(1, HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="2",
          HOROVOD_STALL_CHECK_TIME_SECONDS="1")
+    kv = context._launcher_kv()
     if RANK == 0:
         t0 = time.monotonic()
         try:
@@ -139,8 +141,12 @@ FAULTS = """
                 "hvd_stall_warnings_total",
                 "hvd_coordinator_error_tensors_total",
                 "hvd_negotiation_errors_total")}
+        kv.put("stall_case", "failed", b"1")
     else:
-        time.sleep(4)  # the cycle keeps the lockstep; "withheld" never comes
+        # the cycle keeps the lockstep while "withheld" never comes, until
+        # rank 0 says its allreduce failed (a fixed sleep raced rank 0's
+        # stall clock under load)
+        kv.get("stall_case", "failed", timeout=120)
     hvd.barrier()
     hvd.shutdown()
     with open(f"{OUT}.{RANK}.json", "w") as f:
